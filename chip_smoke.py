@@ -22,6 +22,14 @@ Phases, one JSON line each:
   timing   each kernel at the main fit's shapes (CUDA events), its plain
            version, and the HBM bound of its bytes at 3.35 TB/s.
   trace    torch.profiler over one fused fit: top device ops, idle share.
+  flash    ops.flash_attention against its plain version (the chunked
+           oracle) on the reference's test shapes, ragged, cross and
+           Sq > Skv cases, bf16 and float32; then the main path of this
+           kernel: one causal call at Yi-9B's attention width (B=1,
+           S=4096, 32 query heads, 4 KV heads, hd=128, bf16) with launch
+           counts reset just before and read just after, checked against
+           the plain version and timed beside it and beside
+           scaled_dot_product_attention (yardstick only).
 
 Then the kernels summary line, the nvidia-smi line, and the result line.
 Any failure raises: the exit code is then non-zero and no result prints.
@@ -40,6 +48,10 @@ import numpy as np
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3
 FP32_OPS_PER_S = 67e12        # H100 SXM fp32 outside the tensor cores
+BF16_OPS_PER_S = 989e12       # H100 SXM bf16 tensor cores, dense
+LPA_KERNELS = ("label_argmax", "min_label", "fused_move", "fused_split")
+# Yi-9B's attention (src/repro/configs/yi_9b.py) on one 4096-token prompt.
+FLASH_MAIN = {"b": 1, "s": 4096, "h": 32, "k": 4, "hd": 128}
 KERNELS = {
     "label_argmax": ("src/repro_torch/kernels/csrc/label_argmax.cu",
                      "src/repro/kernels/label_argmax.py:81"),
@@ -49,6 +61,8 @@ KERNELS = {
                    "src/repro/kernels/fused_sweep.py:65"),
     "fused_split": ("src/repro_torch/kernels/csrc/fused_split.cu",
                     "src/repro/kernels/fused_sweep.py:128"),
+    "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention.py:73"),
 }
 
 
@@ -123,7 +137,7 @@ def phase_kernels(torch, ops, ref, dev):
     widths = (1, 4, 16, 128, 1024)
     seeds = (0, 1, 12345, -1)
     rows_for = {1: 4096, 4: 4096, 16: 4096, 128: 512, 1024: 40}
-    err = {k: 0.0 for k in KERNELS}
+    err = {k: 0.0 for k in LPA_KERNELS}
     cases = 0
     for d in widths:
         rows = rows_for[d]
@@ -224,7 +238,7 @@ def phase_parity(torch, rt, dev):
                         "lpa_iterations": seg.lpa_iterations,
                         "split_iterations": seg.split_iterations,
                         "communities": seg.num_communities})
-    launches = dict(rt.ops.LAUNCHES)
+    launches = {k: rt.ops.LAUNCHES[k] for k in LPA_KERNELS}
     for k, v in launches.items():
         check(v > 0, f"{k} was never launched in the parity fits")
     return {"cases": out, "launches": launches}
@@ -247,9 +261,9 @@ def phase_main(torch, rt, dev):
     torch.cuda.reset_peak_memory_stats()
     rt.ops.reset_launches()
     fused = fit(backend="tile")
-    launches_fused = dict(rt.ops.LAUNCHES)
+    launches_fused = {k: rt.ops.LAUNCHES[k] for k in LPA_KERNELS}
     unfused = fit(backend="tile", fuse_sweeps="off")
-    launches = dict(rt.ops.LAUNCHES)
+    launches = {k: rt.ops.LAUNCHES[k] for k in LPA_KERNELS}
     peak = torch.cuda.max_memory_allocated()
     segment = fit(backend="segment")
     for name, n in launches.items():
@@ -407,6 +421,104 @@ def phase_trace(torch, g):
                            for k, s, c in top]}
 
 
+# ----------------------------------------------------------------- flash
+
+def _qkv(torch, gen, b, sq, h, k, hd, skv, dtype):
+    def rnd(*shape):
+        return torch.randn(shape, device=gen.device, generator=gen).to(dtype)
+    return rnd(b, sq, h, hd), rnd(b, skv, k, hd), rnd(b, skv, k, hd)
+
+
+def _rel(got, want) -> tuple[float, float]:
+    """(max abs difference, that over max abs of the plain version)."""
+    diff = float((got.float() - want.float()).abs().max())
+    return diff, diff / float(want.float().abs().max())
+
+
+def phase_flash(torch, rt, dev):
+    ops, ref = rt.ops, rt.ref
+    bf16, f32 = torch.bfloat16, torch.float32
+    tol = {bf16: 8e-3, f32: 1e-5}      # one bf16 ulp; f32 sums reordered
+    gen = torch.Generator(device=dev).manual_seed(0)
+    # (b, sq, h, k, hd, skv, causal, dtype): the reference's test shapes
+    # (tests/test_flash_attention.py), causal and not, then ragged, cross,
+    # Sq > Skv under causal, and float32.
+    cases = [(b, s, h, k, hd, s, c, bf16)
+             for b, s, h, k, hd in ((1, 256, 4, 4, 64), (2, 512, 8, 2, 64),
+                                    (1, 512, 4, 1, 128))
+             for c in (True, False)]
+    cases += [(1, 300, 4, 4, 64, 300, True, bf16),
+              (1, 256, 4, 4, 64, 512, False, bf16),
+              (1, 300, 2, 2, 64, 200, True, bf16),
+              (1, 1024, 2, 2, 64, 1024, True, bf16),
+              (1, 256, 2, 2, 64, 256, True, f32),
+              (1, 300, 2, 2, 64, 200, True, f32),
+              (1, 512, 4, 1, 128, 512, False, f32),
+              (2, 300, 8, 2, 128, 333, True, f32)]
+    checked = []
+    for b, sq, h, k, hd, skv, causal, dtype in cases:
+        q, kk, v = _qkv(torch, gen, b, sq, h, k, hd, skv, dtype)
+        got = ops.flash_attention(q, kk, v, causal=causal)
+        want = ref.flash_attention_ref(q, kk, v, causal)
+        abs_err, rel = _rel(got, want)
+        name = str(dtype).replace("torch.", "")
+        check(got.dtype == dtype and got.shape == q.shape
+              and bool(torch.isfinite(got).all()),
+              f"flash output malformed at {(b, sq, h, k, hd, skv)}")
+        check(rel < tol[dtype], f"flash disagrees with its plain version: "
+              f"{(b, sq, h, k, hd, skv, causal, name)} rel {rel}")
+        checked.append({"shape": [b, sq, h, k, hd, skv], "causal": causal,
+                        "dtype": name, "max_abs_err": abs_err,
+                        "rel_err": rel})
+
+    # The main path: one causal prefill call at Yi-9B's attention width.
+    b, s, h, k, hd = (FLASH_MAIN[x] for x in ("b", "s", "h", "k", "hd"))
+    q, kk, v = _qkv(torch, gen, b, s, h, k, hd, s, bf16)
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    out = ops.flash_attention(q, kk, v, causal=True)
+    torch.cuda.synchronize()
+    launches = ops.LAUNCHES["flash_attention"]
+    check(launches > 0, "flash_attention was not launched by the main call")
+    check(out.shape == q.shape and bool(torch.isfinite(out).all()),
+          "flash main call: malformed output")
+    want = ref.flash_attention_ref(q, kk, v, True)
+    abs_err, rel = _rel(out, want)
+    check(rel < tol[bf16], f"flash main call disagrees: rel {rel}")
+
+    ms = _time_ms(torch, lambda: ops.flash_attention(q, kk, v, causal=True))
+    plain_ms = _time_ms(torch, lambda: ref.flash_attention_ref(q, kk, v,
+                                                               True),
+                        reps=3, warmup=1)
+    # Yardstick only: PyTorch's fused attention on the (B, H, S, hd) layout.
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, kk, v))
+    lib_out = sdpa(qt, kt, vt, is_causal=True, enable_gqa=True)
+    lib_abs, lib_rel = _rel(lib_out.transpose(1, 2), want)
+    library_ms = _time_ms(torch, lambda: sdpa(qt, kt, vt, is_causal=True,
+                                              enable_gqa=True))
+    # Work this call needs: QK^T and PV over the causal pairs; q, k, v read
+    # once and the output written once.
+    pairs = s * (s + 1) // 2
+    operations = 4 * b * h * hd * pairs
+    bytes_ = (q.numel() + kk.numel() + v.numel() + out.numel()) * 2
+    ops_ms = operations / BF16_OPS_PER_S * 1e3
+    bytes_ms = bytes_ / HBM_BYTES_PER_S * 1e3
+    return {
+        "cases": checked, "tolerance_rel": {"bfloat16": 8e-3,
+                                            "float32": 1e-5},
+        "main": {"shape": FLASH_MAIN, "dtype": "bfloat16", "causal": True,
+                 "launches": launches, "max_abs_err": abs_err,
+                 "rel_err": rel, "ms": ms, "plain_ms": plain_ms,
+                 "library_ms": library_ms, "library_rel_err": lib_rel,
+                 "library_max_abs_err": lib_abs,
+                 "operations": operations, "bytes": bytes_,
+                 "bound_ms": max(ops_ms, bytes_ms),
+                 "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+                 "achieved_TFLOPs": operations / (ms * 1e-3) / 1e12},
+    }
+
+
 # ------------------------------------------------------------------ main
 
 def main() -> int:
@@ -447,15 +559,27 @@ def main() -> int:
     timing = phase_timing(torch, rt, dev, g, fused)
     emit({"phase": "timing", "kernels": timing})
     emit({"phase": "trace", **phase_trace(torch, g)})
+    flash = phase_flash(torch, rt, dev)
+    emit({"phase": "flash", **flash})
 
-    emit({"kernels": [
-        {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": launches[name], "launched_by":
-             "tile fits of grid2d(3500), fused and unfused",
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    rows = [
+        {"name": name, "route": "cuda", "source": KERNELS[name][0],
+         "replaces": KERNELS[name][1], "launches": launches[name],
+         "launched_by": "tile fits of grid2d(3500), fused and unfused",
          "max_abs_err": kernel_err[name],
-         **{k: timing[name][k] for k in
-            ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}}
-        for name, (src, rep) in KERNELS.items()]})
+         **{k: timing[name][k] for k in keys}}
+        for name in LPA_KERNELS]
+    fm = flash["main"]
+    rows.append({
+        "name": "flash_attention", "route": "cuda",
+        "source": KERNELS["flash_attention"][0],
+        "replaces": KERNELS["flash_attention"][1],
+        "launches": fm["launches"],
+        "launched_by": "flash phase: ops.flash_attention at Yi-9B width "
+                       "(B=1, S=4096, H=32, K=4, hd=128, bf16, causal)",
+        "max_abs_err": fm["max_abs_err"], **{k: fm[k] for k in keys}})
+    emit({"kernels": rows})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

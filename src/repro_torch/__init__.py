@@ -2,6 +2,7 @@
 
 The counterpart of the JAX package ``repro``, module for module: graphs
 (``core.graph``), propagation and Split-Last (``core``), the four LPA
-kernels (``kernels``) and the solo in-core ``Engine.fit`` (``engine``).
+kernels and flash attention (``kernels``), the attention oracle
+(``models.attention``) and the solo in-core ``Engine.fit`` (``engine``).
 It imports neither JAX nor the JAX package.
 """

@@ -1,2 +1,3 @@
-"""The four LPA kernels: CUDA on the card (``csrc/``), plain PyTorch on the
-CPU (``ref.py``), dispatched by ``ops.py``."""
+"""The hand-written kernels (the four LPA kernels and flash attention):
+CUDA on the card (``csrc/``), plain PyTorch on the CPU (``ref.py``),
+dispatched by ``ops.py``."""

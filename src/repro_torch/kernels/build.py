@@ -24,7 +24,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("label_argmax.cu", "min_label.cu", "fused_move.cu",
-           "fused_split.cu")
+           "fused_split.cu", "flash_attention.cu")
 HEADERS = ("lpa_common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -39,6 +39,9 @@ SIGNATURES = {
     "lpa_fused_move": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _LL, _I, _I, _P,
                        _P, _P),
     "lpa_fused_split": (_P, _P, _P, _P, _P, _I, _LL, _I, _P, _P),
+    # q, k, v, out; B, H, K, Sq, Skv, hd, causal, dtype code; stream
+    "attn_flash_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                             _P),
 }
 
 _LIB: ctypes.CDLL | None = None
@@ -73,6 +76,9 @@ def nvcc_path() -> str:
 _ENTRY = re.compile(r"Compiling entry function '([^']+)'")
 _REGS = re.compile(r"Used (\d+) registers")
 _SPILL = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
+_TEMPLATE_INT = re.compile(r"_kernelILi(\d+)E")
+_KERNELS = ("label_argmax", "min_label", "fused_move", "fused_split",
+            "flash_mma", "flash_fma")
 
 
 def _resources(ptxas_log: str) -> dict:
@@ -83,9 +89,11 @@ def _resources(ptxas_log: str) -> dict:
         m = _ENTRY.search(line)
         if m:
             mangled = m.group(1)
-            current = next((k for k in ("label_argmax", "min_label",
-                                        "fused_move", "fused_split")
-                            if f"{k}_kernel" in mangled), mangled)
+            current = next((k for k in _KERNELS if f"{k}_kernel" in mangled),
+                           mangled)
+            hd = _TEMPLATE_INT.search(mangled)
+            if hd:                      # a template instance: name<hd>
+                current += f"<{hd.group(1)}>"
             out.setdefault(current, {})
             continue
         if current is None:

@@ -1,4 +1,5 @@
-"""Public wrappers of the four LPA kernels, dispatched by the tensors' device.
+"""Public wrappers of the hand-written kernels, dispatched by the tensors'
+device: the four LPA kernels and flash attention.
 
 * A CUDA tensor launches the hand-written kernel from ``csrc/`` on the
   current stream (built at first use, see ``build.py``).  A kernel that
@@ -17,13 +18,18 @@ import torch
 
 from repro_torch.kernels import build, ref
 
-__all__ = ["LAUNCHES", "MAX_DEGREE", "fused_move", "fused_split",
-           "label_argmax", "min_label", "reset_launches", "resolve_fuse"]
+__all__ = ["LAUNCHES", "MAX_DEGREE", "flash_attention", "fused_move",
+           "fused_split", "label_argmax", "min_label", "reset_launches",
+           "resolve_fuse"]
 
 # Kernel launches per op since the last reset (CUDA path only).
 LAUNCHES: dict[str, int] = {"label_argmax": 0, "min_label": 0,
-                            "fused_move": 0, "fused_split": 0}
+                            "fused_move": 0, "fused_split": 0,
+                            "flash_attention": 0}
 MAX_DEGREE = 1024  # widest tile row the kernels take (shared-memory staging)
+# What the flash-attention kernel takes: element type -> its dtype code.
+_ATTN_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_ATTN_HEAD_DIMS = (64, 128)
 
 
 def reset_launches() -> None:
@@ -93,8 +99,9 @@ def _seed32(seed: int) -> int:
     return ((int(seed) + 2**31) % 2**32) - 2**31
 
 
-def _launch(name: str, dev: torch.device, *args) -> None:
-    fn = getattr(build.load_library(), f"lpa_{name}")
+def _launch(name: str, dev: torch.device, *args,
+            symbol: str | None = None) -> None:
+    fn = getattr(build.load_library(), symbol or f"lpa_{name}")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = fn(*args, stream)
@@ -180,4 +187,50 @@ def fused_split(nbr, nmask, labels, comm, chg, prune: bool):
         _launch("fused_split", dev, nbr.data_ptr(), nmask.data_ptr(),
                 labels.data_ptr(), comm.data_ptr(), chg.data_ptr(),
                 int(bool(prune)), rows, d, out.data_ptr())
+    return out
+
+
+def flash_attention(q, k, v, causal: bool = True):
+    """GQA attention of q (B, Sq, H, hd) over k/v (B, Skv, K, hd), the
+    models' layout in and out (see ``ref.flash_attention_ref``).
+
+    Query head h reads KV head ``h // (H // K)``; under ``causal`` query i
+    sees keys 0..i, both counted from 0.  bfloat16 or float32, hd 64 or
+    128, contiguous.  Returns (B, Sq, H, hd) in q's dtype.
+    """
+    if q.dim() != 4 or k.dim() != 4:
+        raise ValueError(f"q and k must be 4-D, got {tuple(q.shape)} and "
+                         f"{tuple(k.shape)}")
+    b, sq, h, hd = q.shape
+    skv, kk = k.shape[1], k.shape[2]
+    dev = q.device
+    if tuple(k.shape) != (b, skv, kk, hd) or tuple(v.shape) != tuple(k.shape):
+        raise ValueError(f"k and v must be (B, Skv, K, hd) = (b, ., ., {hd}) "
+                         f"alike, got {tuple(k.shape)} and {tuple(v.shape)}")
+    if q.dtype not in _ATTN_DTYPE_CODE or not (q.dtype == k.dtype == v.dtype):
+        raise ValueError(f"q, k, v must share one dtype of "
+                         f"{list(_ATTN_DTYPE_CODE)}, got {q.dtype}, "
+                         f"{k.dtype}, {v.dtype}")
+    if hd not in _ATTN_HEAD_DIMS:
+        raise ValueError(f"head dim {hd} not in {_ATTN_HEAD_DIMS}")
+    if kk < 1 or h % kk or skv < 1:
+        raise ValueError(f"need H % K == 0 and Skv >= 1, got H={h}, K={kk}, "
+                         f"Skv={skv}")
+    if not (k.device == v.device == dev) or dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"q, k, v must lie on one CPU or CUDA device, got "
+                         f"{q.device}, {k.device}, {v.device}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if dev.type == "cpu":
+        return ref.flash_attention_ref(q, k, v, causal)
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned")
+    out = torch.empty_like(q)
+    if sq and b:
+        _launch("flash_attention", dev, q.data_ptr(), k.data_ptr(),
+                v.data_ptr(), out.data_ptr(), b, h, kk, sq, skv, hd,
+                int(bool(causal)), _ATTN_DTYPE_CODE[q.dtype],
+                symbol="attn_flash_attention")
     return out

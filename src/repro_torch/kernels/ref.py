@@ -1,10 +1,13 @@
-"""Plain PyTorch versions of the four LPA kernels (bit-exact semantics).
+"""Plain PyTorch versions of the kernels in ``ops.py``.
 
-Each takes the same arguments as its kernel in ``ops.py``: the padded
-neighbor tiles ``nbr`` (rows, D) int32, ``nmask`` (rows, D) bool and, for
-the argmax, ``nw`` (rows, D) float32, plus per-vertex vectors (``labels``,
-``comm``, ``chg``) that are gathered through ``nbr`` here, as the kernels
-gather them on the card.  ``labels[:rows]`` is each row's own label.
+The four LPA kernels (bit-exact semantics) take the padded neighbor tiles
+``nbr`` (rows, D) int32, ``nmask`` (rows, D) bool and, for the argmax,
+``nw`` (rows, D) float32, plus per-vertex vectors (``labels``, ``comm``,
+``chg``) that are gathered through ``nbr`` here, as the kernels gather
+them on the card.  ``labels[:rows]`` is each row's own label.
+
+``flash_attention_ref`` is the chunked online-softmax oracle of
+``models/attention.py`` at positions ``arange``.
 
 The CPU path of every op runs these; ``chip_smoke.py`` holds each CUDA
 kernel against them on the card.
@@ -12,6 +15,8 @@ kernel against them on the card.
 from __future__ import annotations
 
 import torch
+
+from repro_torch.models.attention import chunked_attention
 
 SENTINEL = 2147483647  # INT32_MAX: "no label"
 _M32 = 0xFFFFFFFF
@@ -100,3 +105,13 @@ def fused_split_ref(nbr, nmask, labels, comm, chg, prune: bool):
     same = nmask & (comm[nbr] == comm[:rows, None])
     wake = (chg[nbr] & same).any(dim=1)
     return torch.where(wake, mres, labels[:rows])
+
+
+def flash_attention_ref(q, k, v, causal: bool):
+    """Attention of q (B, Sq, H, hd) over k/v (B, Skv, K, hd), positions
+    counted from 0 on both sides: ``chunked_attention`` in chunks of
+    ``min(512, Skv)``, returned in q's dtype."""
+    pos_q = torch.arange(q.shape[1], dtype=torch.int32, device=q.device)
+    pos_k = torch.arange(k.shape[1], dtype=torch.int32, device=q.device)
+    return chunked_attention(q, k, v, pos_q, pos_k, causal=causal,
+                             chunk=min(512, k.shape[1]))

@@ -1,6 +1,7 @@
 """PyTorch port on the card: the CUDA kernels against their plain versions
-and the CUDA engine against the CPU engine.  Imports neither JAX nor the
-JAX package, so it runs on a machine that has only PyTorch:
+(flash attention included) and the CUDA engine against the CPU engine.
+Imports neither JAX nor the JAX package, so it runs on a machine that has
+only PyTorch:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
@@ -102,10 +103,58 @@ def test_cuda_engine_matches_cpu_engine(split):
     assert ops.LAUNCHES["fused_move"] > 0
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", [
+    # (b, sq, h, k, hd, skv, causal)
+    (1, 256, 4, 4, 64, 256, True),
+    (2, 512, 8, 2, 64, 512, False),
+    (1, 512, 4, 1, 128, 512, True),
+    (1, 300, 4, 4, 64, 300, True),        # ragged, one partial tile
+    (1, 256, 4, 4, 64, 512, False),       # cross: Sq < Skv
+    (1, 300, 2, 2, 64, 200, True),        # causal with Sq > Skv
+    (2, 1, 4, 2, 128, 77, False),         # one query
+])
+def test_cuda_flash_attention_matches_plain_version(shape, dtype):
+    """The kernel against ``ref.flash_attention_ref`` on the card, relative
+    error 8e-3 in bf16 (one bf16 ulp) and 1e-5 in float32 with TF32 off."""
+    need_card()
+    b, sq, h, k, hd, skv, causal = shape
+    gen = torch.Generator(device="cuda").manual_seed(sq * 31 + skv)
+    q = torch.randn((b, sq, h, hd), device="cuda", generator=gen).to(dtype)
+    kk = torch.randn((b, skv, k, hd), device="cuda", generator=gen).to(dtype)
+    v = torch.randn((b, skv, k, hd), device="cuda", generator=gen).to(dtype)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        want = ref.flash_attention_ref(q, kk, v, causal).float()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    before = ops.LAUNCHES["flash_attention"]
+    got = ops.flash_attention(q, kk, v, causal=causal)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["flash_attention"] == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    err = float((got.float() - want).abs().max() / want.abs().max())
+    assert err < (8e-3 if dtype == torch.bfloat16 else 1e-5), err
+
+
+@pytest.mark.cuda
+def test_cuda_flash_attention_rejects_unaligned_rows():
+    need_card()
+    x = torch.zeros((1, 16 * 2 * 64 + 1), device="cuda",
+                    dtype=torch.bfloat16)
+    q = x[:, 1:].view(1, 16, 2, 64)
+    kv = torch.zeros((1, 16, 1, 64), device="cuda", dtype=torch.bfloat16)
+    with pytest.raises(ValueError):
+        ops.flash_attention(q, kv, kv, causal=True)
+
+
 def test_port_import_pulls_in_no_jax():
     """Importing the whole port loads neither JAX nor the JAX package."""
     code = ("import sys; import repro_torch.engine, repro_torch.core, "
-            "repro_torch.kernels.ops, repro_torch.graphgen; "
+            "repro_torch.kernels.ops, repro_torch.graphgen, "
+            "repro_torch.models.attention; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]; assert not bad, bad")
     subprocess.run([sys.executable, "-c", code], check=True, timeout=120,

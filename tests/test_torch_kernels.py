@@ -232,6 +232,8 @@ def test_cpu_path_launches_nothing():
     t = T(make_case(8, 4, seed=0))
     ops.label_argmax(t["nbr"], t["nw"], t["nmask"], t["labels"], 0)
     ops.min_label(t["nbr"], t["nmask"], t["labels"], t["comm"])
+    q, kv = torch.zeros((1, 8, 2, 64)), torch.zeros((1, 8, 1, 64))
+    ops.flash_attention(q, kv, kv, causal=True)
     assert set(ops.LAUNCHES.values()) == {0}
 
 
@@ -287,18 +289,23 @@ def test_seed_wraps_to_int32():
 
 # --- the CUDA build, checked without a compiler -------------------------
 
-_C_ENTRY = re.compile(r'extern "C" int (lpa_\w+)\(([^)]*)\)', re.S)
+_C_ENTRY = re.compile(r'extern "C" int ((?:lpa|attn)_\w+)\(([^)]*)\)', re.S)
+LPA_SOURCES = ("label_argmax.cu", "min_label.cu", "fused_move.cu",
+               "fused_split.cu")
 
 
 def test_c_entry_points_match_ctypes_signatures():
     """Every C entry point has the argument count its ctypes binding
-    declares (a mismatch would pass pointers in the wrong slots)."""
+    declares (a mismatch would pass pointers in the wrong slots); the LPA
+    sources share ``lpa_common.cuh``."""
+    assert set(LPA_SOURCES) < set(build.SOURCES)
     found = {}
     for src in build.SOURCES:
         text = (build.CSRC / src).read_text()
         for name, params in _C_ENTRY.findall(text):
             found[name] = len([p for p in params.split(",") if p.strip()])
-        assert '#include "lpa_common.cuh"' in text
+        if src in LPA_SOURCES:
+            assert '#include "lpa_common.cuh"' in text, src
     assert set(found) == set(build.SIGNATURES)
     for name, argtypes in build.SIGNATURES.items():
         assert found[name] == len(argtypes), name
@@ -308,7 +315,9 @@ def test_source_notes_name_the_tpu_kernel():
     replaced = {"label_argmax.cu": "label_argmax.py:label_argmax_pallas",
                 "min_label.cu": "min_label.py:min_label_pallas",
                 "fused_move.cu": "fused_sweep.py:fused_move_pallas",
-                "fused_split.cu": "fused_sweep.py:fused_split_pallas"}
+                "fused_split.cu": "fused_sweep.py:fused_split_pallas",
+                "flash_attention.cu":
+                    "flash_attention.py:flash_attention_pallas"}
     for src, tpu in replaced.items():
         head = (build.CSRC / src).read_text()[:1500]
         assert tpu in head and "Bound on the card" in head, src
@@ -321,6 +330,12 @@ def test_build_hash_and_ptxas_parse():
 ptxas info    : Function properties for _ZN12_GLOBAL__N_119label_argmax_kernelEPKi
     0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
 ptxas info    : Used 30 registers, used 0 barriers, 384 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_116flash_mma_kernelILi128EEEvPKtS2_S2_PtNS_5ShapeE' for 'sm_90a'
+    0 bytes stack frame, 20 bytes spill stores, 20 bytes spill loads
+ptxas info    : Used 168 registers, used 1 barriers, 432 bytes cmem[0]
 """
-    assert build._resources(log) == {"label_argmax": {
-        "spill_store_bytes": 0, "spill_load_bytes": 0, "registers": 30}}
+    assert build._resources(log) == {
+        "label_argmax": {"spill_store_bytes": 0, "spill_load_bytes": 0,
+                         "registers": 30},
+        "flash_mma<128>": {"spill_store_bytes": 20, "spill_load_bytes": 20,
+                           "registers": 168}}
