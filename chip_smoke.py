@@ -24,12 +24,18 @@ Phases, one JSON line each:
   trace    torch.profiler over one fused fit: top device ops, idle share.
   flash    ops.flash_attention against its plain version (the chunked
            oracle) on the reference's test shapes, ragged, cross and
-           Sq > Skv cases, bf16 and float32; then the main path of this
-           kernel: one causal call at Yi-9B's attention width (B=1,
-           S=4096, 32 query heads, 4 KV heads, hd=128, bf16) with launch
-           counts reset just before and read just after, checked against
-           the plain version and timed beside it and beside
-           scaled_dot_product_attention (yardstick only).
+           Sq > Skv cases, the TMA ring's edges (B=2 with ragged Skv,
+           several partial KV tiles, hd=64, one query), bf16 and float32;
+           then the main path of this kernel: one causal call at Yi-9B's
+           attention width (B=1, S=4096, 32 query heads, 4 KV heads,
+           hd=128, bf16) with launch counts reset just before and read
+           just after, checked against the plain version and timed beside
+           it and beside scaled_dot_product_attention (yardstick only);
+           and two more timed calls at that width, S=4096 non-causal and
+           S=16384 causal, beside SDPA.
+
+The build fails the run if ptxas reports a spill or serialised wgmma in
+the flash kernel.
 
 Then the kernels summary line, the nvidia-smi line, and the result line.
 Any failure raises: the exit code is then non-zero and no result prints.
@@ -52,6 +58,9 @@ BF16_OPS_PER_S = 989e12       # H100 SXM bf16 tensor cores, dense
 LPA_KERNELS = ("label_argmax", "min_label", "fused_move", "fused_split")
 # Yi-9B's attention (src/repro/configs/yi_9b.py) on one 4096-token prompt.
 FLASH_MAIN = {"b": 1, "s": 4096, "h": 32, "k": 4, "hd": 128}
+# More timed calls at that width: (S, causal).
+FLASH_TIMED = ((4096, False), (16384, True))
+FLASH_KERNELS = ("flash_wgmma<64>", "flash_wgmma<128>")
 KERNELS = {
     "label_argmax": ("src/repro_torch/kernels/csrc/label_argmax.cu",
                      "src/repro/kernels/label_argmax.py:81"),
@@ -455,6 +464,13 @@ def phase_flash(torch, rt, dev):
               (1, 300, 2, 2, 64, 200, True, f32),
               (1, 512, 4, 1, 128, 512, False, f32),
               (2, 300, 8, 2, 128, 333, True, f32)]
+    # The TMA ring's edges: a ragged Skv at B=2 (no tile may read into the
+    # next batch), several partial KV tiles, a 128-byte row (hd=64), one
+    # query.
+    cases += [(2, 300, 8, 2, 128, 333, True, bf16),
+              (1, 1000, 4, 1, 128, 1000, True, bf16),
+              (1, 512, 4, 1, 64, 512, False, bf16),
+              (2, 1, 4, 2, 128, 77, False, bf16)]
     checked = []
     for b, sq, h, k, hd, skv, causal, dtype in cases:
         q, kk, v = _qkv(torch, gen, b, sq, h, k, hd, skv, dtype)
@@ -479,44 +495,69 @@ def phase_flash(torch, rt, dev):
     out = ops.flash_attention(q, kk, v, causal=True)
     torch.cuda.synchronize()
     launches = ops.LAUNCHES["flash_attention"]
-    check(launches > 0, "flash_attention was not launched by the main call")
+    check(launches == 1, f"the main call made {launches} flash launches")
     check(out.shape == q.shape and bool(torch.isfinite(out).all()),
           "flash main call: malformed output")
     want = ref.flash_attention_ref(q, kk, v, True)
     abs_err, rel = _rel(out, want)
     check(rel < tol[bf16], f"flash main call disagrees: rel {rel}")
 
-    ms = _time_ms(torch, lambda: ops.flash_attention(q, kk, v, causal=True))
     plain_ms = _time_ms(torch, lambda: ref.flash_attention_ref(q, kk, v,
                                                                True),
                         reps=3, warmup=1)
-    # Yardstick only: PyTorch's fused attention on the (B, H, S, hd) layout.
+    main = _flash_timed(torch, ops, q, kk, v, True, want)
+    main.update({"shape": FLASH_MAIN, "dtype": "bfloat16", "causal": True,
+                 "launches": launches, "max_abs_err": abs_err,
+                 "rel_err": rel, "plain_ms": plain_ms})
+    del q, kk, v, out, want
+    timed = []
+    for seq, causal in FLASH_TIMED:
+        # Checked against the plain version too: the non-causal loop and
+        # the 16384-token grid are reached at this width only.
+        q, kk, v = _qkv(torch, gen, b, seq, h, k, hd, seq, bf16)
+        got = ops.flash_attention(q, kk, v, causal=causal)
+        abs_err, rel = _rel(got, ref.flash_attention_ref(q, kk, v, causal))
+        check(bool(torch.isfinite(got).all()) and rel < tol[bf16],
+              f"flash disagrees at S={seq} causal={causal}: rel {rel}")
+        row = _flash_timed(torch, ops, q, kk, v, causal)
+        timed.append({"shape": {**FLASH_MAIN, "s": seq}, "causal": causal,
+                      "max_abs_err": abs_err, "rel_err": rel, **row})
+        del q, kk, v, got
+    return {"cases": checked,
+            "tolerance_rel": {"bfloat16": 8e-3, "float32": 1e-5},
+            "main": main, "timed": timed}
+
+
+def _flash_timed(torch, ops, q, kk, v, causal, want=None):
+    """Time one flash call beside SDPA (yardstick only, on the (B, H, S,
+    hd) layout), with its work and bound; SDPA's error if `want` given."""
+    b, sq, h, hd = q.shape
+    skv = kk.shape[1]
+    ms = _time_ms(torch, lambda: ops.flash_attention(q, kk, v,
+                                                     causal=causal))
     sdpa = torch.nn.functional.scaled_dot_product_attention
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, kk, v))
-    lib_out = sdpa(qt, kt, vt, is_causal=True, enable_gqa=True)
-    lib_abs, lib_rel = _rel(lib_out.transpose(1, 2), want)
-    library_ms = _time_ms(torch, lambda: sdpa(qt, kt, vt, is_causal=True,
-                                              enable_gqa=True))
-    # Work this call needs: QK^T and PV over the causal pairs; q, k, v read
-    # once and the output written once.
-    pairs = s * (s + 1) // 2
+    row = {"ms": ms}
+    if want is not None:
+        lib_out = sdpa(qt, kt, vt, is_causal=causal, enable_gqa=True)
+        row["library_max_abs_err"], row["library_rel_err"] = _rel(
+            lib_out.transpose(1, 2), want)
+        del lib_out
+    row["library_ms"] = _time_ms(torch, lambda: sdpa(
+        qt, kt, vt, is_causal=causal, enable_gqa=True))
+    # Work the call needs: QK^T and PV over the visible (query, key)
+    # pairs; q, k, v read once and the output written once.
+    rows = np.arange(1, sq + 1)
+    pairs = int(np.minimum(rows, skv).sum()) if causal else sq * skv
     operations = 4 * b * h * hd * pairs
-    bytes_ = (q.numel() + kk.numel() + v.numel() + out.numel()) * 2
+    bytes_ = (2 * q.numel() + kk.numel() + v.numel()) * 2
     ops_ms = operations / BF16_OPS_PER_S * 1e3
     bytes_ms = bytes_ / HBM_BYTES_PER_S * 1e3
-    return {
-        "cases": checked, "tolerance_rel": {"bfloat16": 8e-3,
-                                            "float32": 1e-5},
-        "main": {"shape": FLASH_MAIN, "dtype": "bfloat16", "causal": True,
-                 "launches": launches, "max_abs_err": abs_err,
-                 "rel_err": rel, "ms": ms, "plain_ms": plain_ms,
-                 "library_ms": library_ms, "library_rel_err": lib_rel,
-                 "library_max_abs_err": lib_abs,
-                 "operations": operations, "bytes": bytes_,
-                 "bound_ms": max(ops_ms, bytes_ms),
-                 "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
-                 "achieved_TFLOPs": operations / (ms * 1e-3) / 1e12},
-    }
+    row.update({"operations": operations, "bytes": bytes_,
+                "bound_ms": max(ops_ms, bytes_ms),
+                "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+                "achieved_TFLOPs": operations / (ms * 1e-3) / 1e12})
+    return row
 
 
 # ------------------------------------------------------------------ main
@@ -548,6 +589,13 @@ def main() -> int:
     build.load_library()
     emit({"phase": "build", "wall_s": time.perf_counter() - t0,
           **build.BUILD_INFO})
+    for name in FLASH_KERNELS:
+        res = build.BUILD_INFO["resources"].get(name, {})
+        check(res.get("registers") and res.get("spill_store_bytes") == 0
+              and res.get("spill_load_bytes") == 0,
+              f"{name}: ptxas reports a spill or no entry: {res}")
+        check("wgmma_serialized" not in res, f"{name}: ptxas serialised "
+              f"its wgmma {res.get('wgmma_serialized')}")
 
     res = phase_kernels(torch, ops, ref, dev)
     kernel_err = res["max_abs_err"]

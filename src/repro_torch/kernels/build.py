@@ -77,23 +77,33 @@ _ENTRY = re.compile(r"Compiling entry function '([^']+)'")
 _REGS = re.compile(r"Used (\d+) registers")
 _SPILL = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
 _TEMPLATE_INT = re.compile(r"_kernelILi(\d+)E")
+# ptxas' note that it ran a kernel's wgmma one at a time, and why.
+_SERIALIZED = re.compile(r"wgmma\.mma_async instructions are serialized "
+                         r"(.*?) in the function '([^']+)'")
 _KERNELS = ("label_argmax", "min_label", "fused_move", "fused_split",
-            "flash_mma", "flash_fma")
+            "flash_wgmma", "flash_fma")
+
+
+def _kernel_name(mangled: str) -> str:
+    name = next((k for k in _KERNELS if f"{k}_kernel" in mangled), mangled)
+    hd = _TEMPLATE_INT.search(mangled)
+    return f"{name}<{hd.group(1)}>" if hd else name   # template: name<hd>
 
 
 def _resources(ptxas_log: str) -> dict:
-    """Registers and spill bytes per kernel from ``-Xptxas -v`` output."""
+    """Registers, spill bytes and wgmma serialisation (its reason) per
+    kernel from ``-Xptxas -v`` output."""
     out: dict = {}
     current = None
     for line in ptxas_log.splitlines():
+        m = _SERIALIZED.search(line)
+        if m:
+            out.setdefault(_kernel_name(m.group(2)), {})[
+                "wgmma_serialized"] = m.group(1)
+            continue
         m = _ENTRY.search(line)
         if m:
-            mangled = m.group(1)
-            current = next((k for k in _KERNELS if f"{k}_kernel" in mangled),
-                           mangled)
-            hd = _TEMPLATE_INT.search(mangled)
-            if hd:                      # a template instance: name<hd>
-                current += f"<{hd.group(1)}>"
+            current = _kernel_name(m.group(1))
             out.setdefault(current, {})
             continue
         if current is None:

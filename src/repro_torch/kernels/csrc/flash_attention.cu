@@ -9,23 +9,34 @@
 // (H=32, K=4, hd=128) and S=4096 that is 1.37e11 operations against 75.5 MB,
 // 0.139 ms at 989 TFLOP/s against 0.023 ms at 3.35 TB/s.
 //
-// Design: one block per (query tile, head, batch); a loop over KV tiles
+// Semantics: one block per (query tile, head, batch); a loop over KV tiles
 // takes the place of the TPU's sequential grid dimension.  Under causal it
-// stops at the last tile that meets the diagonal; every tile masks the
-// diagonal and the ragged tail k_pos >= Skv itself, so the wrapper pads
+// stops at the last tile that meets the diagonal; the diagonal and the
+// ragged tail k_pos >= Skv are masked in the kernel, so the wrapper pads
 // nothing.  q, k, v and the output are read and written in place in the
 // models' (B, S, heads, hd) layout; query head h reads KV head h / (H / K).
 // Masked logits are -1e30, m / l / acc stay float32, the output is
 // acc / max(l, 1e-30), as in the TPU kernel and its oracle.
-//  * bf16: mma.sync m16n8k16 (bf16 in, f32 accumulate).  Four warps own 16
-//    query rows each; q stays in registers as A fragments for the whole
-//    loop, K and V tiles are staged in shared memory, the scores' C
-//    fragments are rescaled in f32 and repacked in registers as the A
-//    fragments of P.V.  Loads are not pipelined (no cp.async / TMA /
-//    wgmma): the simple form first.
+//  * bf16: a Hopper kernel (sm_90a).  A block owns 128 query rows of one
+//    (head, batch) and walks KV tiles of 128 keys.  A producer warp issues
+//    TMA loads, Q once and then K and V into a two-stage shared-memory
+//    ring; "full" and "empty" mbarriers pace it against two consumer
+//    warpgroups of 64 query rows each, which setmaxnreg gives the
+//    producer's registers.  S = Q K^T is wgmma m64n128k16 with both
+//    operands K-major in shared memory.  The f32 scores are masked (only
+//    on diagonal and ragged tiles), go through exp2 with scale * log2(e)
+//    folded into one FMA, and are packed to bf16 in registers, where they
+//    already are wgmma's A fragment: O += P V takes A from registers and V
+//    from shared memory as an MN-major operand (the transpose bit).  TMA's
+//    128-byte swizzle is the layout the wgmma descriptors read, so a
+//    128-wide head loads as two 64-column boxes.  The 4-D tensor maps
+//    (hd, heads, S, B) zero-fill rows past Sq or Skv and never read into
+//    the next batch.  Blocks start with the query tiles that have the most
+//    KV tiles, which shortens the causal tail.
 //  * f32: FMA on the CUDA cores (the tensor cores' TF32 would miss the
 //    oracle's float32 by more than 1e-5).  A 16 x 16 thread grid owns a
 //    64 x 64 score tile, 4 x 4 each; P goes through shared memory.
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -39,7 +50,7 @@ constexpr int kDtypeBF16 = 1;
 constexpr unsigned kFull = 0xffffffffu;
 
 struct Shape {
-  int Sq, Skv, H, K, group;  // group = H / K
+  int B, Sq, Skv, H, K, group;  // group = H / K
   int causal;
   float scale;               // 1 / sqrt(hd)
 };
@@ -50,17 +61,143 @@ __device__ __forceinline__ bool visible(int key, int row, const Shape& s) {
 
 // ------------------------------------------------------------------ bf16
 
-constexpr int kMmaBQ = 64;       // 4 warps x 16 query rows
-constexpr int kMmaBK = 64;
-constexpr int kMmaThreads = 128;
+constexpr int kBQ = 128;          // query rows per block, 64 per consumer
+constexpr int kBK = 128;          // keys per KV tile
+constexpr int kStages = 2;        // K/V tiles in the ring
+constexpr int kThreads = 384;     // producer warpgroup + 2 consumer warpgroups
+constexpr int kBoxCols = 64;      // head dims per TMA box: 128 B, the swizzle
+constexpr int kBoxBytes = kBoxCols * 2 * kBK;   // one 128-row box, 16 KB
+constexpr int kConsumerWarps = 8;
+constexpr float kLog2e = 1.4426950408889634f;
 
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
+// Shared memory from a 1024-byte aligned base (the 128-byte swizzle's
+// period): Q, then K and V of each stage, each tile HD/64 boxes; then the
+// mbarriers q_full, k_full[kStages], v_full[kStages], empty[kStages].
+template <int HD>
+__host__ __device__ constexpr int tile_bytes() { return HD * 2 * kBK; }
+template <int HD>
+__host__ __device__ constexpr int bar_offset() {
+  return tile_bytes<HD>() * (1 + 2 * kStages);
+}
+template <int HD>
+constexpr size_t wgmma_smem_bytes() {
+  return bar_offset<HD>() + 8 * (1 + 3 * kStages) + 1024;  // + alignment
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               :: "r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(bar), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+               :: "r"(bar) : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  } while (!done);
+}
+
+// One box of a 4-D tensor map, coordinates innermost first, into shared
+// memory; completion is counted in bytes on `bar`.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int c0, int c1, int c2,
+                                         int c3) {
   asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1),
+         "r"(c2), "r"(c3), "r"(bar)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor of a 128-byte swizzled operand: start
+// address, leading and stride byte offsets (16-byte units), swizzle mode 1.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
+                                               uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// Keeps the compiler from moving accumulator reads or writes across the
+// asynchronous wgmma (no instruction is emitted).
+template <int N>
+__device__ __forceinline__ void fence_acc(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
+}
+
+#define ACC8(d, i)                                                         \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),              \
+      "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+#define ACC32(d) ACC8(d, 0), ACC8(d, 8), ACC8(d, 16), ACC8(d, 24)
+#define ACC64(d) ACC32(d), ACC8(d, 32), ACC8(d, 40), ACC8(d, 48), ACC8(d, 56)
+#define REGS32                                                             \
+  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, " \
+  "%30, %31"
+#define REGS64                                                             \
+  REGS32 ", %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "  \
+  "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, " \
+  "%58, %59, %60, %61, %62, %63"
+
+// d (64 x 128, f32) (+)= A (64 x 16) B (16 x 128)^T, both K-major in shared
+// memory; d is overwritten when `accumulate` is 0.
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
+                                              uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {" REGS64
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : ACC64(d)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d (64 x N, f32) += A (64 x 16, bf16 fragments in registers) B (16 x N),
+// B MN-major in shared memory (transpose bit set).
+__device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t* a,
+                                         uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {" REGS64
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : ACC64(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t* a,
+                                         uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {" REGS32
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : ACC32(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
 // Two floats as bf16x2, `lo` in the low half (the lower k or column index).
@@ -69,152 +206,205 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&x);
 }
 
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// A 1-D grid over (query tile, batch, head), head fastest and the last
+// query tile (under causal, the one with the most KV tiles) first; the
+// heads of one tile share their KV heads in L2.  Thread 0 loads;
+// warpgroups 1 and 2 own query rows 0-63 and 64-127 of the tile.  Their
+// accumulator fragments: warp w, lane (g = lane / 4, t = lane % 4) holds
+// rows 16w + g and 16w + g + 8, columns 8i + 2t and 8i + 2t + 1.
 template <int HD>
-__global__ void __launch_bounds__(kMmaThreads) flash_mma_kernel(
-    const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
-    const uint16_t* __restrict__ v, uint16_t* __restrict__ o, Shape s) {
-  constexpr int LD = HD + 8;   // staged row stride (bf16): 16 B of padding
-  constexpr int VEC = HD / 8;  // 16-byte vectors per row
-  __shared__ __align__(16) uint16_t ks[kMmaBK * LD];
-  __shared__ __align__(16) uint16_t vs[kMmaBK * LD];
+__global__ void __launch_bounds__(kThreads, 1) flash_wgmma_kernel(
+    const __grid_constant__ CUtensorMap q_map,
+    const __grid_constant__ CUtensorMap k_map,
+    const __grid_constant__ CUtensorMap v_map, uint16_t* __restrict__ o,
+    Shape s) {
+  constexpr int kTile = tile_bytes<HD>();
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t q_full = base + bar_offset<HD>();
+  const uint32_t k_full = q_full + 8;                 // + 8 * stage
+  const uint32_t v_full = k_full + 8 * kStages;
+  const uint32_t empty = v_full + 8 * kStages;
 
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t = lane % 4;  // fragment row group, pair index
-  const int b = blockIdx.z, h = blockIdx.y, kh = h / s.group;
-  const int q0 = blockIdx.x * kMmaBQ;
-  const long long q_stride = (long long)s.H * HD;   // one position
-  const long long kv_stride = (long long)s.K * HD;
-  const uint16_t* qb = q + (long long)b * s.Sq * q_stride + (long long)h * HD;
-  const uint16_t* kb = k + (long long)b * s.Skv * kv_stride + (long long)kh * HD;
-  const uint16_t* vb = v + (long long)b * s.Skv * kv_stride + (long long)kh * HD;
-  uint16_t* ob = o + (long long)b * s.Sq * q_stride + (long long)h * HD;
+  const int h = blockIdx.x % s.H, b = (blockIdx.x / s.H) % s.B;
+  const int qt = (s.Sq + kBQ - 1) / kBQ - 1 - blockIdx.x / (s.H * s.B);
+  const int q0 = qt * kBQ;
+  int n_tiles = (s.Skv + kBK - 1) / kBK;
+  if (s.causal) n_tiles = min(n_tiles, qt + 1);
 
-  // This thread's two query rows; their q as A fragments, zero past Sq.
-  const int r0 = q0 + 16 * warp + g, r1 = r0 + 8;
-  uint32_t qf[HD / 16][4];
-#pragma unroll
-  for (int kk = 0; kk < HD / 16; ++kk) {
-    const int c = 16 * kk + 2 * t;
-    qf[kk][0] = qf[kk][2] = qf[kk][1] = qf[kk][3] = 0u;
-    if (r0 < s.Sq) {
-      const uint16_t* p = qb + r0 * q_stride + c;
-      qf[kk][0] = *reinterpret_cast<const uint32_t*>(p);
-      qf[kk][2] = *reinterpret_cast<const uint32_t*>(p + 8);
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int st = 0; st < kStages; ++st) {
+      mbar_init(k_full + 8 * st, 1);
+      mbar_init(v_full + 8 * st, 1);
+      mbar_init(empty + 8 * st, kConsumerWarps);
     }
-    if (r1 < s.Sq) {
-      const uint16_t* p = qb + r1 * q_stride + c;
-      qf[kk][1] = *reinterpret_cast<const uint32_t*>(p);
-      qf[kk][3] = *reinterpret_cast<const uint32_t*>(p + 8);
-    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
+  __syncthreads();
 
-  float acc[HD / 8][4];
+  if (threadIdx.x < 128) {
+    // ---- producer warpgroup: one thread issues every load
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (threadIdx.x == 0) {
+      const int kh = h / s.group;
+      mbar_expect_tx(q_full, kTile);
 #pragma unroll
-  for (int n = 0; n < HD / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-  float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;  // l: this lane's part
-
-  int n_tiles = (s.Skv + kMmaBK - 1) / kMmaBK;
-  if (s.causal) n_tiles = min(n_tiles, (q0 + kMmaBQ - 1) / kMmaBK + 1);
-  for (int tile = 0; tile < n_tiles; ++tile) {
-    const int k0 = tile * kMmaBK;
-    for (int i = threadIdx.x; i < kMmaBK * VEC; i += kMmaThreads) {
-      const int r = i / VEC, c = (i % VEC) * 8;
-      uint4 kx = make_uint4(0u, 0u, 0u, 0u), vx = kx;
-      if (k0 + r < s.Skv) {
-        kx = *reinterpret_cast<const uint4*>(kb + (k0 + r) * kv_stride + c);
-        vx = *reinterpret_cast<const uint4*>(vb + (k0 + r) * kv_stride + c);
+      for (int c = 0; c < HD / kBoxCols; ++c)
+        tma_load(base + c * kBoxBytes, &q_map, q_full, c * kBoxCols, h, q0,
+                 b);
+      for (int j = 0; j < n_tiles; ++j) {
+        const int st = j % kStages;
+        if (j >= kStages) mbar_wait(empty + 8 * st, (j / kStages - 1) & 1);
+        const uint32_t ks = base + kTile * (1 + 2 * st), vs = ks + kTile;
+        mbar_expect_tx(k_full + 8 * st, kTile);
+#pragma unroll
+        for (int c = 0; c < HD / kBoxCols; ++c)
+          tma_load(ks + c * kBoxBytes, &k_map, k_full + 8 * st,
+                   c * kBoxCols, kh, j * kBK, b);
+        mbar_expect_tx(v_full + 8 * st, kTile);
+#pragma unroll
+        for (int c = 0; c < HD / kBoxCols; ++c)
+          tma_load(vs + c * kBoxBytes, &v_map, v_full + 8 * st,
+                   c * kBoxCols, kh, j * kBK, b);
       }
-      *reinterpret_cast<uint4*>(ks + r * LD + c) = kx;
-      *reinterpret_cast<uint4*>(vs + r * LD + c) = vx;
     }
-    __syncthreads();
+  } else {
+    // ---- consumer warpgroups
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+    const int wg = threadIdx.x / 128 - 1;
+    const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+    const int g = lane / 4, t = lane % 4;
+    const int row_lo = q0 + 64 * wg;
+    const int r0 = row_lo + 16 * warp + g, r1 = r0 + 8;
+    const float sl = s.scale * kLog2e;
+    // This warpgroup's 64 rows of Q: 64 rows x 128 B into each box.
+    const uint32_t q_rows = base + wg * 64 * 128;
 
-    // S = q K^T: C fragment n holds keys k0 + 8n + 2t (+1) of rows r0, r1.
-    float sc[kMmaBK / 8][4];
+    float acc[HD / 2];
 #pragma unroll
-    for (int n = 0; n < kMmaBK / 8; ++n) {
-      sc[n][0] = sc[n][1] = sc[n][2] = sc[n][3] = 0.f;
+    for (int i = 0; i < HD / 2; ++i) acc[i] = 0.f;
+    float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;  // l: lane's part
+
+    mbar_wait(q_full, 0);
+    for (int j = 0; j < n_tiles; ++j) {
+      const int st = j % kStages;
+      const uint32_t phase = (j / kStages) & 1;
+      const uint32_t ks = base + kTile * (1 + 2 * st), vs = ks + kTile;
+      const int k0 = j * kBK;
+
+      // S = Q K^T over HD / 16 steps of 16 head dims (32 B of a 128-B row).
+      float sc[64];
+      mbar_wait(k_full + 8 * st, phase);
+      wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < HD / 16; ++kk) {
-        const uint16_t* kr = ks + (8 * n + g) * LD + 16 * kk + 2 * t;
-        mma_bf16(sc[n], qf[kk], *reinterpret_cast<const uint32_t*>(kr),
-                 *reinterpret_cast<const uint32_t*>(kr + 8));
+        const uint32_t off = (kk / 4) * kBoxBytes + (kk % 4) * 32;
+        wgmma_ss_n128(sc, sw128_desc(q_rows + off, 16, 1024),
+                      sw128_desc(ks + off, 16, 1024), kk > 0);
       }
-    }
-    float mx0 = kNegInf, mx1 = kNegInf;
+      wgmma_commit();
+      fence_acc(sc);
+      wgmma_wait_all();
+      fence_acc(sc);
+
+      // Fragment i holds keys k0 + 8i + 2t (+1) of rows r0 (e < 2), r1.
+      if (k0 + kBK > s.Skv || (s.causal && k0 + kBK - 1 > row_lo)) {
 #pragma unroll
-    for (int n = 0; n < kMmaBK / 8; ++n) {
+        for (int i = 0; i < 16; ++i)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int key = k0 + 8 * n + 2 * t + (e & 1);
-        const float x = visible(key, e < 2 ? r0 : r1, s) ? sc[n][e] * s.scale
-                                                         : kNegInf;
-        sc[n][e] = x;
-        if (e < 2) mx0 = fmaxf(mx0, x); else mx1 = fmaxf(mx1, x);
+          for (int e = 0; e < 4; ++e)
+            if (!visible(k0 + 8 * i + 2 * t + (e & 1), e < 2 ? r0 : r1, s))
+              sc[4 * i + e] = kNegInf;
       }
+      float mx0 = kNegInf, mx1 = kNegInf;
+#pragma unroll
+      for (int i = 0; i < 16; ++i) {
+        mx0 = fmaxf(mx0, fmaxf(sc[4 * i], sc[4 * i + 1]));
+        mx1 = fmaxf(mx1, fmaxf(sc[4 * i + 2], sc[4 * i + 3]));
+      }
+#pragma unroll
+      for (int off = 1; off < 4; off <<= 1) {
+        mx0 = fmaxf(mx0, __shfl_xor_sync(kFull, mx0, off));
+        mx1 = fmaxf(mx1, __shfl_xor_sync(kFull, mx1, off));
+      }
+      // Raw (unscaled) maxima; scale > 0, so exp(scale * (x - m)) is
+      // exp2(x * sl - m * sl), one FMA per score.
+      const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+      const float c0 = ex2((m0 - mn0) * sl), c1 = ex2((m1 - mn1) * sl);
+      const float b0 = -mn0 * sl, b1 = -mn1 * sl;
+      m0 = mn0;
+      m1 = mn1;
+      float ps0 = 0.f, ps1 = 0.f;
+#pragma unroll
+      for (int i = 0; i < 16; ++i) {
+        sc[4 * i] = ex2(fmaf(sc[4 * i], sl, b0));
+        sc[4 * i + 1] = ex2(fmaf(sc[4 * i + 1], sl, b0));
+        sc[4 * i + 2] = ex2(fmaf(sc[4 * i + 2], sl, b1));
+        sc[4 * i + 3] = ex2(fmaf(sc[4 * i + 3], sl, b1));
+        ps0 += sc[4 * i] + sc[4 * i + 1];
+        ps1 += sc[4 * i + 2] + sc[4 * i + 3];
+      }
+      l0 = l0 * c0 + ps0;
+      l1 = l1 * c1 + ps1;
+      // P in bf16: fragments 2kk and 2kk + 1 are the A fragment of keys
+      // 16kk .. 16kk + 15 (rows g, g + 8; keys 2t.. and 2t + 8..).
+      uint32_t pa[32];
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk) {
+        pa[4 * kk] = pack_bf16(sc[8 * kk], sc[8 * kk + 1]);
+        pa[4 * kk + 1] = pack_bf16(sc[8 * kk + 2], sc[8 * kk + 3]);
+        pa[4 * kk + 2] = pack_bf16(sc[8 * kk + 4], sc[8 * kk + 5]);
+        pa[4 * kk + 3] = pack_bf16(sc[8 * kk + 6], sc[8 * kk + 7]);
+      }
+#pragma unroll
+      for (int i = 0; i < HD / 8; ++i) {
+        acc[4 * i] *= c0;
+        acc[4 * i + 1] *= c0;
+        acc[4 * i + 2] *= c1;
+        acc[4 * i + 3] *= c1;
+      }
+
+      // O += P V over 8 steps of 16 keys: V's rows are 16 keys x 128 B,
+      // 2048 B per step; the next 64 head dims are the next box (LBO), the
+      // next 8 keys the next 1024 B (SBO).
+      mbar_wait(v_full + 8 * st, phase);
+      fence_acc(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk)
+        wgmma_rs(acc, pa + 4 * kk, sw128_desc(vs + kk * 2048, kBoxBytes,
+                                              1024));
+      wgmma_commit();
+      fence_acc(acc);
+      wgmma_wait_all();
+      fence_acc(acc);
+      if (lane == 0) mbar_arrive(empty + 8 * st);
     }
+
 #pragma unroll
     for (int off = 1; off < 4; off <<= 1) {
-      mx0 = fmaxf(mx0, __shfl_xor_sync(kFull, mx0, off));
-      mx1 = fmaxf(mx1, __shfl_xor_sync(kFull, mx1, off));
+      l0 += __shfl_xor_sync(kFull, l0, off);
+      l1 += __shfl_xor_sync(kFull, l1, off);
     }
-    const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
-    const float c0 = expf(m0 - mn0), c1 = expf(m1 - mn1);
-    m0 = mn0;
-    m1 = mn1;
-    float ps0 = 0.f, ps1 = 0.f;
+    const float d0 = fmaxf(l0, 1e-30f), d1 = fmaxf(l1, 1e-30f);
+    const long long row_stride = (long long)s.H * HD;
+    uint16_t* ob = o + ((long long)b * s.Sq * s.H + h) * HD + 2 * t;
 #pragma unroll
-    for (int n = 0; n < kMmaBK / 8; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float p = expf(sc[n][e] - (e < 2 ? mn0 : mn1));
-        sc[n][e] = p;
-        if (e < 2) ps0 += p; else ps1 += p;
-      }
+    for (int i = 0; i < HD / 8; ++i) {
+      if (r0 < s.Sq)
+        *reinterpret_cast<uint32_t*>(ob + r0 * row_stride + 8 * i) =
+            pack_bf16(acc[4 * i] / d0, acc[4 * i + 1] / d0);
+      if (r1 < s.Sq)
+        *reinterpret_cast<uint32_t*>(ob + r1 * row_stride + 8 * i) =
+            pack_bf16(acc[4 * i + 2] / d1, acc[4 * i + 3] / d1);
     }
-    l0 = l0 * c0 + ps0;
-    l1 = l1 * c1 + ps1;
-#pragma unroll
-    for (int n = 0; n < HD / 8; ++n) {
-      acc[n][0] *= c0;
-      acc[n][1] *= c0;
-      acc[n][2] *= c1;
-      acc[n][3] *= c1;
-    }
-
-    // acc += P V: the C fragments of keys 16kk..16kk+15 are P's A fragment.
-#pragma unroll
-    for (int kk = 0; kk < kMmaBK / 16; ++kk) {
-      const uint32_t a[4] = {pack_bf16(sc[2 * kk][0], sc[2 * kk][1]),
-                             pack_bf16(sc[2 * kk][2], sc[2 * kk][3]),
-                             pack_bf16(sc[2 * kk + 1][0], sc[2 * kk + 1][1]),
-                             pack_bf16(sc[2 * kk + 1][2], sc[2 * kk + 1][3])};
-#pragma unroll
-      for (int n = 0; n < HD / 8; ++n) {
-        const uint16_t* vc = vs + (16 * kk + 2 * t) * LD + 8 * n + g;
-        const uint32_t b0 = (uint32_t)vc[0] | ((uint32_t)vc[LD] << 16);
-        const uint32_t b1 = (uint32_t)vc[8 * LD] | ((uint32_t)vc[9 * LD] << 16);
-        mma_bf16(acc[n], a, b0, b1);
-      }
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int off = 1; off < 4; off <<= 1) {
-    l0 += __shfl_xor_sync(kFull, l0, off);
-    l1 += __shfl_xor_sync(kFull, l1, off);
-  }
-  const float d0 = fmaxf(l0, 1e-30f), d1 = fmaxf(l1, 1e-30f);
-#pragma unroll
-  for (int n = 0; n < HD / 8; ++n) {
-    const int c = 8 * n + 2 * t;
-    if (r0 < s.Sq)
-      *reinterpret_cast<uint32_t*>(ob + r0 * q_stride + c) =
-          pack_bf16(acc[n][0] / d0, acc[n][1] / d0);
-    if (r1 < s.Sq)
-      *reinterpret_cast<uint32_t*>(ob + r1 * q_stride + c) =
-          pack_bf16(acc[n][2] / d1, acc[n][3] / d1);
   }
 }
 
@@ -364,20 +554,73 @@ cudaError_t launch_fma(const void* q, const void* k, const void* v, void* o,
   return cudaGetLastError();
 }
 
+// cuTensorMapEncodeTiled from the driver, reached through the runtime so
+// that the library needs no -lcuda.
+static_assert(CUDART_VERSION >= 12050,
+              "cudaGetDriverEntryPointByVersion needs CUDA 12.5 or later");
+using EncodeTiled = decltype(&cuTensorMapEncodeTiled);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// The (B, S, heads, hd) tensor as a 4-D map (hd, heads, S, B) whose box is
+// 64 head dims x 1 head x 128 positions, swizzled by 128 bytes; positions
+// past S read as zeros.
+CUresult encode_map(EncodeTiled encode, CUtensorMap* map, const void* ptr,
+                    int B, int S, int heads, int hd) {
+  const cuuint64_t dim[4] = {(cuuint64_t)hd, (cuuint64_t)heads,
+                             (cuuint64_t)S, (cuuint64_t)B};
+  const cuuint64_t stride[3] = {(cuuint64_t)hd * 2,
+                                (cuuint64_t)heads * hd * 2,
+                                (cuuint64_t)S * heads * hd * 2};
+  const cuuint32_t box[4] = {kBoxCols, 1, kBK, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                const_cast<void*>(ptr), dim, stride, box, elem,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+}
+
+// Returns a cudaError_t, or minus the CUresult of a failed tensor-map
+// encode.
 template <int HD>
-cudaError_t launch_mma(const void* q, const void* k, const void* v, void* o,
-                       int B, const Shape& s, cudaStream_t stream) {
-  const dim3 grid((s.Sq + kMmaBQ - 1) / kMmaBQ, s.H, B);
-  flash_mma_kernel<HD><<<grid, kMmaThreads, 0, stream>>>(
-      static_cast<const uint16_t*>(q), static_cast<const uint16_t*>(k),
-      static_cast<const uint16_t*>(v), static_cast<uint16_t*>(o), s);
-  return cudaGetLastError();
+int launch_wgmma(const void* q, const void* k, const void* v, void* o, int B,
+                 const Shape& s, cudaStream_t stream) {
+  const long long blocks = (long long)((s.Sq + kBQ - 1) / kBQ) * B * s.H;
+  if (blocks > 0x7fffffff) return (int)cudaErrorInvalidValue;
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return (int)cudaErrorSymbolNotFound;
+  CUtensorMap qm, km, vm;
+  CUresult res = encode_map(encode, &qm, q, B, s.Sq, s.H, HD);
+  if (res == CUDA_SUCCESS) res = encode_map(encode, &km, k, B, s.Skv, s.K, HD);
+  if (res == CUDA_SUCCESS) res = encode_map(encode, &vm, v, B, s.Skv, s.K, HD);
+  if (res != CUDA_SUCCESS) return -(int)res;
+  constexpr size_t smem = wgmma_smem_bytes<HD>();
+  const cudaError_t err = cudaFuncSetAttribute(
+      flash_wgmma_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  flash_wgmma_kernel<HD><<<(unsigned)blocks, kThreads, smem, stream>>>(
+      qm, km, vm, static_cast<uint16_t*>(o), s);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // q, o: (B, Sq, H, hd); k, v: (B, Skv, K, hd); all contiguous, 16-byte
-// aligned.  dtype 0 = float32, 1 = bfloat16; hd 64 or 128.
+// aligned.  dtype 0 = float32, 1 = bfloat16; hd 64 or 128.  Returns 0, a
+// cudaError_t, or minus the CUresult of a failed tensor-map encode.
 extern "C" int attn_flash_attention(const void* q, const void* k,
                                     const void* v, void* o, int B, int H,
                                     int K, int Sq, int Skv, int hd,
@@ -386,13 +629,13 @@ extern "C" int attn_flash_attention(const void* q, const void* k,
       Sq < 0 || Skv < 1)
     return (int)cudaErrorInvalidValue;
   if (Sq == 0) return (int)cudaSuccess;
-  const Shape s{Sq, Skv, H, K, H / K, causal ? 1 : 0,
+  const Shape s{B, Sq, Skv, H, K, H / K, causal ? 1 : 0,
                 (float)(1.0 / sqrt((double)hd))};
   const cudaStream_t st = (cudaStream_t)stream;
-  cudaError_t err = cudaErrorInvalidValue;
-  if (dtype == kDtypeBF16 && hd == 64) err = launch_mma<64>(q, k, v, o, B, s, st);
-  if (dtype == kDtypeBF16 && hd == 128) err = launch_mma<128>(q, k, v, o, B, s, st);
-  if (dtype == kDtypeF32 && hd == 64) err = launch_fma<64>(q, k, v, o, B, s, st);
-  if (dtype == kDtypeF32 && hd == 128) err = launch_fma<128>(q, k, v, o, B, s, st);
-  return (int)err;
+  int err = (int)cudaErrorInvalidValue;
+  if (dtype == kDtypeBF16 && hd == 64) err = launch_wgmma<64>(q, k, v, o, B, s, st);
+  if (dtype == kDtypeBF16 && hd == 128) err = launch_wgmma<128>(q, k, v, o, B, s, st);
+  if (dtype == kDtypeF32 && hd == 64) err = (int)launch_fma<64>(q, k, v, o, B, s, st);
+  if (dtype == kDtypeF32 && hd == 128) err = (int)launch_fma<128>(q, k, v, o, B, s, st);
+  return err;
 }

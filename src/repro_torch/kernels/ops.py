@@ -105,6 +105,9 @@ def _launch(name: str, dev: torch.device, *args,
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = fn(*args, stream)
+    if rc < 0:
+        raise RuntimeError(f"{name}: tensor-map encode failed with CUresult "
+                           f"{-rc}")
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed with CUDA error "
                            f"{rc}")

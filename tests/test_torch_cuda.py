@@ -114,6 +114,9 @@ def test_cuda_engine_matches_cpu_engine(split):
     (1, 256, 4, 4, 64, 512, False),       # cross: Sq < Skv
     (1, 300, 2, 2, 64, 200, True),        # causal with Sq > Skv
     (2, 1, 4, 2, 128, 77, False),         # one query
+    (2, 300, 8, 2, 128, 333, True),       # B=2, ragged Skv: no batch overrun
+    (1, 1000, 4, 1, 128, 1000, True),     # several partial KV tiles
+    (1, 512, 4, 1, 64, 512, False),       # 128-byte rows
 ])
 def test_cuda_flash_attention_matches_plain_version(shape, dtype):
     """The kernel against ``ref.flash_attention_ref`` on the card, relative

@@ -330,12 +330,20 @@ def test_build_hash_and_ptxas_parse():
 ptxas info    : Function properties for _ZN12_GLOBAL__N_119label_argmax_kernelEPKi
     0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
 ptxas info    : Used 30 registers, used 0 barriers, 384 bytes cmem[0]
-ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_116flash_mma_kernelILi128EEEvPKtS2_S2_PtNS_5ShapeE' for 'sm_90a'
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_118flash_wgmma_kernelILi128EEEv14CUtensorMap_stS1_S1_PtNS_5ShapeE' for 'sm_90a'
     0 bytes stack frame, 20 bytes spill stores, 20 bytes spill loads
+ptxas info    : Used 168 registers, used 1 barriers, 432 bytes cmem[0]
+ptxas info    : (C7515) Potential Performance Loss: wgmma.mma_async instructions are serialized due to insufficient register resources for the wgmma pipeline in the function '_ZN12_GLOBAL__N_118flash_wgmma_kernelILi64EEEv14CUtensorMap_stS1_S1_PtNS_5ShapeE'
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_118flash_wgmma_kernelILi64EEEv14CUtensorMap_stS1_S1_PtNS_5ShapeE' for 'sm_90a'
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
 ptxas info    : Used 168 registers, used 1 barriers, 432 bytes cmem[0]
 """
     assert build._resources(log) == {
         "label_argmax": {"spill_store_bytes": 0, "spill_load_bytes": 0,
                          "registers": 30},
-        "flash_mma<128>": {"spill_store_bytes": 20, "spill_load_bytes": 20,
-                           "registers": 168}}
+        "flash_wgmma<128>": {"spill_store_bytes": 20, "spill_load_bytes": 20,
+                             "registers": 168},
+        "flash_wgmma<64>": {
+            "spill_store_bytes": 0, "spill_load_bytes": 0, "registers": 168,
+            "wgmma_serialized": "due to insufficient register resources "
+                                "for the wgmma pipeline"}}
