@@ -2,25 +2,45 @@
 """Drive the PyTorch port of GSL-LPA on one NVIDIA GPU and check it.
 
     python3 chip_smoke.py            # every phase, one card
+    python3 chip_smoke.py --phases main,wide_fit,skew_fit,timing
+        # only those phases, and no result line.  The script imports the
+        # package beside it, so a copy of it in the root of another
+        # checkout (a parent commit unpacked with git archive) measures
+        # that checkout with the same phases, for a comparison.
 
 Phases, one JSON line each:
 
   device   nvidia-smi name and power limit; torch, CUDA and Python versions.
   build    nvcc build of the CUDA kernels (seconds, registers, spills).
   kernels  each kernel against its plain PyTorch version on random inputs:
-           widths D in {1, 4, 16, 128, 1024}, hash seeds {0, 1, 12345, -1},
-           edgeless rows and rows whose own label is absent.  Integer
-           weights must agree exactly; real weights must satisfy the
-           brute-force argmax property at rtol 1e-5; fused and unfused
-           kernels must agree bit for bit.
+           widths D in {1, 4, 16, 64, 128, 512, 1024}, hash seeds {0, 1,
+           12345, -1}, edgeless rows and rows whose own label is absent.
+           Integer weights must agree exactly; real weights must satisfy
+           the brute-force argmax property at rtol 1e-5; fused and unfused
+           kernels must agree bit for bit, all-inactive and all-klass-false
+           rows included.
   parity   tile backend (kernels) against segment backend on small graphs,
            every split mode, shortcut, fusion on and off.
+  c1       a real-weight segment fit on the card (planted_partition, 20,000
+           vertices, uniform(0.1, 5.0) weights) equals the CPU fit and
+           repeats exactly; segment_sum's run sums equal the CPU's bits.
   main     Engine.fit of grid2d(3500) (12.25M vertices, 49M directed edges):
            tile fused, tile unfused and segment give identical labels and
            no internally-disconnected community.  Launch counts are reset
            just before these fits and read just after.
+  wide_fit the same three fits of erdos_renyi(1<<21, 16.0) (2.1M vertices,
+           D=64 tiles): identical labels, no disconnected community.
+  skew_fit two segment fits of rmat(20, 16) (hubs of degree ~10^4, long
+           per-(vertex, label) runs): equal labels, their timings.
   timing   each kernel at the main fit's shapes (CUDA events), its plain
-           version, and the HBM bound of its bytes at 3.35 TB/s.
+           version, and its bound; label_argmax and fused_move also at the
+           ER graph's D=64 tiles and at planted_partition(128, 1024, 0.3,
+           0.001)'s D=512 tiles, with its planted labels and with
+           labels = vertex ids (a fit's first sweep), where they must
+           equal the plain version on the graphs' unit weights and, on
+           real weights from a seed, the bits of the slot-order sum
+           (ref.label_argmax_slot_order).  No kernel may beat its bytes
+           bound.
   trace    torch.profiler over one fused fit: top device ops, idle share.
   flash    ops.flash_attention against its plain version (the chunked
            oracle) on the reference's test shapes, ragged, cross and
@@ -61,6 +81,16 @@ FLASH_MAIN = {"b": 1, "s": 4096, "h": 32, "k": 4, "hd": 128}
 # More timed calls at that width: (S, causal).
 FLASH_TIMED = ((4096, False), (16384, True))
 FLASH_KERNELS = ("flash_wgmma<64>", "flash_wgmma<128>")
+# Graphs of the timing phase beyond the main fit: (name, generator call).
+ER_GRAPH = "erdos_renyi(1 << 21, 16.0, seed=0)"
+PLANTED_GRAPH = "planted_partition(128, 1024, 0.3, 0.001, seed=0)"
+SKEW_GRAPH = "rmat(20, 16, seed=0)"
+PHASES = ("kernels", "parity", "c1", "main", "wide_fit", "skew_fit",
+          "timing", "trace", "flash")
+# phase -> the phases whose graphs and fits it reuses
+NEEDS = {"timing": ("main", "wide_fit"), "trace": ("main",)}
+ARGMAX_KERNELS = ("label_argmax", "fused_move")
+PLAIN_CUBE_FLOATS = 1 << 28   # the plain argmax's D x D cube per chunk
 KERNELS = {
     "label_argmax": ("src/repro_torch/kernels/csrc/label_argmax.cu",
                      "src/repro/kernels/label_argmax.py:81"),
@@ -143,15 +173,20 @@ def _err(a, b) -> float:
 
 
 def phase_kernels(torch, ops, ref, dev):
-    widths = (1, 4, 16, 128, 1024)
+    widths = (1, 4, 16, 64, 128, 512, 1024)
     seeds = (0, 1, 12345, -1)
-    rows_for = {1: 4096, 4: 4096, 16: 4096, 128: 512, 1024: 40}
+    rows_for = {1: 4096, 4: 4096, 16: 4096, 64: 1024, 128: 512, 512: 128,
+                1024: 40}
     err = {k: 0.0 for k in LPA_KERNELS}
     cases = 0
     for d in widths:
         rows = rows_for[d]
         ti = _random_case(torch, rows, d, 11, True, dev)
         tr = _random_case(torch, rows, d, 12, False, dev)
+        # fused_move's early exits: no row active (act only from the
+        # wake), no row in the sub-sweep's class (no argmax at all)
+        none = torch.zeros_like(tr["active"])
+        states = (ti, tr, {**tr, "active": none}, {**tr, "klass": none})
         for seed in seeds:
             # label_argmax: exact on integer weights, property on real ones
             k = ops.label_argmax(ti["nbr"], ti["nw"], ti["nmask"],
@@ -172,7 +207,7 @@ def phase_kernels(torch, ops, ref, dev):
             pf = ref.fused_move_ref(*args)
             err["fused_move"] = max(err["fused_move"],
                                     *(_err(a, b) for a, b in zip(kf, pf)))
-            for t in (ti, tr):
+            for t in states:
                 new, act = ops.fused_move(
                     t["nbr"], t["nw"], t["nmask"], t["labels"], t["chg"],
                     t["active"], t["cand_prev"], t["klass"], t["real"], seed)
@@ -253,19 +288,56 @@ def phase_parity(torch, rt, dev):
     return {"cases": out, "launches": launches}
 
 
+# -------------------------------------------------------------------- c1
+
+def phase_c1(torch, dev):
+    """Real weights on the segment path: the card's fit equals the CPU
+    port's (held to the JAX package on the CPU by the tests) and repeats;
+    segment_sum folds each run in index order on both devices."""
+    from repro_torch.core.lpa import segment_sum
+    from repro_torch.engine import Engine, EngineConfig, PlanCache
+    from repro_torch.graphgen import weighted_planted_partition
+    g = weighted_planted_partition(40, 500, 0.05, 0.001, seed=3)
+    cfg = dict(split="lp", backend="segment")
+    want = Engine(EngineConfig(device="cpu", **cfg), cache=PlanCache()).fit(g)
+    fits = [Engine(EngineConfig(**cfg), cache=PlanCache()).fit(g)
+            for _ in range(2)]
+    for i, res in enumerate(fits):
+        check(res.device.startswith("cuda"), "c1: the fit did not run on "
+              "the card")
+        check(np.array_equal(res.labels, want.labels)
+              and res.lpa_iterations == want.lpa_iterations
+              and res.split_iterations == want.split_iterations,
+              f"c1: CUDA segment fit {i} != CPU fit on real weights")
+    rng = np.random.default_rng(0)
+    seg = np.sort(rng.integers(0, 500, size=1 << 20))
+    val = rng.uniform(0.1, 5.0, size=seg.size).astype(np.float32)
+    sums = [segment_sum(torch.from_numpy(val).to(d),
+                        torch.from_numpy(seg).to(d), 500).cpu().view(
+                            torch.int32) for d in ("cpu", dev, dev)]
+    check(all(torch.equal(sums[0], x) for x in sums[1:]),
+          "c1: segment_sum on the card != the CPU's bits")
+    return {"graph": "planted_partition(40, 500, 0.05, 0.001, seed=3), "
+                     "uniform(0.1, 5.0) weights", "n": g.n,
+            "directed_edges": g.num_edges, "split": "lp",
+            "lpa_iterations": want.lpa_iterations,
+            "split_iterations": want.split_iterations,
+            "communities": want.num_communities,
+            "cuda_total_s": [r.total_seconds for r in fits],
+            "cpu_total_s": want.total_seconds,
+            "segment_sum_runs": 500, "segment_sum_values": int(seg.size)}
+
+
 # ------------------------------------------------------------------ main
 
-def phase_main(torch, rt, dev):
+def _three_fits(torch, rt, g):
+    """Tile fused, tile unfused and segment fits (split lp) of ``g``, with
+    the launch counts (reset just before the tile fits, read just after)
+    and the peak device memory of the tile fits."""
     from repro_torch.engine import Engine, EngineConfig, PlanCache
-    from repro_torch.graphgen import grid2d
-    t0 = time.perf_counter()
-    g = grid2d(3500).to(dev)
-    torch.cuda.synchronize()
-    build_s = time.perf_counter() - t0
 
     def fit(**kw):
-        eng = Engine(EngineConfig(split="lp", **kw), cache=PlanCache())
-        return eng.fit(g)
+        return Engine(EngineConfig(split="lp", **kw), cache=PlanCache()).fit(g)
 
     torch.cuda.reset_peak_memory_stats()
     rt.ops.reset_launches()
@@ -275,9 +347,6 @@ def phase_main(torch, rt, dev):
     launches = {k: rt.ops.LAUNCHES[k] for k in LPA_KERNELS}
     peak = torch.cuda.max_memory_allocated()
     segment = fit(backend="segment")
-    for name, n in launches.items():
-        check(n > 0, f"{name} was not launched by the main fits")
-    launches_unfused = {k: launches[k] - launches_fused[k] for k in launches}
     for name, res in (("unfused tile", unfused), ("segment", segment)):
         check(np.array_equal(res.labels, fused.labels)
               and res.lpa_iterations == fused.lpa_iterations
@@ -290,9 +359,9 @@ def phase_main(torch, rt, dev):
         return {"timings_s": res.timings, "total_s": res.total_seconds,
                 "edges_per_s": g.num_edges / res.total_seconds}
 
-    return g, fused, {
-        "graph": "grid2d(3500)", "n": g.n, "directed_edges": g.num_edges,
-        "graph_build_s": build_s, "bucket": list(fused.bucket),
+    return fused, {
+        "n": g.n, "directed_edges": g.num_edges,
+        "bucket": list(fused.bucket),
         "lpa_iterations": fused.lpa_iterations,
         "split_iterations": fused.split_iterations,
         "communities": fused.num_communities,
@@ -300,9 +369,77 @@ def phase_main(torch, rt, dev):
         "fused": summary(fused), "unfused": summary(unfused),
         "segment": summary(segment),
         "launches": launches, "launches_fused_fit": launches_fused,
-        "launches_unfused_fit": launches_unfused,
-        "peak_bytes_tile_fits": peak,
-    }
+        "launches_unfused_fit": {k: launches[k] - launches_fused[k]
+                                 for k in launches},
+        "peak_bytes_tile_fits": peak}
+
+
+def phase_main(torch, rt, dev):
+    from repro_torch.graphgen import grid2d
+    t0 = time.perf_counter()
+    g = grid2d(3500).to(dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    fused, res = _three_fits(torch, rt, g)
+    for name, n in res["launches"].items():
+        check(n > 0, f"{name} was not launched by the main fits")
+    return g, fused, {"graph": "grid2d(3500)", "graph_build_s": build_s,
+                      **res}
+
+
+def phase_wide_fit(torch, rt, dev):
+    """The main fit's check at D=64 tiles: tile fused, tile unfused and
+    segment fits of the ER graph give identical labels and iteration
+    counts and no internally-disconnected community."""
+    from repro_torch.graphgen import erdos_renyi
+    t0 = time.perf_counter()
+    g = erdos_renyi(1 << 21, 16.0, seed=0).to(dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    fused, res = _three_fits(torch, rt, g)
+    return g, fused, {"graph": ER_GRAPH, "graph_build_s": build_s, **res}
+
+
+def phase_skew_fit(torch, dev):
+    """Two segment fits (split lp) of a skewed graph: R-MAT with Graph500's
+    parameters, whose hubs give long (vertex, label) runs, each summed by
+    one thread in segment_sum.  The fits must agree; the labels' digest
+    lets runs of other checkouts be compared with them."""
+    import hashlib
+
+    from repro_torch.engine import Engine, EngineConfig, PlanCache
+    from repro_torch.graphgen import rmat
+    t0 = time.perf_counter()
+    g = rmat(20, 16, seed=0).to(dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    fits = [Engine(EngineConfig(backend="segment", split="lp"),
+                   cache=PlanCache()).fit(g) for _ in range(2)]
+    a, b = fits
+    check(np.array_equal(a.labels, b.labels)
+          and (a.lpa_iterations, a.split_iterations)
+          == (b.lpa_iterations, b.split_iterations),
+          "skew_fit: two segment fits of one graph differ")
+    frac = a.check_connected(g)
+    check(frac == 0.0, f"skew_fit: disconnected fraction {frac}")
+    # the longest (vertex, community) run of the result: what one thread
+    # folds in the last sweeps
+    src = g.src[:g.num_edges].long()
+    lab = torch.from_numpy(np.asarray(a.labels)).to(dev).long()
+    key = src * g.n + lab[g.dst[:g.num_edges].long()]
+    return {"graph": SKEW_GRAPH, "graph_build_s": build_s, "n": g.n,
+            "directed_edges": g.num_edges,
+            "max_degree": int(torch.bincount(src).max()),
+            "longest_run": int(torch.unique(key, return_counts=True)[1]
+                               .max()),
+            "lpa_iterations": a.lpa_iterations,
+            "split_iterations": a.split_iterations,
+            "communities": a.num_communities, "disconnected_fraction": frac,
+            "labels_sha256": hashlib.sha256(
+                np.asarray(a.labels).tobytes()).hexdigest()[:16],
+            "fits": [{"timings_s": r.timings, "total_s": r.total_seconds,
+                      "edges_per_s": g.num_edges / r.total_seconds}
+                     for r in fits]}
 
 
 # ---------------------------------------------------------------- timing
@@ -321,72 +458,222 @@ def _time_ms(torch, fn, reps=20, warmup=3):
     return start.elapsed_time(end) / reps
 
 
-def phase_timing(torch, rt, dev, g, fused):
+def _timing_tiles(torch, g, rows, d, labels_np, dev):
+    """Tiles and per-row state of one timing call: the graph's padded
+    tiles at (rows, d), ``labels_np`` on its vertices (ids beyond), the
+    hashed parity class as klass, every row active, 10 % changed."""
     from repro_torch.core.graph import to_padded_neighbors
     from repro_torch.kernels.ref import label_hash
-    ops, ref = rt.ops, rt.ref
-    rows, _m, d = fused.bucket
     nbr, nw, nmask = to_padded_neighbors(g, d_max=d, rows=rows)
     ids = torch.arange(rows, dtype=torch.int32, device=dev)
     labels = ids.clone()
-    labels[: g.n] = torch.from_numpy(fused.labels).to(dev)
-    parity = (label_hash(ids, -1) & 1).bool()
+    labels[: g.n] = torch.from_numpy(np.asarray(labels_np)).to(dev)
     rng = np.random.default_rng(0)
-    chg = torch.from_numpy(rng.random(rows) < 0.1).to(dev)
-    active = torch.ones(rows, dtype=torch.bool, device=dev)
-    cand_prev = torch.zeros_like(active)
-    real = ids < g.n
-    cells = int(nmask.sum())
-    L = rows
-    # Bytes each call must move: the mask tile, nbr / weight of real cells,
-    # each per-vertex vector once, each output once.
-    bytes_ = {
-        "label_argmax": rows * d + cells * 8 + 4 * L + 12 * rows,
-        "min_label": rows * d + cells * 4 + 8 * L + 4 * rows,
-        "fused_move": rows * d + cells * 8 + 5 * L + 4 * rows + 5 * rows,
-        "fused_split": rows * d + cells * 4 + 8 * L + 4 * rows,
-    }
-    ops_count = {"label_argmax": 2 * cells * d, "fused_move": 2 * cells * d,
-                 "min_label": cells, "fused_split": cells}
-    calls = {
-        "label_argmax": (lambda: ops.label_argmax(nbr, nw, nmask, labels, 3),
-                         lambda: ref.label_argmax_ref(nbr, nw, nmask,
-                                                      labels, 3)),
-        "min_label": (lambda: ops.min_label(nbr, nmask, ids, labels),
-                      lambda: ref.min_label_ref(nbr, nmask, ids, labels)),
-        "fused_move": (lambda: ops.fused_move(nbr, nw, nmask, labels, chg,
-                                              active, cand_prev, parity,
-                                              real, 3),
-                       lambda: ref.fused_move_ref(nbr, nw, nmask, labels, chg,
-                                                  active, cand_prev, parity,
-                                                  real, 3)),
-        # the main fit's split is lp: no prune, chg not read
-        "fused_split": (lambda: ops.fused_split(nbr, nmask, ids, labels, chg,
-                                                False),
-                        lambda: ref.fused_split_ref(nbr, nmask, ids, labels,
-                                                    chg, False)),
-    }
+    return {"nbr": nbr, "nw": nw, "nmask": nmask, "labels": labels,
+            "ids": ids,
+            "chg": torch.from_numpy(rng.random(rows) < 0.1).to(dev),
+            "active": torch.ones(rows, dtype=torch.bool, device=dev),
+            "cand_prev": torch.zeros(rows, dtype=torch.bool, device=dev),
+            "klass": (label_hash(ids, -1) & 1).bool(), "real": ids < g.n}
+
+
+def _move_args(t, nw=None):
+    return (t["nbr"], t["nw"] if nw is None else nw, t["nmask"], t["labels"],
+            t["chg"], t["active"], t["cand_prev"], t["klass"], t["real"])
+
+
+def _plain_rows(torch, ref, name, t, seed):
+    """The plain version of B1 / B3 over row chunks whose D x D equality
+    cube stays within 1 GiB of float32.  The plain version reads
+    ``labels[:rows]`` as the rows' own labels, so each chunk's labels (and
+    changed flags) go first and its nbr is shifted past them."""
+    fn = {"label_argmax": ref.label_argmax_ref,
+          "fused_move": ref.fused_move_ref}[name]
+    rows, d = t["nbr"].shape
+    step = max(1, PLAIN_CUBE_FLOATS // (d * d))
+    if step >= rows:
+        args = (_move_args(t) if name == "fused_move"
+                else (t["nbr"], t["nw"], t["nmask"], t["labels"]))
+        return fn(*args, seed)
+    outs = []
+    for lo in range(0, rows, step):
+        hi = min(rows, lo + step)
+        nbr = t["nbr"][lo:hi] + (hi - lo)
+        lab = torch.cat([t["labels"][lo:hi], t["labels"]])
+        tile = (nbr, t["nw"][lo:hi], t["nmask"][lo:hi], lab)
+        if name == "fused_move":
+            chg = torch.cat([t["chg"][lo:hi], t["chg"]])
+            tile += (chg, *(t[k][lo:hi] for k in ("active", "cand_prev",
+                                                  "klass", "real")))
+        outs.append(fn(*tile, seed))
+    return tuple(torch.cat(x) for x in zip(*outs))
+
+
+def _bits_check(torch, rt, t, dev, seed=3):
+    """B1 and B3 on real weights (uniform(0.1, 5.0) on the real cells, from
+    a seed) against the slot-order sum (``ref.label_argmax_slot_order``),
+    bit for bit."""
+    gen = torch.Generator(device=dev).manual_seed(1234)
+    nw = torch.empty(t["nw"].shape, device=dev).uniform_(0.1, 5.0,
+                                                          generator=gen)
+    nw = torch.where(t["nmask"], nw, 0.0)
+    got = rt.ops.label_argmax(t["nbr"], nw, t["nmask"], t["labels"], seed)
+    want = rt.ref.label_argmax_slot_order(t["nbr"], nw, t["nmask"],
+                                          t["labels"], seed)
+    for a, b, what in zip(got, want, ("best_lab", "best_w", "cur_w")):
+        check(torch.equal(a.view(torch.int32), b.view(torch.int32)),
+              f"label_argmax {what} != the slot-order sum's bits "
+              f"(d={t['nbr'].shape[1]})")
+    new, act = rt.ops.fused_move(*_move_args(t, nw), seed)
+    bl, bw, cw = want
+    wake = (t["chg"][t["nbr"]] & t["nmask"]).any(dim=1)
+    act_want = (t["active"] & ~t["cand_prev"]) | (wake & t["real"])
+    adopt = act_want & t["klass"] & (bw > cw.clamp_min(0.0))
+    check(torch.equal(act, act_want)
+          and torch.equal(new, torch.where(adopt, bl, t["labels"])),
+          f"fused_move != the slot-order sum + glue "
+          f"(d={t['nbr'].shape[1]})")
+    return {"weights": "uniform(0.1, 5.0)", "bits_equal": True,
+            "rows_adopting": int(adopt.sum())}
+
+
+def _argmax_work(torch, t, name):
+    """(bytes, bytes_all_rows, operations) of one B1 / B3 call on ``t``.
+
+    Bytes: what a correct kernel must move, each input read once and each
+    output written once.  B1 reads every row: the mask tile, nbr and
+    weight of each real cell, the label vector, and writes 12 B per row.
+    B3 reads each row's 4 state bytes and its label and writes 5 B; only
+    rows whose act needs the wake (not active && !cand_prev, and real)
+    add their mask row, their real cells' nbr and the changed vector, and
+    only rows that can adopt (act && klass) add mask, nbr and weights.
+    ``bytes_all_rows`` is the earlier model that counts every row's tile.
+    Operations: at least r * ceil(log2 r) compares per row that needs an
+    argmax (a sort of its r real labels), counted at the fp32 rate.
+    """
+    nbr, nmask = t["nbr"], t["nmask"]
+    rows, d = nmask.shape
+    n_vec = t["labels"].numel()
+    r = nmask.sum(dim=1)
+    cells = int(r.sum())
+
+    def compares(sel):
+        rr = r[sel].double()
+        return float((rr * torch.ceil(torch.log2(rr.clamp_min(1)))).sum())
+
+    if name == "label_argmax":
+        b = rows * d + 8 * cells + 4 * n_vec + 12 * rows
+        return b, b, compares(torch.ones_like(nmask[:, 0]))
+    known = t["active"] & ~t["cand_prev"]
+    wake_rows = ~known & t["real"]
+    wake = (t["chg"][nbr] & nmask).any(dim=1)
+    arg_rows = (known | (wake & t["real"])) & t["klass"]
+    touched = wake_rows | arg_rows
+    b = (9 * rows + 4 * n_vec + int(touched.sum()) * d
+         + 4 * int(r[touched].sum()) + 4 * int(r[arg_rows].sum())
+         + (n_vec if bool(wake_rows.any()) else 0))
+    all_rows = rows * d + cells * 8 + 5 * n_vec + 4 * rows + 5 * rows
+    return b, all_rows, compares(arg_rows)
+
+
+def _kernel_row(torch, name, t, kern, plain, plain_reps, work):
+    """Check a kernel against its plain version exactly, time both, and
+    hold the kernel to its bound (``work`` = bytes, bytes_all_rows,
+    operations)."""
+    ka, pa = kern(), plain()
+    ka = ka if isinstance(ka, tuple) else (ka,)
+    pa = pa if isinstance(pa, tuple) else (pa,)
+    err = max(_err(a, b) for a, b in zip(ka, pa))
+    rows, d = t["nbr"].shape
+    check(err == 0.0, f"{name} disagrees with its plain version at "
+          f"({rows}, {d}): {err}")
+    ms = _time_ms(torch, kern)
+    plain_ms = _time_ms(torch, plain, reps=plain_reps, warmup=1)
+    bytes_, bytes_all, ops_n = work
+    bytes_ms = bytes_ / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops_n / FP32_OPS_PER_S * 1e3
+    share = bytes_ms / ms
+    check(share <= 1.0, f"{name} at ({rows}, {d}) took {ms} ms, under its "
+          f"bytes bound {bytes_ms} ms: the bound's model is wrong")
+    return ka, {
+        "rows": rows, "d": d, "real_cells": int(t["nmask"].sum()),
+        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": max(bytes_ms, ops_ms),
+        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "bytes": bytes_, "bytes_all_rows": bytes_all, "operations": ops_n,
+        "achieved_GBps": bytes_ / (ms * 1e-3) / 1e9,
+        "bytes_bound_share": share, "library_ms": None}
+
+
+def _time_argmax(torch, rt, t, plain_reps, seed=3):
+    """B1 and B3 on ``t``: exact against the plain version, timed, with
+    their bounds."""
     out = {}
-    for name, (kern, plain) in calls.items():
-        ka, pa = kern(), plain()
-        err = max(_err(a, b) for a, b in zip(
-            ka if isinstance(ka, tuple) else (ka,),
-            pa if isinstance(pa, tuple) else (pa,)))
-        check(err == 0.0, f"{name} disagrees at the main shapes: {err}")
-        ms = _time_ms(torch, kern)
-        plain_ms = _time_ms(torch, plain, reps=5, warmup=1)
-        bytes_ms = bytes_[name] / HBM_BYTES_PER_S * 1e3
-        ops_ms = ops_count[name] / FP32_OPS_PER_S * 1e3
-        out[name] = {
-            "rows": rows, "d": d, "real_cells": cells,
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": max(bytes_ms, ops_ms),
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-            "bytes": bytes_[name], "operations": ops_count[name],
-            "achieved_GBps": bytes_[name] / (ms * 1e-3) / 1e9,
-            "library_ms": None,
-        }
+    for name in ARGMAX_KERNELS:
+        if name == "label_argmax":
+            def kern():
+                return rt.ops.label_argmax(t["nbr"], t["nw"], t["nmask"],
+                                           t["labels"], seed)
+        else:
+            def kern():
+                return rt.ops.fused_move(*_move_args(t), seed)
+        out[name] = _kernel_row(
+            torch, name, t, kern,
+            lambda n=name: _plain_rows(torch, rt.ref, n, t, seed),
+            plain_reps, _argmax_work(torch, t, name))[1]
     return out
+
+
+def phase_timing(torch, rt, dev, cases):
+    """``cases``: (graph name, graph, rows, d, labels) per width, the main
+    fit's first.  B2 / B4 are timed at the main shapes only."""
+    ops, ref = rt.ops, rt.ref
+    widths = []
+    for gname, g, rows, d, labels in cases:
+        t = _timing_tiles(torch, g, rows, d, labels, dev)
+        torch.cuda.synchronize()
+        row = {"graph": gname, "rows": rows, "d": d,
+               "real_cells": int(t["nmask"].sum()),
+               "real_weight_check": _bits_check(torch, rt, t, dev)}
+        row.update(_time_argmax(torch, rt, t,
+                                plain_reps=5 if d <= 8 else 2))
+        if not widths:
+            main_t = t
+        else:
+            del t
+        widths.append(row)
+    t = main_t
+    nbr, nmask, ids, labels = t["nbr"], t["nmask"], t["ids"], t["labels"]
+    rows, d = nbr.shape
+    # B3 at the main shapes with klass on every row, and on the first half
+    # of the rows (as many rows as the parity class, but contiguous): how
+    # far the parity class's interleaved rows keep the tile's bytes read
+    layouts = {}
+    for tag, kl in (("parity", t["klass"]), ("all_rows", ids >= 0),
+                    ("first_half", ids < rows // 2)):
+        tk = {**t, "klass": kl}
+        layouts[tag] = {
+            "rows_in_klass": int(kl.sum()),
+            "ms": _time_ms(torch, lambda tk=tk: ops.fused_move(
+                *_move_args(tk), 3)),
+            "bytes": _argmax_work(torch, tk, "fused_move")[0]}
+    cells = int(nmask.sum())
+    main = {k: widths[0][k] for k in ARGMAX_KERNELS}
+    # the main fit's split is lp: no prune, chg not read
+    for name, kern, plain in (
+            ("min_label", lambda: ops.min_label(nbr, nmask, ids, labels),
+             lambda: ref.min_label_ref(nbr, nmask, ids, labels)),
+            ("fused_split",
+             lambda: ops.fused_split(nbr, nmask, ids, labels, t["chg"],
+                                     False),
+             lambda: ref.fused_split_ref(nbr, nmask, ids, labels, t["chg"],
+                                         False))):
+        # the mask tile, nbr of real cells, two vectors, the output
+        b = rows * d + cells * 4 + 8 * rows + 4 * rows
+        main[name] = _kernel_row(torch, name, t, kern, plain, 5,
+                                 (b, b, cells))[1]
+    return {"kernels": main, "argmax_widths": widths,
+            "fused_move_klass_layouts": layouts}
 
 
 # ----------------------------------------------------------------- trace
@@ -562,7 +849,27 @@ def _flash_timed(torch, ops, q, kk, v, causal, want=None):
 
 # ------------------------------------------------------------------ main
 
-def main() -> int:
+def _parse_args(argv):
+    import argparse
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--phases", default=",".join(PHASES),
+                    help="comma-separated phases to run (default: all); the "
+                    "kernels summary and the result line print only when "
+                    "all ran")
+    args = ap.parse_args(argv)
+    args.phases = [x for x in args.phases.split(",") if x]
+    for name in args.phases:
+        if name not in PHASES:
+            ap.error(f"unknown phase {name!r}; phases: {', '.join(PHASES)}")
+        for need in NEEDS.get(name, ()):
+            if need not in args.phases:
+                ap.error(f"phase {name} needs phase {need}")
+    return args
+
+
+def main(argv=None) -> int:
+    args = _parse_args(argv)
+    run = set(args.phases)
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
@@ -597,18 +904,54 @@ def main() -> int:
         check("wgmma_serialized" not in res, f"{name}: ptxas serialised "
               f"its wgmma {res.get('wgmma_serialized')}")
 
-    res = phase_kernels(torch, ops, ref, dev)
-    kernel_err = res["max_abs_err"]
-    emit({"phase": "kernels", **res})
-    emit({"phase": "parity", **phase_parity(torch, rt, dev)})
-    g, fused, res = phase_main(torch, rt, dev)
-    launches = res["launches"]
-    emit({"phase": "main", **res})
-    timing = phase_timing(torch, rt, dev, g, fused)
-    emit({"phase": "timing", "kernels": timing})
-    emit({"phase": "trace", **phase_trace(torch, g)})
-    flash = phase_flash(torch, rt, dev)
-    emit({"phase": "flash", **flash})
+    if "kernels" in run:
+        res = phase_kernels(torch, ops, ref, dev)
+        kernel_err = res["max_abs_err"]
+        emit({"phase": "kernels", **res})
+    if "parity" in run:
+        emit({"phase": "parity", **phase_parity(torch, rt, dev)})
+    if "c1" in run:
+        emit({"phase": "c1", **phase_c1(torch, dev)})
+    if "main" in run:
+        g, fused, res = phase_main(torch, rt, dev)
+        launches = res["launches"]
+        emit({"phase": "main", **res})
+    if "wide_fit" in run:
+        g_er, fused_er, res = phase_wide_fit(torch, rt, dev)
+        emit({"phase": "wide_fit", **res})
+    if "skew_fit" in run:
+        emit({"phase": "skew_fit", **phase_skew_fit(torch, dev)})
+    if "timing" in run:
+        from repro_torch.engine.bucketing import bucket_for
+        from repro_torch.graphgen import planted_partition
+        t0 = time.perf_counter()
+        g_pp, truth = planted_partition(128, 1024, 0.3, 0.001, seed=0)
+        g_pp = g_pp.to(dev)
+        pp_build_s = time.perf_counter() - t0
+        b_pp = bucket_for(g_pp)
+        cases = [("grid2d(3500)", g, fused.bucket[0], fused.bucket[2],
+                  fused.labels),
+                 (ER_GRAPH, g_er, fused_er.bucket[0], fused_er.bucket[2],
+                  fused_er.labels),
+                 (PLANTED_GRAPH + ", ground-truth labels", g_pp, b_pp.n,
+                  b_pp.d, truth),
+                 # a fit's first sweep: every label distinct, all tied
+                 (PLANTED_GRAPH + ", labels = vertex ids", g_pp, b_pp.n,
+                  b_pp.d, np.arange(g_pp.n, dtype=np.int32))]
+        timing = phase_timing(torch, rt, dev, cases)
+        del g_er, fused_er, g_pp, cases
+        emit({"phase": "timing", "planted_graph_build_s": pp_build_s,
+              **timing})
+        timing = timing["kernels"]
+    if "trace" in run:
+        emit({"phase": "trace", **phase_trace(torch, g)})
+    if "flash" in run:
+        flash = phase_flash(torch, rt, dev)
+        emit({"phase": "flash", **flash})
+    if run != set(PHASES):
+        print("chip_smoke: a subset of the phases ran; no kernels summary "
+              "and no result line", file=sys.stderr)
+        return 0
 
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     rows = [

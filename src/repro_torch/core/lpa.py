@@ -31,7 +31,7 @@ from repro_torch.core.graph import Graph
 from repro_torch.kernels.ref import label_hash
 
 __all__ = ["LpaState", "label_hash", "lpa_move", "lpa_run", "neighbors_of",
-           "threshold_for"]
+           "segment_sum", "threshold_for"]
 
 
 class LpaState(NamedTuple):
@@ -51,6 +51,29 @@ def threshold_for(tau: float, n: int, n_real: int | None) -> int:
     if n_real is None:
         return int(tau * n)
     return int(np.float32(tau) * np.float32(n_real))
+
+
+def segment_sum(values: torch.Tensor, seg: torch.Tensor, num_segments: int,
+                sorted_ids: bool = False) -> torch.Tensor:
+    """Per-segment sums of ``values`` (1-D) over ids ``seg`` in
+    [0, num_segments), each folded left to right in index order from 0.0.
+
+    That is the order of ``jax.ops.segment_sum`` on XLA's CPU, and it does
+    not change between runs or devices: ``index_add_`` on CUDA is an
+    atomic scatter whose float order is not fixed.  ``segment_reduce`` on a
+    2-D (m, 1) input folds each segment in one thread, so a segment of
+    millions of entries takes a thread that long: keep the ones whose sum
+    is not needed out.  Unless ``sorted_ids``, the ids are first sorted
+    stably.
+    """
+    if not sorted_ids:
+        seg, order = torch.sort(seg, stable=True)
+        values = values[order]
+    bounds = torch.arange(num_segments + 1, dtype=seg.dtype,
+                          device=seg.device)
+    offsets = torch.searchsorted(seg, bounds)
+    return torch.segment_reduce(values[:, None], "sum", offsets=offsets,
+                                axis=0, unsafe=True)[:, 0]
 
 
 def _scan_communities(graph: Graph, labels: torch.Tensor,
@@ -73,10 +96,12 @@ def _scan_communities(graph: Graph, labels: torch.Tensor,
 
     is_start = torch.ones(m_pad, dtype=torch.bool, device=key.device)
     is_start[1:] = key_s[1:] != key_s[:-1]
+    # each padding edge is a run of its own (invalid below): one run of
+    # them all would be folded in one thread by segment_sum
+    is_start |= key_s == n * (bound + 1) + bound
     run_id = torch.cumsum(is_start, 0) - 1
 
-    run_wgt = torch.zeros(m_pad, dtype=torch.float32, device=key.device)
-    run_wgt.index_add_(0, run_id, wgt_s)
+    run_wgt = segment_sum(wgt_s, run_id, m_pad, sorted_ids=True)
     run_key = torch.zeros(m_pad, dtype=torch.int64, device=key.device)
     run_key.scatter_reduce_(0, run_id, key_s, "amax")
     run_valid = torch.zeros(m_pad, dtype=torch.bool, device=key.device)

@@ -13,6 +13,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.graph import Graph
+from repro_torch.core.lpa import segment_sum
 
 
 def modularity(graph: Graph, comm: torch.Tensor) -> torch.Tensor:
@@ -21,9 +22,11 @@ def modularity(graph: Graph, comm: torch.Tensor) -> torch.Tensor:
     s = graph.total_weight  # = 2m
     csrc = comm[graph.src.long()]
     within = graph.edge_mask & (csrc == comm[graph.dst.long()])
-    in_c = torch.zeros(n, dtype=torch.float32, device=graph.device)
-    in_c.index_add_(0, csrc, torch.where(within, graph.wgt, 0.0))
-    k_c = torch.zeros(n, dtype=torch.float32, device=graph.device)
-    k_c.index_add_(0, comm, graph.kdeg)
+    # index-order sums (segment_sum): Q repeats bit for bit on the card.
+    # Edges outside a community (padding included) would add 0.0, which
+    # changes no sum: leave them out, so no segment folds them.
+    idx = torch.nonzero(within)[:, 0]
+    in_c = segment_sum(graph.wgt[idx], csrc[idx], n)
+    k_c = segment_sum(graph.kdeg, comm, n)
     s = s.clamp_min(1e-30)   # empty graph: Q := 0, not NaN
     return (in_c / s - (k_c / s) ** 2).sum()

@@ -7,4 +7,5 @@ from repro_torch.graphgen.synthetic import (  # noqa: F401
     ring_of_cliques,
     rmat,
     sbm,
+    weighted_planted_partition,
 )

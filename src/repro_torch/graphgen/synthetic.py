@@ -57,6 +57,20 @@ def planted_partition(n_comm: int, comm_size: int, p_in: float = 0.3,
     return sbm([comm_size] * n_comm, p_in, p_out, seed, device=device)
 
 
+
+def weighted_planted_partition(n_comm: int, comm_size: int, p_in: float,
+                               p_out: float, seed: int = 0,
+                               low: float = 0.1, high: float = 5.0,
+                               device="cpu") -> Graph:
+    """``planted_partition`` with each undirected edge weighted
+    uniform(low, high) in float32, drawn from ``seed``: real weights, whose
+    float sums depend on their order."""
+    g = planted_partition(n_comm, comm_size, p_in, p_out, seed=seed)[0]
+    src, dst = (x[:g.num_edges].numpy() for x in (g.src, g.dst))
+    e = np.stack([src, dst], 1)[src < dst]
+    w = np.random.default_rng(seed).uniform(low, high, size=len(e))
+    return build_graph(e, w.astype(np.float32), n=g.n, device=device)
+
 def rmat(scale: int, edge_factor: int = 16, a: float = 0.57, b: float = 0.19,
          c: float = 0.19, seed: int = 0, device="cpu") -> Graph:
     """Kronecker/RMAT power-law graph (Graph500-style parameters)."""

@@ -80,14 +80,15 @@ _TEMPLATE_INT = re.compile(r"_kernelILi(\d+)E")
 # ptxas' note that it ran a kernel's wgmma one at a time, and why.
 _SERIALIZED = re.compile(r"wgmma\.mma_async instructions are serialized "
                          r"(.*?) in the function '([^']+)'")
-_KERNELS = ("label_argmax", "min_label", "fused_move", "fused_split",
-            "flash_wgmma", "flash_fma")
+_KERNELS = ("label_argmax_narrow", "label_argmax_wide", "label_argmax",
+            "min_label", "fused_move_narrow", "fused_move_wide", "fused_move",
+            "fused_split", "flash_wgmma", "flash_fma")
 
 
 def _kernel_name(mangled: str) -> str:
     name = next((k for k in _KERNELS if f"{k}_kernel" in mangled), mangled)
     hd = _TEMPLATE_INT.search(mangled)
-    return f"{name}<{hd.group(1)}>" if hd else name   # template: name<hd>
+    return f"{name}<{hd.group(1)}>" if hd else name   # template: name<N>
 
 
 def _resources(ptxas_log: str) -> dict:

@@ -26,7 +26,7 @@ __all__ = ["LAUNCHES", "MAX_DEGREE", "flash_attention", "fused_move",
 LAUNCHES: dict[str, int] = {"label_argmax": 0, "min_label": 0,
                             "fused_move": 0, "fused_split": 0,
                             "flash_attention": 0}
-MAX_DEGREE = 1024  # widest tile row the kernels take (shared-memory staging)
+MAX_DEGREE = 1024  # widest tile row the kernels take (shared-memory rows)
 # What the flash-attention kernel takes: element type -> its dtype code.
 _ATTN_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _ATTN_HEAD_DIMS = (64, 128)
@@ -94,6 +94,14 @@ def _tiles(nbr: torch.Tensor, nmask: torch.Tensor,
     return rows, d, dev
 
 
+def _check_aligned(**tiles: torch.Tensor) -> None:
+    """The argmax kernels load a narrow row's nbr / nw as 16-byte vectors
+    and its mask as one word, so each tile must start 16-byte aligned."""
+    for name, t in tiles.items():
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned on the card")
+
+
 def _seed32(seed: int) -> int:
     """A seed as the signed 32-bit value the kernels hash (bit pattern kept)."""
     return ((int(seed) + 2**31) % 2**32) - 2**31
@@ -124,6 +132,7 @@ def label_argmax(nbr, nw, nmask, labels, seed: int):
     _check_vec("labels", labels, torch.int32, rows, dev)
     if dev.type == "cpu":
         return ref.label_argmax_ref(nbr, nw, nmask, labels, seed)
+    _check_aligned(nbr=nbr, nw=nw, nmask=nmask)
     best_lab = torch.empty(rows, dtype=torch.int32, device=dev)
     best_w = torch.empty(rows, dtype=torch.float32, device=dev)
     cur_w = torch.empty(rows, dtype=torch.float32, device=dev)
@@ -165,6 +174,7 @@ def fused_move(nbr, nw, nmask, labels, chg, active, cand_prev, klass, real,
     if dev.type == "cpu":
         return ref.fused_move_ref(nbr, nw, nmask, labels, chg, active,
                                   cand_prev, klass, real, seed)
+    _check_aligned(nbr=nbr, nw=nw, nmask=nmask)
     new = torch.empty(rows, dtype=torch.int32, device=dev)
     act = torch.empty(rows, dtype=torch.bool, device=dev)
     if rows:

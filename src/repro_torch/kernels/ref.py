@@ -70,6 +70,33 @@ def label_argmax_ref(nbr, nw, nmask, labels, seed: int):
     return best_lab.to(torch.int32), best_w[:, 0].clamp_min(0.0), cur_w
 
 
+
+def label_argmax_slot_order(nbr, nw, nmask, labels, seed: int):
+    """``label_argmax_ref`` with every label's sum folded in slot order
+    from 0.0, one float32 elementwise add per slot.
+
+    That is the CUDA kernels' order, so on real weights their outputs must
+    equal these bits (``label_argmax_ref`` sums through a matmul, whose
+    order is its own); on integer weights the two agree exactly.
+    """
+    rows, d = nbr.shape
+    lab = torch.where(nmask, labels[nbr.long()], SENTINEL)
+    w = torch.where(nmask, nw, 0.0)
+    cur = labels[:rows]
+    scores = torch.zeros_like(w)
+    cur_w = torch.zeros(rows, dtype=torch.float32, device=nbr.device)
+    for j in range(d):
+        scores += torch.where(lab == lab[:, j:j + 1], w[:, j:j + 1], 0.0)
+        cur_w += torch.where(lab[:, j] == cur, w[:, j], 0.0)
+    ok = lab != SENTINEL
+    scores = torch.where(ok, scores, -1.0)
+    best_w = scores.amax(dim=1, keepdim=True)
+    is_best = ok & (scores >= best_w) & (best_w > 0)
+    h = label_hash(lab, seed)
+    best_h = torch.where(is_best, h, -1).amax(dim=1, keepdim=True)
+    best_lab = torch.where(is_best & (h == best_h), lab, SENTINEL).amin(dim=1)
+    return best_lab.to(torch.int32), best_w[:, 0].clamp_min(0.0), cur_w
+
 def min_label_ref(nbr, nmask, labels, comm):
     """Per row: ``min(label, min{labels[v] : v a real neighbor with
     comm[v] == comm[row]})``."""

@@ -224,3 +224,47 @@ def test_real_weighted_propagation():
     assert same(js.labels, ts.labels) and int(js.iteration) == ts.iteration
     assert float(tcore.modularity(tg, ts.labels)) == pytest.approx(
         float(jcore.modularity(jg, js.labels)), rel=1e-5)
+
+
+def real_planted(seed):
+    """A seeded planted partition with uniform(0.1, 5.0) edge weights."""
+    g = jgen.planted_partition(8, 40, 0.3, 0.02, seed=seed)[0]
+    src, dst = (np.asarray(x)[:g.num_edges] for x in (g.src, g.dst))
+    e = np.stack([src, dst], 1)[src < dst]
+    w = np.random.default_rng(seed).uniform(0.1, 5.0, size=len(e))
+    return jcore.graph.build_graph(e, w.astype(np.float32), n=g.n)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+@pytest.mark.parametrize("n_labels", [3, 40, 0])
+def test_scan_run_sums_equal_segment_sum_bit_for_bit(seed, n_labels):
+    """Real weights: each (source, label) run sum equals the JAX package's
+    ``jax.ops.segment_sum`` in every bit (both fold the run in index order
+    from 0.0); a few labels give long runs.  ``n_labels=0``: labels are
+    the vertex ids (the first sweep)."""
+    jg = real_planted(seed)
+    tg = port_of(jg)
+    rng = np.random.default_rng(seed + 50)
+    labels = (rng.integers(0, n_labels, size=jg.n) if n_labels
+              else np.arange(jg.n)).astype(np.int32)
+    js, jl, jw, jv = (np.asarray(x) for x in
+                      jlpa._scan_communities(jg, jnp.asarray(labels)))
+    ts, tl, tw, tv = (x.numpy() for x in
+                      tlpa._scan_communities(tg, torch.from_numpy(labels)))
+    assert np.array_equal(jv, tv) and jv.sum() > 0
+    assert np.array_equal(js[jv], ts[tv]) and np.array_equal(jl[jv], tl[tv])
+    assert np.array_equal(jw[jv].view(np.int32), tw[tv].view(np.int32))
+
+
+def test_segment_sum_folds_in_index_order():
+    """``segment_sum`` on unsorted ids equals a left fold in index order
+    from 0.0 per segment, bit for bit, and empty segments give 0."""
+    rng = np.random.default_rng(9)
+    seg = rng.integers(0, 50, size=4000)
+    seg[seg == 7] = 8                       # segment 7 stays empty
+    val = rng.uniform(0.1, 5.0, size=4000).astype(np.float32)
+    want = np.zeros(60, np.float32)
+    for s, v in zip(seg, val):
+        want[s] = np.float32(want[s] + v)
+    got = tlpa.segment_sum(torch.from_numpy(val), torch.from_numpy(seg), 60)
+    assert np.array_equal(want.view(np.int32), got.numpy().view(np.int32))

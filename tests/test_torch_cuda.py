@@ -32,15 +32,18 @@ def need_card():
         pytest.skip("needs an NVIDIA GPU")
 
 
-def tiles(rows, d, seed, device):
+def tiles(rows, d, seed, device, real_weights=False, n_labels=None):
     rng = np.random.default_rng(seed)
     mask = rng.random((rows, d)) < 0.8
     mask[0] = False
+    w = (rng.uniform(0.1, 5.0, size=(rows, d)) if real_weights
+         else rng.integers(1, 5, size=(rows, d)))
+    n_labels = n_labels or max(rows // 2, 2)
     arrays = dict(
         nbr=rng.integers(0, rows, size=(rows, d)).astype(np.int32),
-        nw=rng.integers(1, 5, size=(rows, d)).astype(np.float32),
+        nw=w.astype(np.float32),
         nmask=mask,
-        labels=rng.integers(0, max(rows // 2, 2), size=rows).astype(np.int32),
+        labels=rng.integers(0, n_labels, size=rows).astype(np.int32),
         comm=rng.integers(0, 4, size=rows).astype(np.int32),
         chg=rng.random(rows) < 0.3,
         active=rng.random(rows) < 0.6, cand_prev=rng.random(rows) < 0.4,
@@ -49,7 +52,8 @@ def tiles(rows, d, seed, device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("rows,d", [(64, 1), (64, 4), (32, 40), (8, 1024)])
+@pytest.mark.parametrize("rows,d", [(64, 1), (64, 4), (32, 40), (8, 1024),
+                                    (64, 3), (64, 8), (256, 64), (16, 512)])
 def test_cuda_kernels_match_plain_versions(rows, d):
     """Integer weights: every kernel equals its plain version exactly."""
     need_card()
@@ -70,6 +74,104 @@ def test_cuda_kernels_match_plain_versions(rows, d):
         assert torch.equal(ops.fused_split(*sargs, t["chg"], prune),
                            ref.fused_split_ref(*sargs, t["chg"], prune))
     torch.cuda.synchronize()
+
+
+def bits_equal(a, b):
+    if a.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,d,n_labels", [
+    (4096, 4, None), (1024, 64, None), (1024, 64, 6), (128, 512, None),
+    (128, 512, 5), (256, 40, 3)])
+def test_cuda_argmax_bits_equal_slot_order_sum(rows, d, n_labels):
+    """Real weights: label_argmax and fused_move give the bits of the
+    slot-order sum (narrow rows, compacted O(r^2) rows, sorted rows with
+    long runs of one label)."""
+    need_card()
+    t = tiles(rows, d, seed=d, device="cuda", real_weights=True,
+              n_labels=n_labels)
+    for s in (0, -1, 12345):
+        got = ops.label_argmax(t["nbr"], t["nw"], t["nmask"], t["labels"], s)
+        want = ref.label_argmax_slot_order(t["nbr"], t["nw"], t["nmask"],
+                                           t["labels"], s)
+        assert all(bits_equal(a, b) for a, b in zip(got, want)), s
+        bl, bw, cw = want
+        new, act = ops.fused_move(t["nbr"], t["nw"], t["nmask"], t["labels"],
+                                  t["chg"], t["active"], t["cand_prev"],
+                                  t["klass"], t["real"], s)
+        wake = (t["chg"][t["nbr"].long()] & t["nmask"]).any(dim=1)
+        act_want = (t["active"] & ~t["cand_prev"]) | (wake & t["real"])
+        adopt = act_want & t["klass"] & (bw > cw.clamp_min(0.0))
+        assert torch.equal(act, act_want)
+        assert torch.equal(new, torch.where(adopt, bl, t["labels"]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [4, 64, 512])
+@pytest.mark.parametrize("state", ["inactive", "no_klass", "known_act"])
+def test_cuda_fused_move_early_exits(d, state):
+    """fused_move's early exits give the plain version's outputs: every
+    row inactive (act only from the wake), klass false everywhere (no
+    argmax), active && !cand_prev everywhere (no wake)."""
+    need_card()
+    t = tiles(256 if d < 512 else 64, d, seed=5, device="cuda")
+    ones = torch.ones_like(t["active"])
+    zeros = torch.zeros_like(t["active"])
+    if state == "inactive":
+        t["active"] = zeros
+    elif state == "no_klass":
+        t["klass"] = zeros
+    else:
+        t["active"], t["cand_prev"] = ones, zeros
+    for s in (0, 7):
+        args = (t["nbr"], t["nw"], t["nmask"], t["labels"], t["chg"],
+                t["active"], t["cand_prev"], t["klass"], t["real"], s)
+        got = ops.fused_move(*args)
+        want = ref.fused_move_ref(*args)
+        assert all(torch.equal(a, b) for a, b in zip(got, want)), s
+    if state == "no_klass":
+        assert torch.equal(got[0], t["labels"])
+    if state == "known_act":
+        assert bool(got[1].all())
+
+
+@pytest.mark.cuda
+def test_cuda_argmax_rejects_unaligned_tiles():
+    need_card()
+    t = tiles(9, 4, seed=0, device="cuda")
+    nbr = t["nbr"].flatten()[1:33].view(8, 4)     # 4 bytes past a vector
+    with pytest.raises(ValueError):
+        ops.label_argmax(nbr, t["nw"][:8], t["nmask"][:8], t["labels"], 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("split", ["none", "lp"])
+def test_cuda_segment_fit_real_weights_matches_cpu(split):
+    """Real weights on the segment backend: the CUDA fit equals the CPU
+    fit (which equals the JAX package's, tests/test_torch_core.py) and
+    repeats exactly; its run sums fold in index order on both devices."""
+    need_card()
+    g = graphgen.weighted_planted_partition(40, 500, 0.05, 0.001, seed=3)
+    cfg = dict(split=split, backend="segment")
+    want = Engine(EngineConfig(device="cpu", **cfg), cache=PlanCache()).fit(g)
+    runs = [Engine(EngineConfig(**cfg), cache=PlanCache()).fit(g)
+            for _ in range(2)]
+    for got in runs:
+        assert got.device.startswith("cuda")
+        assert np.array_equal(got.labels, want.labels)
+        assert (got.lpa_iterations, got.split_iterations) == \
+            (want.lpa_iterations, want.split_iterations)
+    rng = np.random.default_rng(0)
+    seg = np.sort(rng.integers(0, 300, size=200_000))
+    val = rng.uniform(0.1, 5.0, size=seg.size).astype(np.float32)
+    from repro_torch.core.lpa import segment_sum
+    sums = [segment_sum(torch.from_numpy(val).to(dev),
+                        torch.from_numpy(seg).to(dev), 300).cpu()
+            for dev in ("cpu", "cuda", "cuda")]
+    assert all(bits_equal(sums[0], x) for x in sums[1:])
 
 
 @pytest.mark.cuda

@@ -87,6 +87,21 @@ def test_generator_side_outputs_match():
         assert np.array_equal(a, b)
 
 
+@pytest.mark.parametrize("seed", [0, 3])
+def test_weighted_planted_partition_matches_jax_build(seed):
+    """The real-weight planted partition: the JAX generator's edges, each
+    weighted uniform(0.1, 5.0) from the seed, as the JAX package builds
+    them."""
+    jg = jgen.planted_partition(6, 30, 0.3, 0.02, seed=seed)[0]
+    src, dst = (np.asarray(x)[:jg.num_edges] for x in (jg.src, jg.dst))
+    e = np.stack([src, dst], 1)[src < dst]
+    w = np.random.default_rng(seed).uniform(0.1, 5.0, size=len(e))
+    want = jgraph.build_graph(e, w.astype(np.float32), n=jg.n)
+    got = tgen.weighted_planted_partition(6, 30, 0.3, 0.02, seed=seed)
+    assert_same_graph(want, got)
+    assert np.unique(np.asarray(want.wgt)[:want.num_edges]).size > 100
+
+
 def test_fingerprint_recomputed_from_tensors():
     tg = tgen.erdos_renyi(80, 4.0, seed=5)
     fp = tgraph.graph_fingerprint(tg)

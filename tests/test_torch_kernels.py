@@ -91,7 +91,8 @@ def test_label_hash_matches_reference(seed):
 @pytest.mark.parametrize("mode,shape", [
     ("ref", (8, 128)), ("ref", (40, 128)), ("ref", (24, 3)), ("ref", (9, 1)),
     ("interpret", (8, 128)), ("interpret", (16, 128)),
-    ("interpret", (8, 256)), ("interpret", (40, 128))])
+    ("interpret", (8, 256)), ("interpret", (40, 128)),
+    ("ref", (12, 64)), ("ref", (5, 512))])
 @pytest.mark.parametrize("seed", [0, 3])
 def test_label_argmax_matches_reference(mode, shape, seed):
     """Integer weights: per-label sums are exact in any order, so labels
@@ -105,6 +106,39 @@ def test_label_argmax_matches_reference(mode, shape, seed):
         for a, b in zip(want, got):
             assert same(a, b), (shape, seed, s)
         assert int(got[0][0]) == SENTINEL and float(got[1][0]) == 0.0
+
+
+@pytest.mark.parametrize("shape", [(24, 3), (40, 4), (12, 64), (5, 512)])
+@pytest.mark.parametrize("seed", [0, 3])
+def test_label_argmax_slot_order_matches_reference(shape, seed):
+    """``ref.label_argmax_slot_order``, the sum the card holds the kernels
+    to: on integer weights it equals the JAX package's label_argmax; on
+    real weights each label's sum is the left fold of its slots in slot
+    order from 0.0, to the last bit."""
+    case = make_case(*shape, seed)
+    t, j = T(case), J(case)
+    for s in (0, 12345):
+        got = ref.label_argmax_slot_order(t["nbr"], t["nw"], t["nmask"],
+                                          t["labels"], s)
+        want = jops.label_argmax(j["nbr_lab"], j["nw"], j["mask"], j["cur"],
+                                 s, mode="ref")
+        for a, b in zip(want, got):
+            assert same(a, b), (shape, seed, s)
+    case = make_case(*shape, seed, integer=False)
+    t = T(case)
+    bl, bw, cw = (x.numpy() for x in ref.label_argmax_slot_order(
+        t["nbr"], t["nw"], t["nmask"], t["labels"], 7))
+    lab = case["labels"][case["nbr"]]
+    for row in range(shape[0]):
+        sums = {}
+        for k in np.flatnonzero(case["nmask"][row]):
+            sums[lab[row, k]] = np.float32(sums.get(lab[row, k], 0.0)
+                                           + case["nw"][row, k])
+        best = max(sums.values(), default=np.float32(0.0))
+        cur = sums.get(case["labels"][row], np.float32(0.0))
+        assert bw[row].view(np.int32) == best.view(np.int32), row
+        assert cw[row].view(np.int32) == cur.view(np.int32), row
+        assert (bl[row] == SENTINEL if not sums else sums[bl[row]] == best)
 
 
 @pytest.mark.parametrize("mode,shape", [
@@ -122,7 +156,7 @@ def test_min_label_matches_reference(mode, shape):
 
 @pytest.mark.parametrize("mode,shape", [
     ("ref", (8, 128)), ("ref", (12, 7)), ("interpret", (8, 128)),
-    ("interpret", (16, 256))])
+    ("interpret", (16, 256)), ("ref", (12, 64)), ("ref", (5, 512))])
 @pytest.mark.parametrize("seed", [0, 3])
 def test_fused_move_matches_reference(mode, shape, seed):
     case = make_case(*shape, seed)
