@@ -13,12 +13,14 @@ Phases, one JSON line each:
   device   nvidia-smi name and power limit; torch, CUDA and Python versions.
   build    nvcc build of the CUDA kernels (seconds, registers, spills).
   kernels  each kernel against its plain PyTorch version on random inputs:
-           widths D in {1, 4, 16, 64, 128, 512, 1024}, hash seeds {0, 1,
-           12345, -1}, edgeless rows and rows whose own label is absent.
-           Integer weights must agree exactly; real weights must satisfy
-           the brute-force argmax property at rtol 1e-5; fused and unfused
-           kernels must agree bit for bit, all-inactive and all-klass-false
-           rows included.
+           widths D in {1, ..., 9, 16, 32, 33, 64, 128, 512, 1024} (every
+           narrow instance, the first wide width, an unaligned wide row),
+           hash seeds {0, 1, 12345, -1}, edgeless rows and rows whose own
+           label is absent.  Integer weights must agree exactly; real
+           weights must satisfy the brute-force argmax property at rtol
+           1e-5; fused and unfused kernels must agree bit for bit,
+           all-inactive and all-klass-false rows included; fused_split
+           with prune on and off, chg random and all ones.
   parity   tile backend (kernels) against segment backend on small graphs,
            every split mode, shortcut, fusion on and off.
   c1       a real-weight segment fit on the card (planted_partition, 20,000
@@ -32,15 +34,17 @@ Phases, one JSON line each:
            D=64 tiles): identical labels, no disconnected community.
   skew_fit two segment fits of rmat(20, 16) (hubs of degree ~10^4, long
            per-(vertex, label) runs): equal labels, their timings.
-  timing   each kernel at the main fit's shapes (CUDA events), its plain
-           version, and its bound; label_argmax and fused_move also at the
-           ER graph's D=64 tiles and at planted_partition(128, 1024, 0.3,
-           0.001)'s D=512 tiles, with its planted labels and with
-           labels = vertex ids (a fit's first sweep), where they must
-           equal the plain version on the graphs' unit weights and, on
+  timing   the four LPA kernels (CUDA events) beside their plain versions
+           and bounds, at the main fit's D=4 tiles, the ER graph's D=64
+           tiles and planted_partition(128, 1024, 0.3, 0.001)'s D=512
+           tiles, with its planted labels and with labels = vertex ids (a
+           fit's first sweep).  Each must equal its plain version exactly
+           on the graphs' unit weights; label_argmax and fused_move, on
            real weights from a seed, the bits of the slot-order sum
-           (ref.label_argmax_slot_order).  No kernel may beat its bytes
-           bound.
+           (ref.label_argmax_slot_order).  min_label and fused_split run
+           as a split's first sweep (labels = row ids, comm = the case's
+           labels), fused_split with prune off and on.  No kernel may beat
+           its bytes bound.
   trace    torch.profiler over one fused fit: top device ops, idle share.
   flash    ops.flash_attention against its plain version (the chunked
            oracle) on the reference's test shapes, ragged, cross and
@@ -54,8 +58,9 @@ Phases, one JSON line each:
            and two more timed calls at that width, S=4096 non-causal and
            S=16384 causal, beside SDPA.
 
-The build fails the run if ptxas reports a spill or serialised wgmma in
-the flash kernel.
+The build fails the run if ptxas reports a spill in the flash kernel or
+in any instance of min_label or fused_split, or serialised wgmma in the
+flash kernel.
 
 Then the kernels summary line, the nvidia-smi line, and the result line.
 Any failure raises: the exit code is then non-zero and no result prints.
@@ -90,6 +95,7 @@ PHASES = ("kernels", "parity", "c1", "main", "wide_fit", "skew_fit",
 # phase -> the phases whose graphs and fits it reuses
 NEEDS = {"timing": ("main", "wide_fit"), "trace": ("main",)}
 ARGMAX_KERNELS = ("label_argmax", "fused_move")
+SPLIT_KERNELS = ("min_label", "fused_split")
 PLAIN_CUBE_FLOATS = 1 << 28   # the plain argmax's D x D cube per chunk
 KERNELS = {
     "label_argmax": ("src/repro_torch/kernels/csrc/label_argmax.cu",
@@ -173,10 +179,10 @@ def _err(a, b) -> float:
 
 
 def phase_kernels(torch, ops, ref, dev):
-    widths = (1, 4, 16, 64, 128, 512, 1024)
+    widths = (*range(1, 10), 16, 32, 33, 64, 128, 512, 1024)
     seeds = (0, 1, 12345, -1)
-    rows_for = {1: 4096, 4: 4096, 16: 4096, 64: 1024, 128: 512, 512: 128,
-                1024: 40}
+    rows_for = {**{d: 4096 for d in range(1, 10)}, 16: 4096, 32: 2048,
+                33: 2048, 64: 1024, 128: 512, 512: 128, 1024: 40}
     err = {k: 0.0 for k in LPA_KERNELS}
     cases = 0
     for d in widths:
@@ -624,10 +630,46 @@ def _time_argmax(torch, rt, t, plain_reps, seed=3):
     return out
 
 
+def _split_work(t, prune):
+    """(bytes, bytes_all_rows, operations) of one B2 / B4 call on ``t``:
+    the mask tile, the nbr of each real cell, the label and community
+    vectors, 4 B out per row, and with prune the changed vector; one
+    compare per real cell."""
+    rows, d = t["nmask"].shape
+    cells = int(t["nmask"].sum())
+    b = rows * d + 4 * cells + 8 * rows + 4 * rows
+    if prune:
+        b += t["chg"].numel()
+    return b, b, cells
+
+
+def _time_split(torch, rt, t, plain_reps):
+    """B2 and B4 on ``t`` as a split's first sweep (labels = row ids, comm
+    = the case's labels): exact against the plain version, timed, with
+    their bounds; B4 without prune (split lp) and with it (lpp)."""
+    ops, ref = rt.ops, rt.ref
+    nbr, nmask, ids, comm, chg = (t[k] for k in ("nbr", "nmask", "ids",
+                                                 "labels", "chg"))
+    mins = ops.min_label(nbr, nmask, ids, comm)
+    check(torch.equal(ops.fused_split(nbr, nmask, ids, comm, chg, False),
+                      mins), "fused_split without prune != min_label")
+    runs = {"min_label": (lambda: ops.min_label(nbr, nmask, ids, comm),
+                          lambda: ref.min_label_ref(nbr, nmask, ids, comm),
+                          False)}
+    for name, p in (("fused_split", False), ("fused_split_prune", True)):
+        runs[name] = (
+            lambda p=p: ops.fused_split(nbr, nmask, ids, comm, chg, p),
+            lambda p=p: ref.fused_split_ref(nbr, nmask, ids, comm, chg, p),
+            p)
+    return {name: _kernel_row(torch, name, t, kern, plain, plain_reps,
+                              _split_work(t, prune))[1]
+            for name, (kern, plain, prune) in runs.items()}
+
+
 def phase_timing(torch, rt, dev, cases):
     """``cases``: (graph name, graph, rows, d, labels) per width, the main
-    fit's first.  B2 / B4 are timed at the main shapes only."""
-    ops, ref = rt.ops, rt.ref
+    fit's first."""
+    ops = rt.ops
     widths = []
     for gname, g, rows, d, labels in cases:
         t = _timing_tiles(torch, g, rows, d, labels, dev)
@@ -635,16 +677,16 @@ def phase_timing(torch, rt, dev, cases):
         row = {"graph": gname, "rows": rows, "d": d,
                "real_cells": int(t["nmask"].sum()),
                "real_weight_check": _bits_check(torch, rt, t, dev)}
-        row.update(_time_argmax(torch, rt, t,
-                                plain_reps=5 if d <= 8 else 2))
+        reps = 5 if d <= 8 else 2
+        row.update(_time_argmax(torch, rt, t, plain_reps=reps))
+        row.update(_time_split(torch, rt, t, plain_reps=reps))
         if not widths:
             main_t = t
         else:
             del t
         widths.append(row)
     t = main_t
-    nbr, nmask, ids, labels = t["nbr"], t["nmask"], t["ids"], t["labels"]
-    rows, d = nbr.shape
+    ids, rows = t["ids"], t["nbr"].shape[0]
     # B3 at the main shapes with klass on every row, and on the first half
     # of the rows (as many rows as the parity class, but contiguous): how
     # far the parity class's interleaved rows keep the tile's bytes read
@@ -657,22 +699,9 @@ def phase_timing(torch, rt, dev, cases):
             "ms": _time_ms(torch, lambda tk=tk: ops.fused_move(
                 *_move_args(tk), 3)),
             "bytes": _argmax_work(torch, tk, "fused_move")[0]}
-    cells = int(nmask.sum())
-    main = {k: widths[0][k] for k in ARGMAX_KERNELS}
-    # the main fit's split is lp: no prune, chg not read
-    for name, kern, plain in (
-            ("min_label", lambda: ops.min_label(nbr, nmask, ids, labels),
-             lambda: ref.min_label_ref(nbr, nmask, ids, labels)),
-            ("fused_split",
-             lambda: ops.fused_split(nbr, nmask, ids, labels, t["chg"],
-                                     False),
-             lambda: ref.fused_split_ref(nbr, nmask, ids, labels, t["chg"],
-                                         False))):
-        # the mask tile, nbr of real cells, two vectors, the output
-        b = rows * d + cells * 4 + 8 * rows + 4 * rows
-        main[name] = _kernel_row(torch, name, t, kern, plain, 5,
-                                 (b, b, cells))[1]
-    return {"kernels": main, "argmax_widths": widths,
+    # the main fit's split is lp: fused_split without prune
+    main = {k: widths[0][k] for k in LPA_KERNELS}
+    return {"kernels": main, "widths": widths,
             "fused_move_klass_layouts": layouts}
 
 
@@ -896,11 +925,18 @@ def main(argv=None) -> int:
     build.load_library()
     emit({"phase": "build", "wall_s": time.perf_counter() - t0,
           **build.BUILD_INFO})
-    for name in FLASH_KERNELS:
-        res = build.BUILD_INFO["resources"].get(name, {})
+    resources = build.BUILD_INFO["resources"]
+    # every instance of the split kernels (min_label_narrow<4>, ...)
+    no_spill = [n for n in resources
+                if n in FLASH_KERNELS or n.startswith(SPLIT_KERNELS)]
+    for prefix in (*FLASH_KERNELS, *SPLIT_KERNELS):
+        check(any(n.startswith(prefix) for n in no_spill),
+              f"ptxas reports no entry for {prefix}")
+    for name in no_spill:
+        res = resources[name]
         check(res.get("registers") and res.get("spill_store_bytes") == 0
               and res.get("spill_load_bytes") == 0,
-              f"{name}: ptxas reports a spill or no entry: {res}")
+              f"{name}: ptxas reports a spill or no registers: {res}")
         check("wgmma_serialized" not in res, f"{name}: ptxas serialised "
               f"its wgmma {res.get('wgmma_serialized')}")
 

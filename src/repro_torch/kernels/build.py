@@ -76,19 +76,28 @@ def nvcc_path() -> str:
 _ENTRY = re.compile(r"Compiling entry function '([^']+)'")
 _REGS = re.compile(r"Used (\d+) registers")
 _SPILL = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
-_TEMPLATE_INT = re.compile(r"_kernelILi(\d+)E")
+# a kernel's template arguments (ints and bools): _kernelILi4ELb1EE
+_TEMPLATE = re.compile(r"_kernelI((?:L[ib]\d+E)+)E")
+_TEMPLATE_ARG = re.compile(r"L([ib])(\d+)E")
 # ptxas' note that it ran a kernel's wgmma one at a time, and why.
 _SERIALIZED = re.compile(r"wgmma\.mma_async instructions are serialized "
                          r"(.*?) in the function '([^']+)'")
 _KERNELS = ("label_argmax_narrow", "label_argmax_wide", "label_argmax",
-            "min_label", "fused_move_narrow", "fused_move_wide", "fused_move",
-            "fused_split", "flash_wgmma", "flash_fma")
+            "min_label_narrow", "min_label_wide", "fused_move_narrow",
+            "fused_move_wide", "fused_move", "fused_split_narrow",
+            "fused_split_wide", "flash_wgmma", "flash_fma")
 
 
 def _kernel_name(mangled: str) -> str:
+    """``name`` or, for a template instance, ``name<4>`` /
+    ``name<4, true>``."""
     name = next((k for k in _KERNELS if f"{k}_kernel" in mangled), mangled)
-    hd = _TEMPLATE_INT.search(mangled)
-    return f"{name}<{hd.group(1)}>" if hd else name   # template: name<N>
+    t = _TEMPLATE.search(mangled)
+    if t is None:
+        return name
+    args = [v if kind == "i" else ("true" if v == "1" else "false")
+            for kind, v in _TEMPLATE_ARG.findall(t.group(1))]
+    return f"{name}<{', '.join(args)}>"
 
 
 def _resources(ptxas_log: str) -> dict:

@@ -5,12 +5,9 @@
 // nmask uint8 — and the per-vertex vectors (labels, comm, chg) are gathered
 // through nbr inside the kernels.
 //
-// row_argmax (label_argmax, fused_move) has a narrow and a wide path,
-// described at its section below.  row_min (min_label, fused_split) gives
-// a row to a group of g lanes, g = the power of two >= d, capped at 32, so
-// one warp covers 32 / g rows and the loads of a warp are contiguous; every
-// thread of a block runs every shuffle, and rows past the end only carry
-// valid_row = false.  Each of the two is the one function of its fused and
+// row_argmax (label_argmax, fused_move) and row_min (min_label,
+// fused_split) each have a narrow and a wide path, described at their
+// sections below.  Each of the two is the one function of its fused and
 // unfused kernel, so fused and unfused sweeps compute bit-identical results.
 #pragma once
 
@@ -19,22 +16,9 @@
 
 namespace lpa {
 
-constexpr int kThreads = 128;            // threads per block
+constexpr int kThreads = 128;            // threads per block (wide minimum)
 constexpr int kSentinel = 2147483647;    // INT32_MAX: "no label"
 constexpr unsigned kFull = 0xffffffffu;
-
-// Lanes per row: the power of two >= d, at most one warp.
-inline int group_lanes(int d) {
-  int g = 1;
-  while (g < d && g < 32) g <<= 1;
-  return g;
-}
-
-// Grid for `rows` rows at `g` lanes per row.
-inline unsigned grid_blocks(long long rows, int g) {
-  const long long per_block = kThreads / g;
-  return (unsigned)((rows + per_block - 1) / per_block);
-}
 
 // uint32 Knuth multiplicative mix; identical to the label hash of the
 // propagation loop: ((l*2654435761) ^ (s*0x9E3779B9)), xorshift 16,
@@ -572,33 +556,148 @@ __device__ __forceinline__ Argmax row_argmax(WideRow& wr, int lane, int cur,
       });
 }
 
+// ----------------------------------------------------------------- minimum
+//
+// row_min is the one same-community minimum of min_label and fused_split.
+// What it computes, per row: the smallest label over the real slots whose
+// neighbor v = nbr[j] has comm[v] == comm[row] (kSentinel when none) and,
+// given chg, whether any such v changed.
+//
+// Every community gather of a row is issued before any is used, and the
+// compare and the minimum run in registers.  The two paths differ in what
+// the gathers cost.  On the narrow path neighboring threads hold
+// neighboring rows, whose neighbors (on a mesh) share sectors, so a
+// gather is cheap and a round trip is what costs: each real slot's label
+// (and changed flag) is gathered with its community, predicated on the
+// mask alone.  On the wide path a row's neighbors are spread over the
+// graph, each gather of a random id is an L2 sector of its own, and the
+// number of sector requests is what costs: a label (and flag) is gathered
+// only for a slot whose community matched, all of them at once.
+//  * narrow (d <= kNarrowMax): one thread per row; the mask word, then
+//    (unless it is zero: a padding row) the nbr vector and own community,
+//    as in the narrow argmax; no shuffles, no shared memory.  Skipping
+//    the padding rows' loads costs a round trip (mask before nbr) and
+//    paid on the card: 0.1800 -> 0.1612 ms at d=4 (PERF.md, section 6).
+//  * wide (d > kNarrowMax): g lanes per row (min_group), lane l taking
+//    slots l, l + g, ... (kMinSlots per step), so each load instruction
+//    reads g consecutive slots, and each gather g consecutive neighbors,
+//    of a row: coalesced where the row's neighbor ids are sorted and
+//    close (CSR order within a community).  A slot's nbr is loaded only
+//    when its mask is set.  The row's own community is read by its
+//    first lane and shuffled to the group; the group folds its lanes'
+//    minima with shuffles at the end.
+
+constexpr int kMinSlots = 8;   // slots per lane and step, wide minimum
+// Blocks of kThreads per SM the wide minimum's launch bounds ask for: 12
+// caps it at 40 registers, so 48 warps fit on an SM.  Without the cap the
+// prune instance took 48 registers (40 warps) and ran 0.26 ms at d=512
+// against 0.23 with it; at 16 blocks (32 registers) ptxas spills
+// (PERF.md, section 6).
+constexpr int kMinBlocks = 12;
+
 struct MinLabel {
   int min_lab;  // min label over real same-community neighbors (or kSentinel)
-  int wake;     // any such neighbor changed (when chg given)
+  bool wake;    // any such neighbor changed (when chg given)
 };
 
-// Same-community neighbor minimum of one row.  `chg` may be null.
+// Lanes per wide row: the power of two >= ceil(d / kMinSlots), at most a
+// warp; a row wider than 32 * kMinSlots takes several steps.
+inline int min_group(int d) {
+  int g = 1;
+  while (g * kMinSlots < d && g < 32) g <<= 1;
+  return g;
+}
+
+// Grid of the wide minimum: g threads per row, kThreads per block.
+inline unsigned min_blocks(long long rows, int g) {
+  return (unsigned)((rows * g + kThreads - 1) / kThreads);
+}
+
+// Fold S slots (ids v, mask m) into acc.  Every community gather is
+// issued before any is used.  kEager (the narrow path) issues every label
+// and changed-flag gather with them, predicated on the mask alone; else
+// those are issued, again all at once, only for the slots whose community
+// matched.  `chg` may be null.
+template <int S, bool kEager>
+__device__ __forceinline__ void fold_min(const int (&v)[S], const bool (&m)[S],
+                                         const int* __restrict__ labels,
+                                         const int* __restrict__ comm,
+                                         const unsigned char* __restrict__ chg,
+                                         int self_comm, MinLabel& acc) {
+  int c[S], lab[S];
+  bool want[S];
+  unsigned char ch[S];
+#pragma unroll
+  for (int j = 0; j < S; ++j) c[j] = m[j] ? __ldg(comm + v[j]) : 0;
+#pragma unroll
+  for (int j = 0; j < S; ++j)
+    want[j] = m[j] && (kEager || c[j] == self_comm);
+  gather_labels<S>(labels, v, want, lab);
+#pragma unroll
+  for (int j = 0; j < S; ++j)
+    ch[j] = (chg != nullptr && want[j]) ? __ldg(chg + v[j]) : 0;
+#pragma unroll
+  for (int j = 0; j < S; ++j) {
+    if (m[j] && c[j] == self_comm) {
+      acc.min_lab = min(acc.min_lab, lab[j]);
+      acc.wake |= ch[j] != 0;
+    }
+  }
+}
+
+template <int S>
+__device__ __forceinline__ bool any_real(const bool (&m)[S]) {
+  bool any = false;
+#pragma unroll
+  for (int j = 0; j < S; ++j) any |= m[j];
+  return any;
+}
+
+// The narrow row's minimum (d = D <= kNarrowMax).
+template <int D>
 __device__ __forceinline__ MinLabel row_min(
     const int* __restrict__ nbr, const unsigned char* __restrict__ nmask,
     const int* __restrict__ labels, const int* __restrict__ comm,
+    const unsigned char* __restrict__ chg, long long row) {
+  MinLabel acc{kSentinel, false};
+  bool m[D];
+  load_mask<D>(nmask + row * D, m);
+  if (!any_real<D>(m)) return acc;
+  int v[D];
+  load_ids<D>(nbr + row * D, v);
+  fold_min<D, true>(v, m, labels, comm, chg, __ldg(comm + row), acc);
+  return acc;
+}
+
+// The wide row's minimum, over the g = min_group(d) lanes of an aligned
+// group; every thread of the group runs it (rows past the end with
+// valid_row = false), since it ends in shuffles.
+__device__ __forceinline__ MinLabel row_min_wide(
+    const int* __restrict__ nbr, const unsigned char* __restrict__ nmask,
+    const int* __restrict__ labels, const int* __restrict__ comm,
     const unsigned char* __restrict__ chg, long long row, bool valid_row,
-    int d, int g, int lane, int self_comm) {
-  int lmin = kSentinel;
-  int lwake = 0;
-  if (valid_row) {
-    for (int j = lane; j < d; j += g) {
-      const long long idx = row * d + j;
-      if (!nmask[idx]) continue;
-      const int v = nbr[idx];
-      if (comm[v] != self_comm) continue;
-      lmin = min(lmin, labels[v]);
-      if (chg != nullptr && chg[v]) lwake = 1;
+    int d, int g) {
+  const int gl = threadIdx.x & (g - 1);
+  int self_comm = (valid_row && gl == 0) ? __ldg(comm + row) : 0;
+  self_comm = __shfl_sync(kFull, self_comm, 0, g);
+  MinLabel acc{kSentinel, false};
+  const long long off = row * d;
+  for (int base = gl; base < d; base += g * kMinSlots) {
+    bool m[kMinSlots];
+    int v[kMinSlots];
+#pragma unroll
+    for (int i = 0; i < kMinSlots; ++i) {
+      const int j = base + i * g;
+      m[i] = valid_row && j < d && __ldcs(nmask + off + j) != 0;
     }
+#pragma unroll
+    for (int i = 0; i < kMinSlots; ++i)
+      v[i] = m[i] ? __ldcs(nbr + off + base + i * g) : 0;
+    fold_min<kMinSlots, false>(v, m, labels, comm, chg, self_comm, acc);
   }
-  MinLabel out;
-  out.min_lab = group_min(lmin, g);
-  out.wake = group_max(lwake, g);
-  return out;
+  acc.min_lab = group_min(acc.min_lab, g);
+  acc.wake = group_max((int)acc.wake, g) != 0;
+  return acc;
 }
 
 }  // namespace lpa

@@ -95,8 +95,9 @@ def _tiles(nbr: torch.Tensor, nmask: torch.Tensor,
 
 
 def _check_aligned(**tiles: torch.Tensor) -> None:
-    """The argmax kernels load a narrow row's nbr / nw as 16-byte vectors
-    and its mask as one word, so each tile must start 16-byte aligned."""
+    """The LPA kernels load a narrow row's nbr (and nw) as 8- or 16-byte
+    vectors and its mask as one word, so each tile must start 16-byte
+    aligned."""
     for name, t in tiles.items():
         if t.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned on the card")
@@ -150,6 +151,7 @@ def min_label(nbr, nmask, labels, comm):
     _check_vec("comm", comm, torch.int32, labels.shape[0], dev, exact=True)
     if dev.type == "cpu":
         return ref.min_label_ref(nbr, nmask, labels, comm)
+    _check_aligned(nbr=nbr, nmask=nmask)
     out = torch.empty(rows, dtype=torch.int32, device=dev)
     if rows:
         _launch("min_label", dev, nbr.data_ptr(), nmask.data_ptr(),
@@ -195,6 +197,7 @@ def fused_split(nbr, nmask, labels, comm, chg, prune: bool):
     _check_vec("chg", chg, torch.bool, labels.shape[0], dev, exact=True)
     if dev.type == "cpu":
         return ref.fused_split_ref(nbr, nmask, labels, comm, chg, prune)
+    _check_aligned(nbr=nbr, nmask=nmask)
     out = torch.empty(rows, dtype=torch.int32, device=dev)
     if rows:
         _launch("fused_split", dev, nbr.data_ptr(), nmask.data_ptr(),

@@ -53,9 +53,16 @@ def tiles(rows, d, seed, device, real_weights=False, n_labels=None):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("rows,d", [(64, 1), (64, 4), (32, 40), (8, 1024),
-                                    (64, 3), (64, 8), (256, 64), (16, 512)])
+                                    (64, 3), (64, 8), (256, 64), (16, 512),
+                                    # every narrow instance, the first wide
+                                    # width and unaligned wide rows
+                                    (64, 2), (64, 5), (64, 6), (64, 7),
+                                    (64, 9), (64, 16), (64, 32), (64, 33),
+                                    (32, 128)])
 def test_cuda_kernels_match_plain_versions(rows, d):
-    """Integer weights: every kernel equals its plain version exactly."""
+    """Integer weights: every kernel equals its plain version exactly;
+    fused_split equals min_label without prune and with every vertex
+    changed."""
     need_card()
     t = tiles(rows, d, seed=3, device="cuda")
     for s in (0, -1, 12345):
@@ -69,10 +76,14 @@ def test_cuda_kernels_match_plain_versions(rows, d):
         p = ref.fused_move_ref(*margs)
         assert all(torch.equal(a, b) for a, b in zip(k, p))
     sargs = (t["nbr"], t["nmask"], t["labels"], t["comm"])
-    assert torch.equal(ops.min_label(*sargs), ref.min_label_ref(*sargs))
+    m = ops.min_label(*sargs)
+    assert torch.equal(m, ref.min_label_ref(*sargs))
     for prune in (True, False):
-        assert torch.equal(ops.fused_split(*sargs, t["chg"], prune),
-                           ref.fused_split_ref(*sargs, t["chg"], prune))
+        for chg in (t["chg"], torch.ones_like(t["chg"])):
+            got = ops.fused_split(*sargs, chg, prune)
+            assert torch.equal(got, ref.fused_split_ref(*sargs, chg, prune))
+            if not prune or bool(chg.all()):
+                assert torch.equal(got, m)
     torch.cuda.synchronize()
 
 
@@ -145,6 +156,22 @@ def test_cuda_argmax_rejects_unaligned_tiles():
     nbr = t["nbr"].flatten()[1:33].view(8, 4)     # 4 bytes past a vector
     with pytest.raises(ValueError):
         ops.label_argmax(nbr, t["nw"][:8], t["nmask"][:8], t["labels"], 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [4, 64])
+def test_cuda_split_kernels_reject_unaligned_tiles(d):
+    """min_label and fused_split load nbr and the mask as vectors, so a
+    tile one element into its storage raises."""
+    need_card()
+    t = tiles(9, d, seed=0, device="cuda")
+    nbr = t["nbr"].flatten()[1:8 * d + 1].view(8, d)
+    nmask = t["nmask"].flatten()[1:8 * d + 1].view(8, d)
+    for tile in ((nbr, t["nmask"][:8]), (t["nbr"][:8], nmask)):
+        with pytest.raises(ValueError):
+            ops.min_label(*tile, t["labels"], t["comm"])
+        with pytest.raises(ValueError):
+            ops.fused_split(*tile, t["labels"], t["comm"], t["chg"], True)
 
 
 @pytest.mark.cuda

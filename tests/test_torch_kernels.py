@@ -144,7 +144,11 @@ def test_label_argmax_slot_order_matches_reference(shape, seed):
 @pytest.mark.parametrize("mode,shape", [
     ("ref", (8, 128)), ("ref", (10, 5)), ("ref", (16, 640)),
     ("interpret", (8, 128)), ("interpret", (48, 256)),
-    ("interpret", (16, 640))])
+    ("interpret", (16, 640)),
+    # the widths the CUDA kernel's paths split on: narrow 1..8, wide 9..
+    ("ref", (10, 2)), ("ref", (10, 8)), ("ref", (10, 9)),
+    ("interpret", (10, 2)), ("interpret", (10, 5)), ("interpret", (10, 8)),
+    ("interpret", (10, 9))])
 def test_min_label_matches_reference(mode, shape):
     case = make_case(*shape, seed=1)
     t, j = T(case), J(case)
@@ -175,7 +179,11 @@ def test_fused_move_matches_reference(mode, shape, seed):
 
 @pytest.mark.parametrize("mode,shape", [
     ("ref", (8, 128)), ("ref", (9, 6)), ("interpret", (8, 128)),
-    ("interpret", (48, 256))])
+    ("interpret", (48, 256)),
+    # the widths the CUDA kernel's paths split on: narrow 1..8, wide 9..
+    ("ref", (10, 2)), ("ref", (10, 5)), ("ref", (10, 8)), ("ref", (10, 9)),
+    ("interpret", (10, 2)), ("interpret", (10, 5)), ("interpret", (10, 8)),
+    ("interpret", (10, 9))])
 @pytest.mark.parametrize("prune", [True, False])
 def test_fused_split_matches_reference(mode, shape, prune):
     case = make_case(*shape, seed=7)
@@ -371,8 +379,29 @@ ptxas info    : (C7515) Potential Performance Loss: wgmma.mma_async instructions
 ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_118flash_wgmma_kernelILi64EEEv14CUtensorMap_stS1_S1_PtNS_5ShapeE' for 'sm_90a'
     0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
 ptxas info    : Used 168 registers, used 1 barriers, 432 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_123min_label_narrow_kernelILi4EEEvPKiPKhS2_S2_xPi' for 'sm_90a'
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 26 registers, used 0 barriers, 400 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_124fused_split_wide_kernelILb0EEEvPKiPKhS2_S2_S4_xiiPi' for 'sm_90a'
+    0 bytes stack frame, 4 bytes spill stores, 4 bytes spill loads
+ptxas info    : Used 40 registers, used 0 barriers, 420 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_125fused_split_narrow_kernelILi8ELb1EEEvPKiPKhS2_S2_S4_xPi' for 'sm_90a'
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 38 registers, used 0 barriers, 408 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_121min_label_wide_kernelEPKiPKhS1_S1_xiiPi' for 'sm_90a'
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 32 registers, used 0 barriers, 408 bytes cmem[0]
 """
     assert build._resources(log) == {
+        "min_label_narrow<4>": {"spill_store_bytes": 0,
+                                "spill_load_bytes": 0, "registers": 26},
+        "fused_split_wide<false>": {"spill_store_bytes": 4,
+                                    "spill_load_bytes": 4, "registers": 40},
+        "fused_split_narrow<8, true>": {"spill_store_bytes": 0,
+                                        "spill_load_bytes": 0,
+                                        "registers": 38},
+        "min_label_wide": {"spill_store_bytes": 0, "spill_load_bytes": 0,
+                           "registers": 32},
         "label_argmax": {"spill_store_bytes": 0, "spill_load_bytes": 0,
                          "registers": 30},
         "flash_wgmma<128>": {"spill_store_bytes": 20, "spill_load_bytes": 20,
