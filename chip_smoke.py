@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py            # every phase, one card
     python3 chip_smoke.py --phases main,wide_fit,skew_fit,timing
-        # only those phases, and no result line.  The script imports the
+        # only those phases, and no result line (a phase needs the phases
+        # whose graphs it reuses: dense needs wide_fit, microbatch batch).  The script imports the
         # package beside it, so a copy of it in the root of another
         # checkout (a parent commit unpacked with git archive) measures
         # that checkout with the same phases, for a comparison.
@@ -28,12 +29,30 @@ Phases, one JSON line each:
            repeats exactly; segment_sum's run sums equal the CPU's bits.
   main     Engine.fit of grid2d(3500) (12.25M vertices, 49M directed edges):
            tile fused, tile unfused and segment give identical labels and
-           no internally-disconnected community.  Launch counts are reset
+           no internally-disconnected community; each fit's wall time (call
+           to result) beside its stage timings.  Launch counts are reset
            just before these fits and read just after.
   wide_fit the same three fits of erdos_renyi(1<<21, 16.0) (2.1M vertices,
            D=64 tiles): identical labels, no disconnected community.
+  dense    core.dense on the ER graph's tiles (B1 / B2 called directly):
+           lpa_run_dense and split_lp_dense equal the segment lpa_run /
+           split_lp, labels and iterations; gsl_lpa / gve_lpa on karate
+           club on the card equal their CPU runs.
   skew_fit two segment fits of rmat(20, 16) (hubs of degree ~10^4, long
            per-(vertex, label) runs): equal labels, their timings.
+  batch    Engine.fit_many.  Traffic A: 32 members grid2d(side), side =
+           400, 410, ..., 710 (10,129,600 vertices, 40,447,360 directed
+           edges; bucket 16,777,216 x D=4), tile fused and unfused, launch
+           counts reset just before and read just after each; every member
+           equals its solo fused tile fit (labels, both iteration counts,
+           communities) with no disconnected community; wall times beside
+           the 32 solo fits'; then B1-B4 timed on the packed tiles.
+           Traffic B: 15 planted_partition(32, 512, 0.04, 0.0005, seed=s)
+           plus an edgeless 100-vertex and a one-vertex member (D=64), auto
+           (must pick tile), tile unfused and segment, split lp and lpp with
+           shortcut, all equal to each member's solo fit.
+  microbatch  a MicroBatcher(max_batch=8) on the card takes 24 of traffic
+           B's members from 4 threads; each result equals its solo fit.
   timing   the four LPA kernels (CUDA events) beside their plain versions
            and bounds, at the main fit's D=4 tiles, the ER graph's D=64
            tiles and planted_partition(128, 1024, 0.3, 0.001)'s D=512
@@ -90,10 +109,13 @@ FLASH_KERNELS = ("flash_wgmma<64>", "flash_wgmma<128>")
 ER_GRAPH = "erdos_renyi(1 << 21, 16.0, seed=0)"
 PLANTED_GRAPH = "planted_partition(128, 1024, 0.3, 0.001, seed=0)"
 SKEW_GRAPH = "rmat(20, 16, seed=0)"
-PHASES = ("kernels", "parity", "c1", "main", "wide_fit", "skew_fit",
-          "timing", "trace", "flash")
+PHASES = ("kernels", "parity", "c1", "main", "wide_fit", "dense",
+          "skew_fit", "batch", "microbatch", "timing", "trace", "flash")
 # phase -> the phases whose graphs and fits it reuses
-NEEDS = {"timing": ("main", "wide_fit"), "trace": ("main",)}
+NEEDS = {"timing": ("main", "wide_fit"), "trace": ("main",),
+         "dense": ("wide_fit",), "microbatch": ("batch",)}
+# Traffic A of the batch phase: 32 road meshes grid2d(side) in one batch.
+TRAFFIC_A_SIDES = tuple(range(400, 711, 10))
 ARGMAX_KERNELS = ("label_argmax", "fused_move")
 SPLIT_KERNELS = ("min_label", "fused_split")
 PLAIN_CUBE_FLOATS = 1 << 28   # the plain argmax's D x D cube per chunk
@@ -336,14 +358,28 @@ def phase_c1(torch, dev):
 
 # ------------------------------------------------------------------ main
 
+def _wall(torch, fn):
+    """(result, seconds from the call to its result, the device idle)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
 def _three_fits(torch, rt, g):
     """Tile fused, tile unfused and segment fits (split lp) of ``g``, with
-    the launch counts (reset just before the tile fits, read just after)
-    and the peak device memory of the tile fits."""
+    the launch counts (reset just before the tile fits, read just after),
+    the peak device memory of the tile fits and each fit's wall time, from
+    the call to the result, beside the sum of its stage timings."""
     from repro_torch.engine import Engine, EngineConfig, PlanCache
+    walls = {}
 
     def fit(**kw):
-        return Engine(EngineConfig(split="lp", **kw), cache=PlanCache()).fit(g)
+        res, wall = _wall(torch, lambda: Engine(
+            EngineConfig(split="lp", **kw), cache=PlanCache()).fit(g))
+        walls[id(res)] = wall
+        return res
 
     torch.cuda.reset_peak_memory_stats()
     rt.ops.reset_launches()
@@ -362,8 +398,12 @@ def _three_fits(torch, rt, g):
     check(frac == 0.0, f"disconnected fraction {frac}")
 
     def summary(res):
+        wall = walls[id(res)]
         return {"timings_s": res.timings, "total_s": res.total_seconds,
-                "edges_per_s": g.num_edges / res.total_seconds}
+                "compact_s": res.timings["compact"], "wall_s": wall,
+                "outside_stages_s": wall - res.total_seconds,
+                "edges_per_s": g.num_edges / res.total_seconds,
+                "edges_per_wall_s": g.num_edges / wall}
 
     return fused, {
         "n": g.n, "directed_edges": g.num_edges,
@@ -446,6 +486,252 @@ def phase_skew_fit(torch, dev):
             "fits": [{"timings_s": r.timings, "total_s": r.total_seconds,
                       "edges_per_s": g.num_edges / r.total_seconds}
                      for r in fits]}
+
+
+# ----------------------------------------------------------------- dense
+
+def phase_dense(torch, rt, g, dev):
+    """``core.dense`` on the card (B1 and B2 called directly on the ER
+    graph's tiles) against the segment path on the same graph; then the
+    ``gsl_lpa`` / ``gve_lpa`` facades on the card against the CPU."""
+    from repro_torch.core import dense, gsl_lpa, gve_lpa
+    from repro_torch.core.lpa import lpa_run
+    from repro_torch.core.split import split_lp
+    from repro_torch.graphgen import karate_club
+    pg = dense.pad_graph(g)
+    torch.cuda.synchronize()
+    rt.ops.reset_launches()
+    (labels, iters), lpa_s = _wall(torch, lambda: dense.lpa_run_dense(pg))
+    (split, split_iters), split_s = _wall(
+        torch, lambda: dense.split_lp_dense(pg, labels))
+    launches = {k: rt.ops.LAUNCHES[k] for k in LPA_KERNELS}
+    check(launches["label_argmax"] == 2 * iters
+          and launches["min_label"] == split_iters,
+          f"dense: launches {launches} for {iters} / {split_iters} sweeps")
+    seg, seg_lpa_s = _wall(torch, lambda: lpa_run(g))
+    seg_split, seg_split_s = _wall(torch, lambda: split_lp(g, seg.labels))
+    check(torch.equal(labels, seg.labels) and iters == seg.iteration,
+          "dense: lpa_run_dense != the segment lpa_run")
+    check(torch.equal(split, seg_split.labels)
+          and split_iters == seg_split.iterations,
+          "dense: split_lp_dense != the segment split_lp")
+    karate = karate_club()[0]
+    facades = {}
+    for fn in (gsl_lpa, gve_lpa):
+        card, cpu = fn(karate), fn(karate, device="cpu")
+        check(card.detail.device.startswith("cuda")
+              and np.array_equal(card.labels, cpu.labels)
+              and (card.lpa_iterations, card.split_iterations)
+              == (cpu.lpa_iterations, cpu.split_iterations),
+              f"dense: {fn.__name__} on the card != on the CPU")
+        facades[fn.__name__] = {"communities": int(card.labels.max()) + 1,
+                                "lpa_iterations": card.lpa_iterations,
+                                "split_iterations": card.split_iterations}
+    return {"graph": ER_GRAPH, "rows": pg.n_pad, "d": pg.d_max,
+            "lpa_iterations": iters, "split_iterations": split_iters,
+            "launches": launches, "dense_lpa_s": lpa_s,
+            "dense_split_s": split_s, "segment_lpa_s": seg_lpa_s,
+            "segment_split_s": seg_split_s,
+            "karate_club_facades": facades}
+
+
+# ----------------------------------------------------------------- batch
+
+def _traffic_a():
+    from repro_torch.graphgen import grid2d
+    return [grid2d(side) for side in TRAFFIC_A_SIDES]
+
+
+def _traffic_b():
+    from repro_torch.core.graph import build_graph
+    from repro_torch.graphgen import planted_partition
+    edgeless = np.zeros((0, 2), np.int64)
+    return ([planted_partition(32, 512, 0.04, 0.0005, seed=s)[0]
+             for s in range(15)]
+            + [build_graph(edgeless, n=100), build_graph(edgeless, n=1)])
+
+
+def _same_fit(a, b) -> bool:
+    return (np.array_equal(a.labels, b.labels)
+            and (a.lpa_iterations, a.split_iterations, a.num_communities)
+            == (b.lpa_iterations, b.split_iterations, b.num_communities))
+
+
+def _no_disconnected(torch, graphs, results, dev) -> float:
+    """Disconnected-community fraction over all members at once: the
+    members' labels, shifted apart, on their packed disjoint union (a
+    community of the union is disconnected iff it is in its member)."""
+    from repro_torch.core.batch import GraphBatch
+    from repro_torch.core.detect import disconnected_fraction
+    batch = GraphBatch.pack(graphs, device=dev)
+    shift = np.cumsum([0] + [r.num_communities for r in results[:-1]])
+    comm = np.concatenate([r.labels + s for r, s in zip(results, shift)])
+    return float(disconnected_fraction(batch.graph,
+                                       torch.from_numpy(comm).to(dev)))
+
+
+def _fit_many_timed(torch, rt, graphs, **cfg):
+    """One fit_many with its wall time and the LPA kernels' launches
+    (reset just before, read just after)."""
+    from repro_torch.engine import Engine, EngineConfig, PlanCache
+    eng = Engine(EngineConfig(**cfg), cache=PlanCache())
+    torch.cuda.synchronize()
+    rt.ops.reset_launches()
+    res, wall = _wall(torch, lambda: eng.fit_many(graphs))
+    launches = {k: rt.ops.LAUNCHES[k] for k in LPA_KERNELS}
+    stages = {k: sum(r.timings[k] for r in res) for k in res[0].timings}
+    return res, {"wall_s": wall, "stage_s": stages,
+                 "bucket": list(res[0].bucket), "backend": res[0].backend,
+                 "launches": launches}
+
+
+def _solo_fits(torch, graphs, **cfg):
+    """Each member's solo fit, with the sum of their wall times."""
+    from repro_torch.engine import Engine, EngineConfig, PlanCache
+    eng = Engine(EngineConfig(**cfg), cache=PlanCache())
+    out, total = [], 0.0
+    for g in graphs:
+        res, wall = _wall(torch, lambda g=g: eng.fit(g))
+        out.append(res)
+        total += wall
+    return out, total
+
+
+def phase_batch(torch, rt, dev):
+    """Engine.fit_many on traffic A (32 road meshes, tile fused and
+    unfused) and B (17 mixed members, auto = tile fused, tile unfused and
+    segment, split lp and lpp + shortcut); every member equals its solo
+    fused tile fit and has no disconnected community.  Members start on
+    the host, as users send them, for the batched and the solo fits
+    alike.  Then the four LPA kernels on traffic A's packed tiles."""
+    from repro_torch.core.batch import GraphBatch
+    from repro_torch.engine import EngineConfig
+    from repro_torch.engine.bucketing import batch_bucket_for
+    from repro_torch.engine.registry import choose_backend_batch
+    out = {}
+
+    # traffic A: batches of road-mesh graphs from many users
+    t0 = time.perf_counter()
+    graphs = _traffic_a()
+    build_s = time.perf_counter() - t0
+    solo, solo_s = _solo_fits(torch, graphs, backend="tile", split="lp")
+    runs = {}
+    for tag, fuse in (("fused", "on"), ("unfused", "off")):
+        res, row = _fit_many_timed(torch, rt, graphs, backend="tile",
+                                   split="lp", fuse_sweeps=fuse)
+        for i, (r, s) in enumerate(zip(res, solo)):
+            check(_same_fit(r, s) and r.batch_index == i
+                  and r.batch_size == len(graphs),
+                  f"batch A {tag}: member {i} != its solo fused tile fit")
+        runs[tag] = row
+    batch_launches = {k: runs["fused"]["launches"][k]
+                      + runs["unfused"]["launches"][k] for k in LPA_KERNELS}
+    for k, v in batch_launches.items():
+        check(v > 0, f"batch A: {k} was not launched by the fit_many runs")
+    frac = _no_disconnected(torch, graphs, res, dev)
+    check(frac == 0.0, f"batch A: disconnected fraction {frac}")
+    check(choose_backend_batch(graphs, EngineConfig(), dev) == "segment",
+          "batch A: auto should pick segment at this size")
+    # the four kernels on the packed shape, with the fit's labels
+    batch = GraphBatch.pack(graphs, device=dev)
+    bucket = batch_bucket_for(batch)
+    shift = np.repeat(batch.offsets[:-1], batch.sizes).astype(np.int32)
+    labels = np.concatenate([s.labels for s in solo]) + shift
+    t = _timing_tiles(torch, batch.graph, bucket.n, bucket.d, labels, dev)
+    kern = _time_argmax(torch, rt, t, plain_reps=5)
+    kern.update(_time_split(torch, rt, t, plain_reps=5))
+    del t, batch
+    out["traffic_a"] = {
+        "members": f"grid2d(side), side = {TRAFFIC_A_SIDES[0]}, "
+                   f"{TRAFFIC_A_SIDES[1]}, ..., {TRAFFIC_A_SIDES[-1]}",
+        "k": len(graphs), "vertices": sum(g.n for g in graphs),
+        "directed_edges": sum(g.num_edges for g in graphs),
+        "graph_build_s": build_s, "split": "lp",
+        "lpa_iterations_min_max": [min(r.lpa_iterations for r in solo),
+                                   max(r.lpa_iterations for r in solo)],
+        "split_iterations_min_max": [min(r.split_iterations for r in solo),
+                                     max(r.split_iterations for r in solo)],
+        "disconnected_fraction": frac, **runs,
+        "solo_fused_tile_wall_sum_s": solo_s,
+        "batch_launches": batch_launches, "kernels_packed_shape": kern}
+
+    # traffic B: many medium graphs of mixed shape in one dispatch
+    t0 = time.perf_counter()
+    graphs = _traffic_b()
+    build_s = time.perf_counter() - t0
+    check(choose_backend_batch(graphs, EngineConfig(), dev) == "tile",
+          "batch B: auto did not pick tile on CUDA")
+    cases = []
+    for split, shortcut in (("lp", False), ("lpp", True)):
+        cfg = dict(split=split, shortcut=shortcut)
+        solo_b, solo_b_s = _solo_fits(torch, graphs, **cfg)
+        if split == "lp":
+            solo_lp = solo_b
+        row = {"split": split, "shortcut": shortcut,
+               "solo_auto_wall_sum_s": solo_b_s}
+        for tag, kw in (("auto", {}), ("tile_unfused",
+                                       dict(backend="tile", fuse_sweeps="off")),
+                        ("segment", dict(backend="segment"))):
+            res, run = _fit_many_timed(torch, rt, graphs, **cfg, **kw)
+            for i, (r, s) in enumerate(zip(res, solo_b)):
+                check(_same_fit(r, s), f"batch B {split} {tag}: member {i} "
+                      f"!= its solo fit")
+            row[tag] = run
+        check(row["auto"]["backend"] == "tile"
+              and row["auto"]["bucket"][3] == 64,
+              f"batch B: auto ran {row['auto']['backend']} at "
+              f"{row['auto']['bucket']}")
+        frac = _no_disconnected(torch, graphs, res, dev)
+        check(frac == 0.0, f"batch B {split}: disconnected fraction {frac}")
+        row["disconnected_fraction"] = frac
+        cases.append(row)
+    out["traffic_b"] = {
+        "members": "planted_partition(32, 512, 0.04, 0.0005, seed=s), "
+                   "s = 0..14; edgeless 100-vertex; one vertex",
+        "k": len(graphs), "vertices": sum(g.n for g in graphs),
+        "directed_edges": sum(g.num_edges for g in graphs),
+        "max_degree": max(int((g.row_ptr[1:] - g.row_ptr[:-1]).max())
+                          for g in graphs if g.num_edges),
+        "graph_build_s": build_s, "cases": cases}
+    return graphs, solo_lp, batch_launches, out
+
+
+def phase_microbatch(torch, graphs, solo):
+    """A MicroBatcher(max_batch=8) over the card takes 24 submissions,
+    drawn from traffic B's members, from 4 threads; every result equals
+    the member's solo fit.  Every wait is bounded."""
+    import threading
+
+    from repro_torch.engine import Engine, EngineConfig, PlanCache
+    from repro_torch.launch.microbatch import MicroBatcher
+    picks = [(7 * i) % len(graphs) for i in range(24)]
+    subs = [None] * len(picks)
+    mb = MicroBatcher(Engine(EngineConfig(split="lp"), cache=PlanCache()),
+                      max_batch=8, batch_timeout_ms=20.0)
+
+    def client(c):
+        for j in range(c, len(picks), 4):
+            subs[j] = mb.submit(graphs[picks[j]])
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=client, args=(c,)) for c in range(4)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=120)
+        check(not th.is_alive(), "microbatch: a client thread hung")
+    results = [s.result(timeout=300) for s in subs]
+    wall = time.perf_counter() - t0
+    mb.close(timeout=120)
+    check(not mb._thread.is_alive(), "microbatch: the worker did not stop")
+    for j, (i, r) in enumerate(zip(picks, results)):
+        check(_same_fit(r, solo[i]) and r.device.startswith("cuda"),
+              f"microbatch: submission {j} (member {i}) != its solo fit")
+    check(sum(mb.batch_sizes) == len(picks)
+          and max(mb.batch_sizes) <= 8, f"microbatch: batches "
+          f"{mb.batch_sizes}")
+    return {"submissions": len(picks), "threads": 4, "max_batch": 8,
+            "batch_sizes": mb.batch_sizes, "wall_s": wall, **mb.stats()}
 
 
 # ---------------------------------------------------------------- timing
@@ -955,8 +1241,16 @@ def main(argv=None) -> int:
     if "wide_fit" in run:
         g_er, fused_er, res = phase_wide_fit(torch, rt, dev)
         emit({"phase": "wide_fit", **res})
+    if "dense" in run:
+        emit({"phase": "dense", **phase_dense(torch, rt, g_er, dev)})
     if "skew_fit" in run:
         emit({"phase": "skew_fit", **phase_skew_fit(torch, dev)})
+    if "batch" in run:
+        graphs_b, solo_b, batch_launches, res = phase_batch(torch, rt, dev)
+        emit({"phase": "batch", **res})
+    if "microbatch" in run:
+        emit({"phase": "microbatch",
+              **phase_microbatch(torch, graphs_b, solo_b)})
     if "timing" in run:
         from repro_torch.engine.bucketing import bucket_for
         from repro_torch.graphgen import planted_partition
@@ -993,7 +1287,10 @@ def main(argv=None) -> int:
     rows = [
         {"name": name, "route": "cuda", "source": KERNELS[name][0],
          "replaces": KERNELS[name][1], "launches": launches[name],
-         "launched_by": "tile fits of grid2d(3500), fused and unfused",
+         "batch_launches": batch_launches[name],
+         "launched_by": "launches: tile fits of grid2d(3500), fused and "
+                        "unfused; batch_launches: fit_many of traffic A "
+                        "(32 grid2d members), tile fused and unfused",
          "max_abs_err": kernel_err[name],
          **{k: timing[name][k] for k in keys}}
         for name in LPA_KERNELS]

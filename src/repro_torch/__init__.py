@@ -3,6 +3,8 @@
 The counterpart of the JAX package ``repro``, module for module: graphs
 (``core.graph``), propagation and Split-Last (``core``), the four LPA
 kernels and flash attention (``kernels``), the attention oracle
-(``models.attention``) and the solo in-core ``Engine.fit`` (``engine``).
+(``models.attention``), the in-core ``Engine.fit`` and the batched
+``Engine.fit_many`` (``engine``), and the micro-batching scheduler
+(``launch.microbatch``).
 It imports neither JAX nor the JAX package.
 """

@@ -1,4 +1,6 @@
-"""Core GSL-LPA building blocks in PyTorch: graph, propagation, split."""
+"""Core GSL-LPA building blocks in PyTorch: graph, propagation, split,
+batching and the ``gsl_lpa`` / ``gve_lpa`` facades."""
+from repro_torch.core.batch import GraphBatch  # noqa: F401
 from repro_torch.core.detect import (  # noqa: F401
     disconnected_communities,
     disconnected_communities_host,
@@ -12,7 +14,19 @@ from repro_torch.core.graph import (  # noqa: F401
     to_numpy_adj,
     to_padded_neighbors,
 )
-from repro_torch.core.lpa import label_hash, lpa_move, lpa_run  # noqa: F401
+from repro_torch.core.gsl import (  # noqa: F401
+    SPLIT_METHODS,
+    GslResult,
+    gsl_lpa,
+    gve_lpa,
+)
+from repro_torch.core.lpa import (  # noqa: F401
+    LpaState,
+    label_hash,
+    lpa_move,
+    lpa_move_reference,
+    lpa_run,
+)
 from repro_torch.core.modularity import modularity  # noqa: F401
 from repro_torch.core.split import (  # noqa: F401
     compact_labels,

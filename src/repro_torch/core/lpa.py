@@ -30,8 +30,8 @@ import torch
 from repro_torch.core.graph import Graph
 from repro_torch.kernels.ref import label_hash
 
-__all__ = ["LpaState", "label_hash", "lpa_move", "lpa_run", "neighbors_of",
-           "segment_sum", "threshold_for"]
+__all__ = ["LpaState", "label_hash", "lpa_move", "lpa_move_reference",
+           "lpa_run", "neighbors_of", "segment_sum", "threshold_for"]
 
 
 class LpaState(NamedTuple):
@@ -65,6 +65,10 @@ def segment_sum(values: torch.Tensor, seg: torch.Tensor, num_segments: int,
     millions of entries takes a thread that long: keep the ones whose sum
     is not needed out.  Unless ``sorted_ids``, the ids are first sorted
     stably.
+
+    Integer (and bool) values sum exactly in any order: they come back as
+    int64, the differences of one prefix sum at the segment bounds, with
+    no fold of a segment in one thread.
     """
     if not sorted_ids:
         seg, order = torch.sort(seg, stable=True)
@@ -72,6 +76,11 @@ def segment_sum(values: torch.Tensor, seg: torch.Tensor, num_segments: int,
     bounds = torch.arange(num_segments + 1, dtype=seg.dtype,
                           device=seg.device)
     offsets = torch.searchsorted(seg, bounds)
+    if not values.is_floating_point():
+        csum = torch.zeros(values.numel() + 1, dtype=torch.int64,
+                           device=values.device)
+        torch.cumsum(values, 0, dtype=torch.int64, out=csum[1:])
+        return csum[offsets[1:]] - csum[offsets[:-1]]
     return torch.segment_reduce(values[:, None], "sum", offsets=offsets,
                                 axis=0, unsafe=True)[:, 0]
 
@@ -193,3 +202,29 @@ def lpa_run(graph: Graph, tau: float = 0.05, max_iterations: int = 20,
         it += 1
         dn = int(dn_t)
     return LpaState(labels=labels, active=active, iteration=it, delta_n=dn)
+
+
+def lpa_move_reference(graph: Graph, labels: torch.Tensor,
+                       active: torch.Tensor, iteration: int = 0):
+    """O(n * n) dense oracle of ``lpa_move`` for small-graph tests.
+
+    Builds the full (n, n) vertex x community weight matrix
+    ``W[i, c]`` = the summed weight of i's neighbors j with ``C[j] = c``.
+    """
+    n = graph.n
+    dev = labels.device
+    flat = graph.src.long() * n + labels[graph.dst.long()].long()
+    w_ic = torch.zeros(n * n, dtype=torch.float32, device=dev).index_add_(
+        0, flat, torch.where(graph.edge_mask, graph.wgt, 0.0)).reshape(n, n)
+    best_w = w_ic.amax(dim=1)
+    # same tie-break as lpa_move: max weight, then max label hash
+    is_best = (w_ic >= best_w[:, None]) & (best_w[:, None] > 0)
+    h = label_hash(torch.arange(n, dtype=torch.int32, device=dev), iteration)
+    best_h = torch.where(is_best, h[None, :], -1).amax(dim=1)
+    pick = is_best & (h[None, :] == best_h[:, None])
+    best_lab = pick.to(torch.uint8).argmax(dim=1).to(labels.dtype)
+    cur_w = w_ic.gather(1, labels[:, None].long())[:, 0]
+    adopt = active & (best_w > cur_w) & (best_w > 0)
+    new_labels = torch.where(adopt, best_lab, labels)
+    changed = new_labels != labels
+    return new_labels, changed, changed.sum()

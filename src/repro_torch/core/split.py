@@ -32,8 +32,14 @@ class SplitState(NamedTuple):
 
 
 def _min_label_sweep(graph: Graph, comm: torch.Tensor, labels: torch.Tensor,
-                     active: torch.Tensor, prune: bool, shortcut: bool):
-    """One sweep of Algorithm 1's loop body (lines 8-21), vectorised."""
+                     active: torch.Tensor, prune: bool, shortcut: bool,
+                     voffset: torch.Tensor | None = None):
+    """One sweep of Algorithm 1's loop body (lines 8-21), vectorised.
+
+    ``voffset``: per-vertex owner offsets when labels are in per-graph
+    *local* coordinates (the batched path): the shortcut's pointer jump
+    gathers at the label's global row, ``label + voffset``.
+    """
     n = graph.n
     src = graph.src.long()
     same = graph.edge_mask & (comm[graph.src] == comm[graph.dst])
@@ -45,7 +51,8 @@ def _min_label_sweep(graph: Graph, comm: torch.Tensor, labels: torch.Tensor,
     if prune:
         new = torch.where(active, new, labels)
     if shortcut:  # pointer jump (beyond-paper)
-        new = torch.minimum(new, new[new])
+        new = torch.minimum(new, new[new if voffset is None
+                                     else new + voffset])
     changed = new != labels
     if prune:
         # reactivate same-community neighbors of changed vertices

@@ -1,8 +1,9 @@
 """Segment backend: the edge-list sort + segment-reduce path.
 
 Wraps ``core.lpa.lpa_run`` (propagation) and ``core.split.split_lp``
-(Split-Last) behind the backend protocol, in plain tensor operations on
-any device.  It is ``auto``'s choice for skewed graphs and the tile
+(Split-Last) behind the backend protocol, and their batched twins in
+``core.batch`` behind the batched trio, in plain tensor operations on any
+device.  It is ``auto``'s choice for skewed graphs and the tile
 backend's oracle.
 
 With ``bucketing="exact"`` the convergence threshold is the Python-float
@@ -17,10 +18,16 @@ from types import SimpleNamespace
 import numpy as np
 import torch
 
+from repro_torch.core.batch import (
+    lpa_run_batched,
+    split_lp_batched,
+    warm_state_rows,
+)
 from repro_torch.core.graph import Graph
 from repro_torch.core.lpa import lpa_run
 from repro_torch.core.split import split_lp
 from repro_torch.engine.bucketing import (
+    BatchBucketKey,
     BucketKey,
     pad_active,
     pad_graph,
@@ -30,14 +37,19 @@ from repro_torch.engine.cache import PLAN_LOG
 from repro_torch.engine.config import EngineConfig
 from repro_torch.engine.registry import (
     BackendRun,
+    BatchBackendRun,
+    batch_index,
     device_sync,
     register_backend,
+    to_device,
+    to_host,
 )
 
 
 @register_backend("segment")
 class SegmentBackend:
     name = "segment"
+    supports_batch = True
 
     def plan_key(self, config: EngineConfig) -> tuple:
         return ()
@@ -63,11 +75,10 @@ class SegmentBackend:
             init_active: np.ndarray | None = None) -> BackendRun:
         g = inputs
         dev = plan.device
-        labels0 = torch.from_numpy(pad_labels(
-            np.arange(n_real, dtype=np.int32) if init_labels is None
-            else init_labels, n_real, g.n)).to(dev)
-        active0 = torch.from_numpy(pad_active(init_active, n_real,
-                                              g.n)).to(dev)
+        labels0 = to_device(
+            np.arange(g.n, dtype=np.int32) if init_labels is None
+            else pad_labels(init_labels, n_real, g.n), dev)
+        active0 = to_device(pad_active(init_active, n_real, g.n), dev)
 
         device_sync(dev)
         t0 = time.perf_counter()
@@ -84,7 +95,53 @@ class SegmentBackend:
             labels, split_iters = st.labels, st.iterations
         device_sync(dev)
         t2 = time.perf_counter()
-        return BackendRun(labels=labels.cpu().numpy(),
+        return BackendRun(labels=to_host(labels, n_real),
                           lpa_iterations=state.iteration,
                           split_iterations=split_iters,
                           lpa_seconds=t1 - t0, split_seconds=t2 - t1)
+
+    # --- batched dispatch (GraphBatch disjoint-union packing) ---
+
+    def build_batch(self, bucket: BatchBucketKey, config: EngineConfig,
+                    device: torch.device):
+        do_split = config.split in ("lp", "lpp")
+        PLAN_LOG.record("segment:batch_propagate")
+        if do_split:
+            PLAN_LOG.record("segment:batch_split")
+        return SimpleNamespace(
+            device=device, tau=config.tau,
+            max_iterations=config.max_iterations, do_split=do_split,
+            prune=config.split == "lpp", shortcut=config.shortcut)
+
+    def prepare_batch(self, batch, bucket: BatchBucketKey,
+                      config: EngineConfig):
+        g = pad_graph(batch.graph, BucketKey(bucket.n, bucket.m, bucket.d))
+        return g, batch_index(batch, bucket.k, bucket.n, g.device)
+
+    def run_batch(self, plan, inputs,
+                  init_labels: np.ndarray | None = None,
+                  init_active: np.ndarray | None = None) -> BatchBackendRun:
+        g, b = inputs
+        dev = plan.device
+        lab0, act0 = warm_state_rows(g.n, b.voffset_host, init_labels,
+                                     init_active)
+        labels0, active0 = to_device(lab0, dev), to_device(act0, dev)
+
+        device_sync(dev)
+        t0 = time.perf_counter()
+        labels, iters = lpa_run_batched(
+            g, b.sizes, b.graph_id, b.voffset, labels0, active0,
+            tau=plan.tau, max_iterations=plan.max_iterations)
+        device_sync(dev)
+        t1 = time.perf_counter()
+        split_iters = np.zeros(len(b.sizes), np.int32)
+        if plan.do_split:
+            labels, split_iters = split_lp_batched(
+                g, b.sizes, b.graph_id, b.voffset, labels, prune=plan.prune,
+                shortcut=plan.shortcut)
+        device_sync(dev)
+        t2 = time.perf_counter()
+        return BatchBackendRun(labels=to_host(labels, b.n_total),
+                               lpa_iterations=iters,
+                               split_iterations=split_iters,
+                               lpa_seconds=t1 - t0, split_seconds=t2 - t1)

@@ -13,6 +13,10 @@ from the carried changed mask, so each sub-sweep (and each split sweep) is
 one ``fused_move`` (``fused_split``) launch.  Labels and iteration counts
 are identical either way.  One scalar is read back per iteration for the
 convergence test.
+
+The batched trio runs the same kernels over a packed disjoint union of
+graphs (``core.batch``), reading one per-slot ``done`` vector per
+iteration.
 """
 from __future__ import annotations
 
@@ -22,15 +26,26 @@ from types import SimpleNamespace
 import numpy as np
 import torch
 
+from repro_torch.core.batch import batch_thresholds, warm_state_rows
 from repro_torch.core.graph import Graph, to_padded_neighbors
-from repro_torch.core.lpa import threshold_for
-from repro_torch.engine.bucketing import BucketKey, pad_active, pad_labels
+from repro_torch.core.lpa import segment_sum, threshold_for
+from repro_torch.engine.bucketing import (
+    BatchBucketKey,
+    BucketKey,
+    pad_active,
+    pad_labels,
+)
 from repro_torch.engine.cache import PLAN_LOG
 from repro_torch.engine.config import EngineConfig
 from repro_torch.engine.registry import (
     BackendRun,
+    BatchBackendRun,
+    BatchIndex,
+    batch_index,
     device_sync,
     register_backend,
+    to_device,
+    to_host,
 )
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import label_hash
@@ -119,9 +134,95 @@ def _split_fused(plan, nbr, nmask, comm):
     return labels, it
 
 
+# --- batched loops: one launch per sub-sweep over the packed rows.  Labels
+# live in per-graph *local* coordinates (the argmax tie-break hashes raw
+# label values) while nbr holds global rows; per-slot done flags freeze
+# each member where its solo run would stop, and each slot's changed count
+# is an exact integer segment sum over graph_id.
+
+def _propagate_batch(plan, nbr, nw, nmask, b: BatchIndex, labels, active):
+    dev = plan.device
+    k1 = len(b.sizes)
+    local = plan.ids - b.voffset
+    parity = (label_hash(local, -1) & 1).bool()
+    real = plan.ids < b.n_total
+    thr_h = batch_thresholds(plan.tau, b.sizes)
+    thr = torch.from_numpy(thr_h).to(dev)
+    done_h = b.sizes <= thr_h
+    done = torch.from_numpy(done_h).to(dev)
+    iters = np.zeros(k1, np.int32)
+    active = active & real
+    # fused: chg / candp carry the previous sub-sweep's changed mask and
+    # candidate set into the kernel, which applies the wake first
+    chg = torch.zeros(plan.rows, dtype=torch.bool, device=dev)
+    candp = torch.zeros_like(chg)
+    it = 0
+    while not done_h.all() and it < plan.max_iterations:
+        running = ~done[b.graph_id]
+        dn = torch.zeros(k1, dtype=torch.int64, device=dev)
+        for sweep, klass in enumerate((~parity, parity)):
+            seed = 2 * it + sweep
+            if plan.fuse:
+                new, active = ops.fused_move(nbr, nw, nmask, labels, chg,
+                                             active, candp, klass & running,
+                                             real, seed)
+                candp = active & klass & running
+                chg = new != labels
+            else:
+                cand = active & klass & running
+                best_lab, best_w, cur_w = ops.label_argmax(nbr, nw, nmask,
+                                                           labels, seed)
+                adopt = cand & (best_w > cur_w.clamp_min(0.0))
+                new = torch.where(adopt, best_lab, labels)
+                chg = new != labels
+                wake = (chg[nbr] & nmask).any(dim=1)
+                active = (active & ~cand) | (wake & real)
+            labels = new
+            dn += segment_sum(chg, b.graph_id, k1, sorted_ids=True)
+        iters += ~done_h
+        done = done | (dn <= thr)
+        done_h = done.cpu().numpy()
+        it += 1
+    return labels, iters
+
+
+def _split_batch(plan, nbr, nmask, b: BatchIndex, comm):
+    dev = plan.device
+    k1 = len(b.sizes)
+    labels = plan.ids - b.voffset
+    # fused: last sweep's changed mask, ones on the first (see _split_fused)
+    chg = torch.ones(plan.rows, dtype=torch.bool, device=dev)
+    # unfused with prune: the rows to sweep, and the same-community cells
+    active = torch.ones_like(chg)
+    same = ((comm[nbr] == comm[:, None]) & nmask) \
+        if plan.prune and not plan.fuse else None
+    done_h = b.sizes == 0
+    done = torch.from_numpy(done_h).to(dev)
+    iters = np.zeros(k1, np.int32)
+    while not done_h.all():
+        if plan.fuse:
+            new = ops.fused_split(nbr, nmask, labels, comm, chg, plan.prune)
+        else:
+            new = ops.min_label(nbr, nmask, labels, comm)
+            if plan.prune:
+                new = torch.where(active, new, labels)
+        if plan.shortcut:
+            new = torch.minimum(new, new[new + b.voffset])
+        chg = new != labels
+        if same is not None:
+            active = (chg[nbr] & same).any(dim=1)
+        labels = new
+        dn = segment_sum(chg, b.graph_id, k1, sorted_ids=True)
+        iters += ~done_h
+        done = done | (dn == 0)
+        done_h = done.cpu().numpy()
+    return labels, iters
+
+
 @register_backend("tile")
 class TileBackend:
     name = "tile"
+    supports_batch = True
 
     def plan_key(self, config: EngineConfig) -> tuple:
         return ()
@@ -152,11 +253,10 @@ class TileBackend:
             init_active: np.ndarray | None = None) -> BackendRun:
         nbr, nw, nmask = inputs
         dev = plan.device
-        labels0 = torch.from_numpy(pad_labels(
-            np.arange(n_real, dtype=np.int32) if init_labels is None
-            else init_labels, n_real, plan.rows)).to(dev)
-        active0 = torch.from_numpy(
-            pad_active(init_active, n_real, plan.rows)).to(dev)
+        labels0 = to_device(
+            np.arange(plan.rows, dtype=np.int32) if init_labels is None
+            else pad_labels(init_labels, n_real, plan.rows), dev)
+        active0 = to_device(pad_active(init_active, n_real, plan.rows), dev)
 
         device_sync(dev)
         t0 = time.perf_counter()
@@ -169,7 +269,55 @@ class TileBackend:
             labels, split_iters = plan.split(plan, nbr, nmask, labels)
         device_sync(dev)
         t2 = time.perf_counter()
-        return BackendRun(labels=labels.cpu().numpy(),
+        return BackendRun(labels=to_host(labels, n_real),
                           lpa_iterations=lpa_iters,
                           split_iterations=split_iters,
                           lpa_seconds=t1 - t0, split_seconds=t2 - t1)
+
+    # --- batched dispatch (GraphBatch disjoint-union packing) ---
+
+    def build_batch(self, bucket: BatchBucketKey, config: EngineConfig,
+                    device: torch.device):
+        fuse = ops.resolve_fuse(config.fuse_sweeps, device)
+        do_split = config.split in ("lp", "lpp")
+        PLAN_LOG.record("tile:batch_propagate_fused" if fuse
+                        else "tile:batch_propagate")
+        if do_split:
+            PLAN_LOG.record("tile:batch_split_fused" if fuse
+                            else "tile:batch_split")
+        return SimpleNamespace(
+            rows=bucket.n, device=device, fuse=fuse, do_split=do_split,
+            ids=torch.arange(bucket.n, dtype=torch.int32, device=device),
+            tau=config.tau, max_iterations=config.max_iterations,
+            prune=config.split == "lpp", shortcut=config.shortcut)
+
+    def prepare_batch(self, batch, bucket: BatchBucketKey,
+                      config: EngineConfig):
+        g = batch.graph
+        return (to_padded_neighbors(g, d_max=bucket.d, rows=bucket.n),
+                batch_index(batch, bucket.k, bucket.n, g.device))
+
+    def run_batch(self, plan, inputs,
+                  init_labels: np.ndarray | None = None,
+                  init_active: np.ndarray | None = None) -> BatchBackendRun:
+        (nbr, nw, nmask), b = inputs
+        dev = plan.device
+        lab0, act0 = warm_state_rows(plan.rows, b.voffset_host, init_labels,
+                                     init_active)
+        labels0, active0 = to_device(lab0, dev), to_device(act0, dev)
+
+        device_sync(dev)
+        t0 = time.perf_counter()
+        labels, iters = _propagate_batch(plan, nbr, nw, nmask, b, labels0,
+                                         active0)
+        device_sync(dev)
+        t1 = time.perf_counter()
+        split_iters = np.zeros(len(b.sizes), np.int32)
+        if plan.do_split:
+            labels, split_iters = _split_batch(plan, nbr, nmask, b, labels)
+        device_sync(dev)
+        t2 = time.perf_counter()
+        return BatchBackendRun(labels=to_host(labels, b.n_total),
+                               lpa_iterations=iters,
+                               split_iterations=split_iters,
+                               lpa_seconds=t1 - t0, split_seconds=t2 - t1)

@@ -24,6 +24,16 @@ class BucketKey(NamedTuple):
     d: int   # max-degree bucket (tile width)
 
 
+class BatchBucketKey(NamedTuple):
+    """Batched-dispatch bucket: graph-count and packed-total shapes.  Mixed
+    traffic reuses one plan while the totals land in the same bucket; the
+    members' composition rides along as data (sizes, graph_id, voffset)."""
+    k: int   # graph-count bucket (>= real batch size)
+    n: int   # total-vertex bucket (>= packed n)
+    m: int   # total-edge bucket (>= packed m_pad)
+    d: int   # max-degree bucket across members (tile width)
+
+
 def next_pow2(x: int, floor: int = 1) -> int:
     return max(int(floor), 1 << max(int(x) - 1, 0).bit_length())
 
@@ -42,6 +52,45 @@ def bucket_for(graph: Graph, *, bucketing: str = "pow2",
     return BucketKey(n=next_pow2(graph.n, min_vertex_bucket),
                      m=next_pow2(graph.m_pad, min_edge_bucket),
                      d=next_pow2(d_real))
+
+
+def batch_bucket_for(batch, *, bucketing: str = "pow2",
+                     min_vertex_bucket: int = 256,
+                     min_edge_bucket: int = 2048) -> BatchBucketKey:
+    """Bucket a :class:`repro_torch.core.batch.GraphBatch`'s packed
+    shapes."""
+    g = batch.graph
+    d_real = max(max_degree(g), 1)
+    if bucketing == "exact":
+        return BatchBucketKey(k=batch.num_graphs, n=g.n, m=g.m_pad, d=d_real)
+    return BatchBucketKey(k=next_pow2(batch.num_graphs),
+                          n=next_pow2(g.n, min_vertex_bucket),
+                          m=next_pow2(g.m_pad, min_edge_bucket),
+                          d=next_pow2(d_real))
+
+
+def batch_index_arrays(batch, k_bucket: int, n_rows: int,
+                       ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Per-slot and per-row index arrays of the batched loops.
+
+    Returns (sizes, graph_id, voffset):
+      sizes    (k_bucket + 1,) int32: real vertex count per slot; empty
+               slots and the final padding slot carry 0, so they are
+               converged from the start.
+      graph_id (n_rows,) int32: owning slot per row; padding rows map to
+               the extra slot ``k_bucket``.
+      voffset  (n_rows,) int32: owning slot's vertex-id offset (padding
+               rows use the packed vertex count, so their local ids are
+               ``row - total_vertices``).
+    """
+    nt = batch.total_vertices
+    sizes = np.zeros(k_bucket + 1, np.int32)
+    sizes[:batch.num_graphs] = batch.sizes
+    graph_id = np.full(n_rows, k_bucket, np.int32)
+    graph_id[:nt] = batch.graph_id
+    voffset = np.full(n_rows, nt, np.int32)
+    voffset[:nt] = batch.vertex_offsets()
+    return sizes, graph_id, voffset
 
 
 def pad_graph(graph: Graph, bucket: BucketKey) -> Graph:

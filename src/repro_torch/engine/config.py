@@ -1,7 +1,8 @@
 """Engine configuration and the unified detection result.
 
 ``EngineConfig`` is the knob surface of :class:`repro_torch.engine.Engine`;
-``DetectionResult`` is the backend-independent return type of ``fit``.
+``DetectionResult`` is the backend-independent return type of ``fit`` and
+of each member of ``fit_many``.
 Options of the JAX engine that this package does not carry yet raise
 ``NotImplementedError`` naming the ROADMAP item that ports them; none is
 silently ignored.
@@ -28,7 +29,6 @@ UNPORTED = {
     "warm_start='auto'": "A7 (warm starts and streaming)",
     "profile": "A10 (observability and quality)",
     "quality": "A10 (observability and quality)",
-    "fit_many": "A6 (batched detection)",
     "graph file paths": "A8 (ingestion)",
 }
 
@@ -121,19 +121,26 @@ class EngineConfig:
 
 @dataclasses.dataclass
 class DetectionResult:
-    """Unified result of ``Engine.fit`` — identical shape for all backends."""
+    """Unified result of ``Engine.fit`` and of each member of
+    ``Engine.fit_many`` — identical shape for all backends."""
     labels: np.ndarray            # (n,) int32, compacted to dense [0, K)
     num_communities: int
     backend: str                  # backend that actually ran
     lpa_iterations: int
     split_iterations: int         # 0 for split in ("none", "bfs_host")
     timings: dict[str, float]     # phase -> seconds
-    bucket: tuple                 # (n, m, d)
+    bucket: tuple                 # (n, m, d), or (k, n, m, d) when batched
     cache_hit: bool               # plan came from the engine's plan cache
     warm_started: bool            # fit started from caller labels
     device: str = "cpu"           # where the fit ran
     modularity: float | None = None
     disconnected_fraction: float | None = None
+    # Batched dispatch (``Engine.fit_many``): how many graphs shared the
+    # dispatch and this graph's place in the pack.  Batch-level stage
+    # times appear as ``"prorated_*"`` keys: work-share estimates, not
+    # measurements.
+    batch_size: int = 1
+    batch_index: int = 0
     _connected_fp: Any = dataclasses.field(
         default=None, repr=False, compare=False)
 
@@ -155,6 +162,18 @@ class DetectionResult:
                 disconnected_fraction(graph, labels))
             self._connected_fp = fp
         return self.disconnected_fraction
+
+    @property
+    def lpa_seconds(self) -> float:
+        """Propagation seconds: measured on a solo fit, a work-share
+        estimate on a batched member."""
+        return (self.timings.get("propagation", 0.0)
+                + self.timings.get("prorated_propagation", 0.0))
+
+    @property
+    def split_seconds(self) -> float:
+        return (self.timings.get("split", 0.0)
+                + self.timings.get("prorated_split", 0.0))
 
     @property
     def total_seconds(self) -> float:

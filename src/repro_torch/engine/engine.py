@@ -6,11 +6,14 @@
     result = eng.fit(graph)                 # DetectionResult
     result = eng.fit(graph2)                # same bucket -> plan reused
     result = eng.fit(graph, init_labels=result.labels)   # warm start
+    results = eng.fit_many([g1, g2, g3])    # one batched dispatch
 
 ``fit`` buckets the graph, fetches (or builds) the backend's plan from the
 plan cache, runs the backend on the configured device, applies the host
 split when requested, compacts the labels on the host, and optionally
-attaches quality metrics.
+attaches quality metrics.  ``fit_many`` packs k graphs into one disjoint
+union and runs the backend's batched plan once; each member's result
+equals its solo ``fit``.
 """
 from __future__ import annotations
 
@@ -21,13 +24,15 @@ import numpy as np
 import torch
 
 import repro_torch.engine.backends  # noqa: F401  (registers the backends)
+from repro_torch.core.batch import GraphBatch
 from repro_torch.core.graph import Graph
 from repro_torch.core.split import split_bfs_host
-from repro_torch.engine.bucketing import bucket_for
+from repro_torch.engine.bucketing import batch_bucket_for, bucket_for
 from repro_torch.engine.cache import GLOBAL_CACHE, PLAN_LOG, PlanCache
 from repro_torch.engine.config import DetectionResult, EngineConfig, unported
 from repro_torch.engine.registry import (
     choose_backend,
+    choose_backend_batch,
     device_sync,
     get_backend,
 )
@@ -46,9 +51,22 @@ def resolve_device(device: str | torch.device | None) -> torch.device:
 
 
 def _compact_host(labels: np.ndarray) -> tuple[np.ndarray, int]:
-    """Dense [0, K) relabeling in rank order of the label values."""
-    uniq, inv = np.unique(np.asarray(labels), return_inverse=True)
-    return inv.astype(np.int32).reshape(-1), len(uniq)
+    """Dense [0, K) relabeling in rank order of the label values: the
+    inverse and count of ``np.unique``, in O(n + max label).
+
+    Labels here are vertex ids (split roots, local batch ids or checked
+    warm-start labels), so a presence mask over ``[0, max + 1)`` and its
+    running count give each value's rank.
+    """
+    labels = np.asarray(labels).reshape(-1)
+    if labels.size == 0:
+        return np.zeros(0, np.int32), 0
+    if labels.min() < 0:
+        raise ValueError("labels to compact must be non-negative vertex ids")
+    present = np.zeros(int(labels.max()) + 1, dtype=bool)
+    present[labels] = True
+    rank = np.cumsum(present, dtype=np.int32)
+    return rank[labels] - 1, int(rank[-1])
 
 
 def _check_init_labels(labels, n: int, name: str) -> np.ndarray:
@@ -72,6 +90,18 @@ def _check_init_active(active, n: int, name: str) -> np.ndarray:
         raise ValueError(f"{name} has shape {active.shape} for a graph "
                          f"with {n} vertices")
     return active
+
+
+def _resolve_warm(n: int, init_labels, init_active, name: str):
+    """Checked (init_labels, init_active) of one fit.  A frontier means
+    nothing relative to a cold singleton start, so ``init_active`` is
+    dropped without labels (after being checked all the same)."""
+    if init_active is not None:
+        init_active = _check_init_active(
+            init_active, n, name.replace("labels", "active"))
+    if init_labels is None:
+        return None, None
+    return _check_init_labels(init_labels, n, name), init_active
 
 
 class Engine:
@@ -105,19 +135,126 @@ class Engine:
         if not isinstance(graph, Graph):
             raise TypeError(f"fit expects a Graph, got "
                             f"{type(graph).__name__}")
-        n = graph.n
-        if init_active is not None:   # validate even when about to drop it
-            init_active = _check_init_active(init_active, n, "init_active")
-        if init_labels is not None:
-            init_labels = _check_init_labels(init_labels, n, "init_labels")
-        else:
-            init_active = None
+        init_labels, init_active = _resolve_warm(graph.n, init_labels,
+                                                 init_active, "init_labels")
         return self._fit_resolved(graph.to(self.device), init_labels,
                                   init_active, backend,
                                   init_labels is not None)
 
-    def fit_many(self, graphs, **kwargs):
-        raise unported("fit_many")
+    def fit_many(self, graphs, *, init_labels=None, init_active=None,
+                 backend: str | None = None) -> list[DetectionResult]:
+        """Detect communities for k graphs in one batched dispatch.
+
+        The graphs are packed into a disjoint-union super-graph
+        (:class:`repro_torch.core.batch.GraphBatch`) and run by the
+        backend's batched plan, cached per *batch bucket* (graph count,
+        total vertices, total edges, max degree).  Each member's labels
+        and iteration counts equal ``fit`` on that graph alone, cold or
+        warm.
+
+        ``init_labels`` / ``init_active``: optional length-k sequences of
+        per-member warm-start labels and unprocessed-seed masks (None
+        entries for cold members), each taken as ``fit`` takes it.
+
+        Batch-level stage times (prepare, propagation, split) are given to
+        each member pro rata by its share of the packed work (vertices +
+        edges) under ``"prorated_*"`` keys; the host split and the
+        compaction are timed per member.
+        """
+        graphs = list(graphs)
+        for g in graphs:
+            if isinstance(g, (str, os.PathLike)):
+                raise unported("graph file paths")
+            if not isinstance(g, Graph):
+                raise TypeError(f"fit_many expects Graphs, got "
+                                f"{type(g).__name__}")
+        if not graphs:
+            return []
+        k = len(graphs)
+        resolved = [_resolve_warm(g.n, lab, act, f"init_labels[{i}]")
+                    for i, (g, lab, act) in enumerate(zip(
+                        graphs, self._per_member(init_labels, k,
+                                                 "init_labels"),
+                        self._per_member(init_active, k, "init_active")))]
+        labels_r = [lab for lab, _ in resolved]
+        active_r = [act for _, act in resolved]
+        warm_r = [lab is not None for lab in labels_r]
+
+        name = backend or self.config.backend
+        if name == "auto":
+            name = choose_backend_batch(graphs, self.config, self.device)
+        be = get_backend(name)
+        if not getattr(be, "supports_batch", False):
+            raise ValueError(f"backend {name!r} has no batched path")
+        return self._fit_many_packed(graphs, labels_r, active_r, warm_r,
+                                     name, be)
+
+    @staticmethod
+    def _per_member(seq, k: int, name: str) -> list:
+        if seq is None:
+            return [None] * k
+        seq = list(seq)
+        if len(seq) != k:
+            raise ValueError(f"{name} has {len(seq)} entries for a batch "
+                             f"of {k} graphs")
+        return seq
+
+    def _fit_many_packed(self, graphs, labels_r, active_r, warm_r,
+                         name: str, be) -> list[DetectionResult]:
+        cfg = self.config
+        t0 = time.perf_counter()
+        batch = GraphBatch.pack(graphs, device=self.device)
+        bucket = batch_bucket_for(batch, bucketing=cfg.bucketing,
+                                  min_vertex_bucket=cfg.min_vertex_bucket,
+                                  min_edge_bucket=cfg.min_edge_bucket)
+        key = (name, "batch", bucket, cfg.bucketing, cfg.algo_key(),
+               be.plan_key(cfg), str(self.device))
+        plan, cache_hit = self.cache.get_or_build(
+            key, lambda: be.build_batch(bucket, cfg, self.device))
+        inputs = be.prepare_batch(batch, bucket, cfg)
+        # a solo graph's vertex ids are its local ids, so per-member warm
+        # labels pack as they are
+        labels0 = batch.pack_labels(labels_r)
+        active0 = batch.pack_active(active_r)
+        device_sync(self.device)
+        t_prep = time.perf_counter() - t0
+
+        run = be.run_batch(plan, inputs, labels0, active0)
+
+        # One dispatch serves every member, so per-member stage seconds
+        # are not measurable: each member carries its share of the packed
+        # work (vertices + edges) of the batch's times.
+        work = (batch.sizes + batch.edge_counts).astype(np.float64)
+        weights = work / work.sum() if work.sum() > 0 \
+            else np.full(len(graphs), 1.0 / len(graphs))
+        results = []
+        for i, graph in enumerate(graphs):
+            lo, hi = int(batch.offsets[i]), int(batch.offsets[i + 1])
+            labels = run.labels[lo:hi]
+            w = float(weights[i])
+            t0 = time.perf_counter()
+            split_host = 0.0
+            if cfg.split == "bfs_host":
+                labels = split_bfs_host(graph, labels)
+                split_host = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            labels, k = _compact_host(labels)
+            t_compact = time.perf_counter() - t0
+            result = DetectionResult(
+                labels=labels, num_communities=k, backend=name,
+                lpa_iterations=int(run.lpa_iterations[i]),
+                split_iterations=int(run.split_iterations[i]),
+                timings={"prorated_prepare": t_prep * w,
+                         "prorated_propagation": run.lpa_seconds * w,
+                         "prorated_split": run.split_seconds * w,
+                         "split": split_host, "compact": t_compact},
+                bucket=tuple(bucket), cache_hit=cache_hit,
+                warm_started=warm_r[i], device=str(self.device),
+                batch_size=len(graphs), batch_index=i)
+            if cfg.compute_metrics:
+                self._attach_metrics(result, graph.to(self.device))
+            results.append(result)
+        return results
 
     def _fit_resolved(self, graph: Graph, init_labels, init_active,
                       backend: str | None, warm_started: bool,

@@ -7,6 +7,14 @@ A backend is a stateless strategy object with four hooks:
   * ``prepare(graph, bucket, config)`` — per-graph inputs on the device;
   * ``run(plan, inputs, n_real, init_labels, init_active)`` — execute,
     returning a :class:`BackendRun`.
+
+Backends that set ``supports_batch = True`` also implement the batched
+trio ``build_batch`` / ``prepare_batch`` / ``run_batch``: a whole
+:class:`repro_torch.core.batch.GraphBatch` in one dispatch, returning a
+:class:`BatchBackendRun` with per-slot iteration counts.  ``run_batch``
+takes optional packed (total_vertices,) warm labels and active seeds in
+local coordinates (``GraphBatch.pack_labels``) and treats them as
+per-member solo warm runs would.
 """
 from __future__ import annotations
 
@@ -16,21 +24,47 @@ import numpy as np
 import torch
 
 from repro_torch.core.graph import Graph
-from repro_torch.engine.bucketing import BucketKey, max_degree, next_pow2
+from repro_torch.engine.bucketing import (
+    BatchBucketKey,
+    BucketKey,
+    batch_index_arrays,
+    max_degree,
+    next_pow2,
+)
 from repro_torch.engine.config import EngineConfig, unported
 
 
 class BackendRun(NamedTuple):
-    """Raw backend output (labels still padded + uncompacted)."""
-    labels: np.ndarray        # (bucket rows,) int32 — engine slices [:n_real]
+    """Raw backend output (labels uncompacted)."""
+    labels: np.ndarray        # (n_real,) int32
     lpa_iterations: int
     split_iterations: int
     lpa_seconds: float
     split_seconds: float
 
 
+class BatchBackendRun(NamedTuple):
+    """Raw batched-backend output (local labels, per-slot iterations)."""
+    labels: np.ndarray            # (total_vertices,) int32 local labels
+    lpa_iterations: np.ndarray    # (k_bucket + 1,) int32 per slot
+    split_iterations: np.ndarray  # (k_bucket + 1,) int32 per slot
+    lpa_seconds: float
+    split_seconds: float
+
+
+class BatchIndex(NamedTuple):
+    """A batch's per-slot and per-row index arrays for the batched loops
+    (see ``bucketing.batch_index_arrays``)."""
+    sizes: np.ndarray        # (k_bucket + 1,) int32, host
+    graph_id: torch.Tensor   # (rows,) int32 owner slot, on the device
+    voffset: torch.Tensor    # (rows,) int32 owner offset, on the device
+    voffset_host: np.ndarray  # the same offsets on the host
+    n_total: int             # packed vertex count
+
+
 class Backend(Protocol):
     name: str
+    supports_batch: bool
 
     def plan_key(self, config: EngineConfig) -> tuple: ...
 
@@ -44,11 +78,52 @@ class Backend(Protocol):
             init_labels: np.ndarray | None,
             init_active: np.ndarray | None = None) -> BackendRun: ...
 
+    def build_batch(self, bucket: BatchBucketKey, config: EngineConfig,
+                    device: torch.device): ...
+
+    def prepare_batch(self, batch, bucket: BatchBucketKey,
+                      config: EngineConfig): ...
+
+    def run_batch(self, plan, inputs,
+                  init_labels: np.ndarray | None = None,
+                  init_active: np.ndarray | None = None,
+                  ) -> BatchBackendRun: ...
+
 
 def device_sync(device: torch.device) -> None:
     """Wait for the device, so a host clock read after it times the work."""
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def to_device(array: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A host array as a tensor on ``device``: to CUDA through pinned
+    memory (one host copy, then an upload on the current stream)."""
+    host = torch.from_numpy(np.ascontiguousarray(array))
+    if device.type != "cuda":
+        return host
+    return host.pin_memory().to(device, non_blocking=True)
+
+
+def batch_index(batch, k_bucket: int, rows: int,
+                device: torch.device) -> BatchIndex:
+    sizes, graph_id, voffset = batch_index_arrays(batch, k_bucket, rows)
+    return BatchIndex(sizes=sizes, graph_id=to_device(graph_id, device),
+                      voffset=to_device(voffset, device),
+                      voffset_host=voffset, n_total=batch.total_vertices)
+
+
+def to_host(values: torch.Tensor, n: int) -> np.ndarray:
+    """The first ``n`` entries of a 1-D tensor as a numpy array: from CUDA
+    sliced on the device, copied into pinned memory, then one
+    synchronize."""
+    values = values[:n]
+    if values.device.type != "cuda":
+        return values.numpy()
+    host = torch.empty(values.shape, dtype=values.dtype, pin_memory=True)
+    host.copy_(values, non_blocking=True)
+    torch.cuda.current_stream(values.device).synchronize()
+    return host.numpy()
 
 
 _BACKENDS: dict[str, Backend] = {}
@@ -85,8 +160,20 @@ _TILE_MAX_CELLS = 1 << 24
 def choose_backend(graph: Graph, config: EngineConfig,
                    device: torch.device) -> str:
     """Pick a backend from graph shape and device."""
-    d = next_pow2(max(max_degree(graph), 1))
+    return _choose(graph.n, max_degree(graph), device)
+
+
+def choose_backend_batch(graphs, config: EngineConfig,
+                         device: torch.device) -> str:
+    """Pick a backend for a batched dispatch: ``choose_backend``'s policy
+    applied to the packed totals (all rows, the widest member's degree)."""
+    return _choose(sum(g.n for g in graphs),
+                   max(max_degree(g) for g in graphs), device)
+
+
+def _choose(n: int, degree: int, device: torch.device) -> str:
+    d = next_pow2(max(degree, 1))
     if torch.device(device).type == "cuda" and d <= _TILE_MAX_DEGREE \
-            and graph.n * d <= _TILE_MAX_CELLS:
+            and n * d <= _TILE_MAX_CELLS:
         return "tile"
     return "segment"

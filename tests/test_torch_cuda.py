@@ -282,6 +282,63 @@ def test_cuda_flash_attention_rejects_unaligned_rows():
         ops.flash_attention(q, kv, kv, causal=True)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("split,shortcut", [("none", False), ("lp", False),
+                                            ("lpp", True), ("bfs_host", False)])
+@pytest.mark.parametrize("backend,fuse", [("tile", "on"), ("tile", "off"),
+                                          ("segment", "auto")])
+def test_cuda_fit_many_matches_cpu_fit_many(backend, fuse, split, shortcut):
+    """fit_many on the card (the kernels on packed rows for tile) equals the
+    CPU's fit_many and the card's solo fits, member by member."""
+    need_card()
+    graphs = [graphgen.karate_club()[0],
+              graphgen.erdos_renyi(180, 5.0, seed=11),
+              graphgen.planted_partition(6, 30, 0.3, 0.01, seed=3)[0],
+              graphgen.figure1_graph()[0],
+              graphgen.grid2d(20)]
+    cfg = dict(backend=backend, fuse_sweeps=fuse, split=split,
+               shortcut=shortcut)
+    ops.reset_launches()
+    eng = Engine(EngineConfig(**cfg), cache=PlanCache())
+    got = eng.fit_many(graphs)
+    if backend == "tile":
+        name = "fused_move" if fuse == "on" else "label_argmax"
+        assert ops.LAUNCHES[name] > 0
+    want = Engine(EngineConfig(device="cpu", **cfg),
+                  cache=PlanCache()).fit_many(graphs)
+    for i, g in enumerate(graphs):
+        solo = eng.fit(g)
+        for w in (want[i], solo):
+            assert np.array_equal(got[i].labels, w.labels), i
+            assert (got[i].lpa_iterations, got[i].split_iterations) == \
+                (w.lpa_iterations, w.split_iterations), i
+        assert got[i].device.startswith("cuda")
+
+
+@pytest.mark.cuda
+def test_cuda_dense_path_and_facades_match():
+    """The dense path on the card (B1 / B2 directly) equals the segment
+    path; gsl_lpa / gve_lpa on the card equal their CPU runs."""
+    need_card()
+    from repro_torch.core import dense, gsl_lpa, gve_lpa
+    from repro_torch.core.lpa import lpa_run
+    from repro_torch.core.split import split_lp
+    g = graphgen.erdos_renyi(3000, 8.0, seed=1).to("cuda")
+    labels, iters = dense.lpa_run_dense(dense.pad_graph(g, rows=3008))
+    sparse = lpa_run(g)
+    assert torch.equal(labels, sparse.labels) and iters == sparse.iteration
+    sl, si = dense.split_lp_dense(dense.pad_graph(g), labels)
+    sp = split_lp(g, labels)
+    assert torch.equal(sl, sp.labels) and si == sp.iterations
+    karate = graphgen.karate_club()[0]
+    for fn in (gsl_lpa, gve_lpa):
+        a, b = fn(karate), fn(karate, device="cpu")
+        assert a.detail.device.startswith("cuda")
+        assert np.array_equal(a.labels, b.labels)
+        assert (a.lpa_iterations, a.split_iterations) == \
+            (b.lpa_iterations, b.split_iterations)
+
+
 def test_port_import_pulls_in_no_jax():
     """Importing the whole port loads neither JAX nor the JAX package."""
     code = ("import sys; import repro_torch.engine, repro_torch.core, "

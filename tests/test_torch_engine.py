@@ -217,8 +217,6 @@ def test_unported_options_raise(kw, item):
 def test_unported_calls_raise():
     eng = Engine(EngineConfig(device="cpu"), cache=PlanCache())
     g = port_of(jgen.karate_club()[0])
-    with pytest.raises(NotImplementedError, match="A6"):
-        eng.fit_many([g])
     with pytest.raises(NotImplementedError, match="A9"):
         eng.fit(g, memory_budget="64MB")
     with pytest.raises(NotImplementedError, match="A12"):

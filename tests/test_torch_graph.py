@@ -175,7 +175,7 @@ def _imports(path: Path):
 
 def test_port_imports_neither_jax_nor_reference():
     files = sorted((REPO / "src" / "repro_torch").rglob("*.py"))
-    files.append(REPO / "chip_smoke.py")
+    files += [REPO / "chip_smoke.py", REPO / "examples" / "quickstart_torch.py"]
     assert len(files) > 15
     for f in files:
         for mod in _imports(f):
