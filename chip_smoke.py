@@ -4,7 +4,8 @@
     python3 chip_smoke.py            # every phase, one card
     python3 chip_smoke.py --phases main,wide_fit,skew_fit,timing
         # only those phases, and no result line (a phase needs the phases
-        # whose graphs it reuses: dense needs wide_fit, microbatch batch).  The script imports the
+        # whose graphs it reuses: dense needs wide_fit, microbatch batch,
+        # stream main).  The script imports the
         # package beside it, so a copy of it in the root of another
         # checkout (a parent commit unpacked with git archive) measures
         # that checkout with the same phases, for a comparison.
@@ -53,6 +54,33 @@ Phases, one JSON line each:
            shortcut, all equal to each member's solo fit.
   microbatch  a MicroBatcher(max_batch=8) on the card takes 24 of traffic
            B's members from 4 threads; each result equals its solo fit.
+  stream   warm starts and streaming.  (a) The main graph, kept on the
+           host, under 3 rounds of road edits (1,000 random existing edges
+           deleted and 1,000 diagonals (i, j)-(i+1, j+1) inserted per
+           round, seed 0) through StreamSession.update on the tile fused
+           backend, warm with the delta's frontier: each round equals the
+           solo warm Engine.fit on the card (labels, both iteration counts,
+           communities) with no disconnected community, and is printed with
+           its splice, upload, propagation, split, compact and wall seconds,
+           its B3 / B4 launches (reset just before, read just after) and
+           the frontier's share, beside a cold fit of the same graph; in
+           round 1 the patched graph equals apply_delta's rebuild (every
+           array byte for byte, the fingerprint), and B3 is timed on the
+           warm fit's first sub-sweep (the frontier active) and B4 on its
+           split's first sweep.  (b) 8 planted_partition(32, 512, 0.04,
+           0.0005, seed=s) streams, 3 rounds of evolving_sequence(...,
+           delta_edges=256, seed=100 + s) through one
+           StreamSession(max_batch=8).update_many, warm and as a cold
+           replay: each member equals its solo fit.  (c) warm_start="auto":
+           a second fit is warm and equals the fit from the first's labels;
+           the cache stays at its bound over warm_cache_size + 1 graphs.
+  ingest   grid2d(2000) written as MatrixMarket (7,996,000 edges);
+           python -m repro_torch.launch.ingest <file> --stats --detect in a
+           subprocess (exit 0, detection on the card); load_graph twice
+           (parse, then a store hit that shares the entry's pages), both
+           equal to grid2d(2000) with its fingerprint; Engine().fit(path)
+           equals Engine().fit(grid2d(2000)), and a second fit(path) under
+           warm_start="auto" is warm through the stored fingerprint.
   timing   the four LPA kernels (CUDA events) beside their plain versions
            and bounds, at the main fit's D=4 tiles, the ER graph's D=64
            tiles and planted_partition(128, 1024, 0.3, 0.001)'s D=512
@@ -110,10 +138,19 @@ ER_GRAPH = "erdos_renyi(1 << 21, 16.0, seed=0)"
 PLANTED_GRAPH = "planted_partition(128, 1024, 0.3, 0.001, seed=0)"
 SKEW_GRAPH = "rmat(20, 16, seed=0)"
 PHASES = ("kernels", "parity", "c1", "main", "wide_fit", "dense",
-          "skew_fit", "batch", "microbatch", "timing", "trace", "flash")
+          "skew_fit", "batch", "microbatch", "stream", "ingest", "timing",
+          "trace", "flash")
 # phase -> the phases whose graphs and fits it reuses
 NEEDS = {"timing": ("main", "wide_fit"), "trace": ("main",),
-         "dense": ("wide_fit",), "microbatch": ("batch",)}
+         "dense": ("wide_fit",), "microbatch": ("batch",),
+         "stream": ("main",)}
+# The stream phase's road edits of the main graph, grid2d(ROAD_SIDE).
+ROAD_SIDE = 3500
+ROAD_ROUNDS = 3
+ROAD_DELTA_EDGES = 1000
+# The ingest phase's file: grid2d(INGEST_SIDE) as MatrixMarket.
+INGEST_SIDE = 2000
+GRAPH_FIELDS = ("row_ptr", "src", "dst", "wgt", "edge_mask", "kdeg")
 # Traffic A of the batch phase: 32 road meshes grid2d(side) in one batch.
 TRAFFIC_A_SIDES = tuple(range(400, 711, 10))
 ARGMAX_KERNELS = ("label_argmax", "fused_move")
@@ -734,6 +771,366 @@ def phase_microbatch(torch, graphs, solo):
             "batch_sizes": mb.batch_sizes, "wall_s": wall, **mb.stats()}
 
 
+# ---------------------------------------------------------------- stream
+
+def _road_delta(rng, graph, used_cells, side, k):
+    """One road edit: ``k`` random existing undirected edges deleted and
+    ``k`` diagonals (i, j)-(i+1, j+1) inserted, a shape the 4-neighbour
+    lattice never has; a diagonal is inserted once per run."""
+    from repro_torch.core.delta import GraphDelta
+    m = graph.num_edges
+    src, dst = graph.src.numpy()[:m], graph.dst.numpy()[:m]
+    idx = rng.integers(0, m, size=4 * k)
+    idx = idx[src[idx] < dst[idx]]
+    dels = np.unique(np.stack([src[idx], dst[idx]], axis=1), axis=0)
+    dels = dels[rng.permutation(len(dels))[:k]]
+    cells = np.setdiff1d(rng.integers(0, (side - 1) ** 2, size=3 * k),
+                         used_cells)
+    cells = cells[rng.permutation(len(cells))[:k]]
+    check(len(dels) == k and len(cells) == k, "stream: short road delta")
+    i, j = cells // (side - 1), cells % (side - 1)
+    ins = np.stack([i * side + j, (i + 1) * side + j + 1], axis=1)
+    return GraphDelta.make(insert=ins, delete=dels), \
+        np.union1d(used_cells, cells)
+
+
+def _fit_line(res, wall, launches, **extra):
+    """The printed line of one road fit (a session update's member or a
+    solo fit)."""
+    return {"propagation_s": res.lpa_seconds, "split_s": res.split_seconds,
+            "compact_s": res.timings["compact"], "timings_s": res.timings,
+            "wall_s": wall, "lpa_iterations": res.lpa_iterations,
+            "split_iterations": res.split_iterations,
+            "communities": res.num_communities,
+            "launches": {k: launches[k] for k in ("fused_move",
+                                                  "fused_split")},
+            **extra}
+
+
+def _launched(torch, rt, fn):
+    """``fn()`` with its wall time and the LPA kernels' launches (reset
+    just before, read just after)."""
+    torch.cuda.synchronize()
+    rt.ops.reset_launches()
+    out, wall = _wall(torch, fn)
+    return out, wall, {k: rt.ops.LAUNCHES[k] for k in LPA_KERNELS}
+
+
+def _same_graph(a, b) -> bool:
+    from repro_torch.core.graph import graph_fingerprint
+    return ((a.n, a.m_pad, a.num_edges) == (b.n, b.m_pad, b.num_edges)
+            and all(_tensors_equal(getattr(a, f), getattr(b, f))
+                    for f in GRAPH_FIELDS)
+            and graph_fingerprint(a) == graph_fingerprint(b))
+
+
+def _tensors_equal(x, y) -> bool:
+    return x.dtype == y.dtype and x.shape == y.shape \
+        and bool((x.cpu() == y.cpu()).all())
+
+
+def _frontier_sweep(torch, rt, post, rows, d, prev, front, dev):
+    """B3 on the first sub-sweep of a warm fit of ``post`` (labels ``prev``,
+    the frontier active, nothing changed yet, the first sweep's class) and
+    B4 on its split's first sweep: exact against the plain versions,
+    timed, with their bounds."""
+    from repro_torch.kernels.ref import label_hash
+    t = _timing_tiles(torch, post, rows, d, prev, dev)
+    active = torch.zeros(rows, dtype=torch.bool, device=dev)
+    active[: post.n] = torch.from_numpy(front).to(dev)
+    t.update(active=active, chg=torch.zeros_like(active),
+             klass=~(label_hash(t["ids"], -1) & 1).bool())
+    b3 = _kernel_row(torch, "fused_move", t,
+                     lambda: rt.ops.fused_move(*_move_args(t), 0),
+                     lambda: _plain_rows(torch, rt.ref, "fused_move", t, 0),
+                     2, _argmax_work(torch, t, "fused_move"))[1]
+    b3["frontier_rows"] = int(front.sum())
+    return {"fused_move": b3, **_time_split(torch, rt, t, plain_reps=2)}
+
+
+def _road_stream(torch, rt, dev, g, fused):
+    """grid2d(3500) under three rounds of road edits through
+    StreamSession.update (tile fused, warm with the frontier), each equal
+    to the solo warm fit on the card, with a cold fit beside it."""
+    from repro_torch.core.delta import affected_frontier, apply_delta
+    from repro_torch.engine import Engine, EngineConfig, PlanCache
+    from repro_torch.launch.stream import StreamSession
+    side = ROAD_SIDE
+    cfg = dict(backend="tile", split="lp")
+    t0 = time.perf_counter()
+    base = g.to("cpu")
+    download_s = time.perf_counter() - t0
+    solo_eng = Engine(EngineConfig(**cfg), cache=PlanCache())
+    rng = np.random.default_rng(0)
+    used = np.zeros(0, np.int64)
+    rounds, total = [], dict.fromkeys(LPA_KERNELS, 0)
+    with StreamSession(Engine(EngineConfig(**cfg), cache=PlanCache()),
+                       max_batch=1, batch_timeout_ms=0.0) as sess:
+        first, add_wall = _wall(torch, lambda: sess.add("road", base))
+        check(_same_fit(first, fused), "stream: the session's first fit != "
+              "the main phase's fused tile fit")
+        for r in range(ROAD_ROUNDS):
+            before, prev = sess.graph("road"), sess.labels("road")
+            t0 = time.perf_counter()
+            delta, used = _road_delta(rng, before, used, side,
+                                      ROAD_DELTA_EDGES)
+            delta_s = time.perf_counter() - t0
+            front = affected_frontier(delta, before.n)
+            res, wall, launches = _launched(
+                torch, rt, lambda: sess.update("road", delta))
+            for k in LPA_KERNELS:
+                total[k] += launches[k]
+            post = sess.graph("road")
+            splice_s = sess.streams["road"].splice_seconds
+            post_dev, upload_s = _wall(torch, lambda: post.to(dev))
+            solo, solo_wall, solo_launches = _launched(
+                torch, rt, lambda: solo_eng.fit(post, init_labels=prev,
+                                                init_active=front))
+            check(res.warm_started and _same_fit(res, solo),
+                  f"stream road round {r}: the update != the solo warm fit")
+            frac = res.check_connected(post_dev)
+            check(frac == 0.0, f"stream road round {r}: disconnected "
+                  f"fraction {frac}")
+            cold, cold_wall, cold_launches = _launched(
+                torch, rt, lambda: solo_eng.fit(post))
+            row = {"round": r, "delta_build_s": delta_s,
+                   "insertions": delta.num_insertions,
+                   "deletions": delta.num_deletions,
+                   "frontier_share": float(front.sum()) / post.n,
+                   "splice_s": splice_s, "upload_s": upload_s,
+                   "update": _fit_line(res, wall, launches,
+                                       fit_s=wall - splice_s),
+                   "solo_warm": _fit_line(solo, solo_wall, solo_launches),
+                   "cold": _fit_line(cold, cold_wall, cold_launches),
+                   "disconnected_fraction": frac}
+            if r == 0:
+                rebuilt, rebuild_s = _wall(torch,
+                                           lambda: apply_delta(before, delta))
+                check(_same_graph(rebuilt, post), "stream: the patched graph "
+                      "!= apply_delta's rebuild")
+                row.update(rebuild_s=rebuild_s, patch_equals_rebuild=True)
+                del rebuilt
+                row["kernels_first_sweep"] = _frontier_sweep(
+                    torch, rt, post_dev, solo.bucket[0], solo.bucket[2],
+                    prev, front, dev)
+            rounds.append(row)
+            del post_dev
+        stats = sess.stats()
+    check(stats["updates"] == stats["warm_updates"] == ROAD_ROUNDS,
+          f"stream road: {stats}")
+    for k in ("fused_move", "fused_split"):
+        check(total[k] > 0, f"stream road: {k} was not launched")
+    return total, {
+        "graph": "grid2d(3500)", "n": base.n,
+        "directed_edges": base.num_edges,
+        "delta": f"{ROAD_DELTA_EDGES} random existing edges deleted, "
+                 f"{ROAD_DELTA_EDGES} diagonals inserted, seed 0",
+        "backend": "tile fused", "split": "lp",
+        "download_base_s": download_s, "session_first_fit_wall_s": add_wall,
+        "rounds": rounds, "launches": total}
+
+
+def _batched_streams(torch, rt):
+    """8 planted_partition streams, 3 rounds of evolving_sequence deltas,
+    through one StreamSession(max_batch=8).update_many, warm and cold;
+    each member equals its solo fit."""
+    from repro_torch.core.delta import affected_frontier, apply_delta
+    from repro_torch.engine import Engine, EngineConfig, PlanCache
+    from repro_torch.graphgen import evolving_sequence, planted_partition
+    from repro_torch.launch.stream import StreamSession
+    t0 = time.perf_counter()
+    traces = [evolving_sequence(0, 0.0, rounds=3, delta_edges=256,
+                                seed=100 + s,
+                                base=planted_partition(32, 512, 0.04, 0.0005,
+                                                       seed=s)[0])
+              for s in range(8)]
+    build_s = time.perf_counter() - t0
+    solo = Engine(EngineConfig(split="lp"), cache=PlanCache())
+    out = {"members": "planted_partition(32, 512, 0.04, 0.0005, seed=s), "
+                      "s = 0..7; evolving_sequence(rounds=3, "
+                      "delta_edges=256, seed=100 + s)",
+           "trace_build_s": build_s}
+    for warm in (True, False):
+        eng = Engine(EngineConfig(split="lp"), cache=PlanCache())
+        walls, splices, stages, backends = [], [], [], set()
+        with StreamSession(eng, warm=warm, max_batch=8,
+                           batch_timeout_ms=20.0) as sess:
+            res0 = sess.add_many({s: b for s, (b, _) in enumerate(traces)})
+            graphs = {s: b for s, (b, _) in enumerate(traces)}
+            prev = {s: r.labels for s, r in res0.items()}
+            for r in range(3):
+                deltas = {s: ds[r] for s, (_, ds) in enumerate(traces)}
+                res, wall = _wall(torch, lambda: sess.update_many(deltas))
+                walls.append(wall)
+                splices.append(sum(sess.streams[s].splice_seconds
+                                   for s in deltas))
+                stages.append({k: sum(x.timings[k] for x in res.values())
+                               for k in res[0].timings})
+                for s, d in deltas.items():
+                    graphs[s] = apply_delta(graphs[s], d)
+                    kw = dict(init_labels=prev[s], init_active=
+                              affected_frontier(d, graphs[s].n)) \
+                        if warm else {}
+                    want = solo.fit(graphs[s], **kw)
+                    check(_same_fit(res[s], want) and res[s].warm_started
+                          == warm, f"stream batched warm={warm} round {r}: "
+                          f"member {s} != its solo fit")
+                    backends.add(res[s].backend)
+                    prev[s] = res[s].labels
+            stats = sess.stats()
+        check(stats["updates"] == 24 and stats["warm_updates"]
+              == (24 if warm else 0), f"stream batched: {stats}")
+        out["warm" if warm else "cold_replay"] = {
+            "update_many_wall_s": walls, "wall_sum_s": sum(walls),
+            "splice_sum_s": splices, "fit_many_stage_s": stages,
+            "backends": sorted(backends),
+            "mean_frontier_share": stats["mean_frontier_frac"],
+            "batch_size_hist": stats["batch_size_hist"],
+            "updates": stats["updates"],
+            "warm_updates": stats["warm_updates"]}
+    return out
+
+
+def _warm_auto(torch):
+    """warm_start='auto': a second fit of a graph is warm and equals the
+    fit from the first's labels; the cache holds one entry per structure
+    and stays at its bound over warm_cache_size + 1 graphs."""
+    from repro_torch.engine import Engine, EngineConfig, PlanCache
+    from repro_torch.graphgen import erdos_renyi, planted_partition
+    g = planted_partition(32, 512, 0.04, 0.0005, seed=0)[0]
+    eng = Engine(EngineConfig(split="lp", warm_start="auto"),
+                 cache=PlanCache())
+    first, second = eng.fit(g), eng.fit(g)
+    want = Engine(EngineConfig(split="lp"), cache=PlanCache()).fit(
+        g, init_labels=first.labels)
+    check(not first.warm_started and second.warm_started
+          and _same_fit(second, want), "stream: auto warm start != the fit "
+          "from the first fit's labels")
+    check(eng.stats()["warm_entries"] == 1, f"stream: {eng.stats()}")
+    cap = eng.config.warm_cache_size
+    for i in range(cap + 1):
+        eng.fit(erdos_renyi(300 + i, 4.0, seed=i))
+        check(eng.stats()["warm_entries"] <= cap, "stream: the warm cache "
+              "grew past its bound")
+    st = eng.stats()
+    check(st["warm_entries"] == cap and st["warm_evictions"] == 2
+          and not eng.fit(g).warm_started, f"stream: warm cache {st}")
+    return {"graph": "planted_partition(32, 512, 0.04, 0.0005, seed=0)",
+            "second_fit_warm": True, "lpa_iterations_cold_warm":
+                [first.lpa_iterations, second.lpa_iterations],
+            "distinct_graphs": cap + 2, "warm_cache": st}
+
+
+def phase_stream(torch, rt, dev, g, fused):
+    launches, road = _road_stream(torch, rt, dev, g, fused)
+    return launches, {"road": road, "batched": _batched_streams(torch, rt),
+                      "warm_auto": _warm_auto(torch)}
+
+
+# ---------------------------------------------------------------- ingest
+
+def _mapped_ranges(path: Path) -> list[tuple[int, int]]:
+    out = []
+    with open("/proc/self/maps") as fh:
+        for line in fh:
+            parts = line.split()
+            if len(parts) >= 6 and parts[5] == str(path):
+                lo, hi = (int(x, 16) for x in parts[0].split("-"))
+                out.append((lo, hi))
+    return out
+
+
+def phase_ingest(torch, dev):
+    """grid2d(2000) written as MatrixMarket, ingested by the CLI in a
+    subprocess (--stats --detect, on the card), then loaded in process
+    twice (parse, store hit) and fitted from its path, cold and warm."""
+    import os
+    import shutil
+    import tempfile
+
+    from repro_torch.core.delta import undirected_edges
+    from repro_torch.engine import Engine, EngineConfig, PlanCache
+    from repro_torch.graphgen import grid2d
+    from repro_torch.io import load_graph, write_mtx
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_ingest_"))
+    old_store = os.environ.get("REPRO_GRAPH_CACHE")
+    try:
+        g = grid2d(INGEST_SIDE)
+        path = tmp / f"grid2d_{INGEST_SIDE}.mtx"
+        t0 = time.perf_counter()
+        write_mtx(path, undirected_edges(g)[0], n=g.n, symmetric=True)
+        write_s = time.perf_counter() - t0
+        env = {**os.environ, "REPRO_GRAPH_CACHE": str(tmp / "cli_store"),
+               "PYTHONPATH": str(Path(__file__).resolve().parent / "src")}
+        t0 = time.perf_counter()
+        cli = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.ingest", str(path),
+             "--stats", "--detect"], capture_output=True, text=True,
+            env=env, timeout=600)
+        cli_s = time.perf_counter() - t0
+        check(cli.returncode == 0, f"ingest CLI exited {cli.returncode}: "
+              f"{cli.stderr[-2000:]}")
+        check("detect[" in cli.stdout and "cuda" in cli.stdout,
+              f"ingest CLI did not detect on the card: {cli.stdout[-2000:]}")
+
+        os.environ["REPRO_GRAPH_CACHE"] = str(tmp / "store")
+        g1, rep1 = load_graph(path, return_report=True)
+        g2, rep2 = load_graph(path, return_report=True)
+        check(not rep1.cache_hit and rep2.cache_hit
+              and rep2.parse_seconds == 0.0, "ingest: the second load was "
+              "not a store hit")
+        for name, h in (("parsed", g1), ("stored", g2)):
+            check(_same_graph(g, h), f"ingest: the {name} graph != grid2d")
+        ranges = _mapped_ranges((tmp / "store" / rep2.key
+                                 / "arrays.bin").resolve())
+        copied = not all(any(lo <= getattr(g2, f).data_ptr() < hi
+                             for lo, hi in ranges) for f in GRAPH_FIELDS)
+        check(not copied, "ingest: the store hit copied its arrays")
+        g_dev, upload_s = _wall(torch, lambda: g2.to(dev))
+        del g_dev
+
+        want, want_wall = _wall(torch, lambda: Engine(
+            cache=PlanCache()).fit(g))
+        got, got_wall = _wall(torch, lambda: Engine(
+            cache=PlanCache()).fit(str(path)))
+        check(got.device.startswith("cuda"), "ingest: fit(path) did not "
+              "run on the card")
+        check(_same_fit(got, want), "ingest: Engine().fit(path) != "
+              "Engine().fit(grid2d)")
+        eng = Engine(EngineConfig(warm_start="auto"), cache=PlanCache())
+        a, b = eng.fit(str(path)), eng.fit(str(path))
+        warm_want = Engine(cache=PlanCache()).fit(g, init_labels=a.labels)
+        check(not a.warm_started and b.warm_started
+              and _same_fit(b, warm_want), "ingest: the second fit(path) "
+              "was not warm through the stored fingerprint")
+        return {
+            "graph": f"grid2d({INGEST_SIDE})", "n": g.n,
+            "undirected_edges": g.num_edges // 2,
+            "file_bytes": path.stat().st_size, "write_s": write_s,
+            "cli_s": cli_s, "cli_stdout": cli.stdout.splitlines()[-6:],
+            "parse_s": rep1.parse_seconds,
+            "preprocess_s": rep1.preprocess_seconds,
+            "build_s": rep1.build_seconds, "store_write_s": rep1.save_seconds,
+            "hash_s": rep1.hash_seconds,
+            "repeat_load_s": rep2.load_seconds,
+            "repeat_hash_s": rep2.hash_seconds, "repeat_load_copied": copied,
+            "upload_from_store_s": upload_s,
+            "fit_from_path": {"backend": got.backend, "wall_s": got_wall,
+                              "timings_s": got.timings,
+                              "lpa_iterations": got.lpa_iterations,
+                              "split_iterations": got.split_iterations,
+                              "communities": got.num_communities},
+            "fit_generated_wall_s": want_wall,
+            "warm_second_fit": {"lpa_iterations": b.lpa_iterations,
+                                "timings_s": b.timings}}
+    finally:
+        if old_store is None:
+            os.environ.pop("REPRO_GRAPH_CACHE", None)
+        else:
+            os.environ["REPRO_GRAPH_CACHE"] = old_store
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 # ---------------------------------------------------------------- timing
 
 def _time_ms(torch, fn, reps=20, warmup=3):
@@ -1251,6 +1648,11 @@ def main(argv=None) -> int:
     if "microbatch" in run:
         emit({"phase": "microbatch",
               **phase_microbatch(torch, graphs_b, solo_b)})
+    if "stream" in run:
+        stream_launches, res = phase_stream(torch, rt, dev, g, fused)
+        emit({"phase": "stream", **res})
+    if "ingest" in run:
+        emit({"phase": "ingest", **phase_ingest(torch, dev)})
     if "timing" in run:
         from repro_torch.engine.bucketing import bucket_for
         from repro_torch.graphgen import planted_partition
@@ -1288,9 +1690,12 @@ def main(argv=None) -> int:
         {"name": name, "route": "cuda", "source": KERNELS[name][0],
          "replaces": KERNELS[name][1], "launches": launches[name],
          "batch_launches": batch_launches[name],
+         "stream_launches": stream_launches[name],
          "launched_by": "launches: tile fits of grid2d(3500), fused and "
                         "unfused; batch_launches: fit_many of traffic A "
-                        "(32 grid2d members), tile fused and unfused",
+                        "(32 grid2d members), tile fused and unfused; "
+                        "stream_launches: the 3 warm road updates of "
+                        "grid2d(3500) through StreamSession (tile fused)",
          "max_abs_err": kernel_err[name],
          **{k: timing[name][k] for k in keys}}
         for name in LPA_KERNELS]

@@ -1,6 +1,13 @@
 """Core GSL-LPA building blocks in PyTorch: graph, propagation, split,
 batching and the ``gsl_lpa`` / ``gve_lpa`` facades."""
 from repro_torch.core.batch import GraphBatch  # noqa: F401
+from repro_torch.core.delta import (  # noqa: F401
+    GraphDelta,
+    affected_frontier,
+    apply_delta,
+    apply_delta_patch,
+    undirected_edges,
+)
 from repro_torch.core.detect import (  # noqa: F401
     disconnected_communities,
     disconnected_communities_host,

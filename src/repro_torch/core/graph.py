@@ -70,12 +70,17 @@ def _fingerprint(n: int, num_edges: int, row_ptr: np.ndarray,
 
 
 def graph_from_arrays(n: int, num_edges: int, row_ptr, src, dst, wgt,
-                      edge_mask, kdeg, device="cpu") -> Graph:
+                      edge_mask, kdeg, device="cpu",
+                      fingerprint: tuple | None = None) -> Graph:
     """Wrap host CSR arrays (numpy) as a :class:`Graph` on ``device``.
 
     The arrays keep their lengths: ``m_pad`` is ``len(src)``.  This is how a
     graph built elsewhere (a file reader, another implementation of the
-    same format) is fitted bit-for-bit on the same structure.
+    same format) is fitted bit-for-bit on the same structure.  Arrays that
+    are already contiguous, writable and of the right dtype (a
+    copy-on-write map of a store entry, say) are shared, not copied.
+    ``fingerprint``: the structure's known fingerprint (a store entry's),
+    attached instead of computed.
     """
     def host(a, dtype):   # writable and contiguous: torch shares it as is
         return np.require(a, dtype, requirements=["C", "W"])
@@ -101,8 +106,9 @@ def graph_from_arrays(n: int, num_edges: int, row_ptr, src, dst, wgt,
         kdeg=torch.from_numpy(kdeg).to(dev),
     )
     # Fingerprint eagerly while the CSR is still host memory.
-    object.__setattr__(graph, "_fingerprint",
-                       _fingerprint(n, num_edges, row_ptr, dst))
+    object.__setattr__(graph, "_fingerprint", tuple(fingerprint)
+                       if fingerprint is not None
+                       else _fingerprint(n, num_edges, row_ptr, dst))
     return graph
 
 

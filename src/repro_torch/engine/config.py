@@ -19,6 +19,7 @@ SPLIT_METHODS = ("none", "lp", "lpp", "bfs_host")
 BUCKETING = ("pow2", "exact")
 FUSE_SWEEPS = ("auto", "on", "off")
 KERNEL_MODES = ("auto",)
+WARM_START = ("off", "auto")
 
 # Option -> the ROADMAP item (Queue A) that ports it.
 UNPORTED = {
@@ -26,10 +27,8 @@ UNPORTED = {
     "mesh": "A12 (multi-device)",
     "exchange_every": "A12 (multi-device)",
     "memory_budget": "A9 (out-of-core)",
-    "warm_start='auto'": "A7 (warm starts and streaming)",
     "profile": "A10 (observability and quality)",
     "quality": "A10 (observability and quality)",
-    "graph file paths": "A8 (ingestion)",
 }
 
 
@@ -63,8 +62,17 @@ class EngineConfig:
       and iteration counts are identical either way.
     device: where the fit runs; ``None`` means ``"cuda"``.  The CPU runs
       only when asked for (``device="cpu"``).
-    warm_start, memory_budget, exchange_every, mesh, profile, quality:
-      accepted only at their defaults (see ``UNPORTED``).
+    warm_start: ``"auto"`` keeps a bounded LRU (``warm_cache_size``
+      entries) of ``graph_fingerprint -> last labels``, updated on every
+      fit and every ``fit_many`` member, so a re-fit of a structurally
+      identical graph starts warm.  ``"off"``: warm only from caller
+      labels.
+    patch_churn_threshold: ``launch.stream`` splices a delta into the CSR
+      (``apply_delta_patch``) when it touches fewer than this share of the
+      vertices, and rebuilds it (``apply_delta``) otherwise.  The same
+      bytes either way.
+    memory_budget, exchange_every, mesh, profile, quality: accepted only
+      at their defaults (see ``UNPORTED``).
     """
     backend: str = "auto"
     tau: float = 0.05
@@ -79,6 +87,8 @@ class EngineConfig:
     fuse_sweeps: str = "auto"
     device: str | None = None
     warm_start: str = "off"
+    warm_cache_size: int = 64
+    patch_churn_threshold: float = 0.20
     memory_budget: int | str | None = None
     exchange_every: int = 1
     mesh: Any = None
@@ -94,8 +104,6 @@ class EngineConfig:
             raise unported("exchange_every")
         if self.memory_budget is not None:
             raise unported("memory_budget")
-        if self.warm_start == "auto":
-            raise unported("warm_start='auto'")
         if self.profile != "off":
             raise unported("profile")
         if self.quality != "off":
@@ -106,12 +114,16 @@ class EngineConfig:
                 ("bucketing", self.bucketing, BUCKETING),
                 ("fuse_sweeps", self.fuse_sweeps, FUSE_SWEEPS),
                 ("kernel_mode", self.kernel_mode, KERNEL_MODES),
-                ("warm_start", self.warm_start, ("off",))):
+                ("warm_start", self.warm_start, WARM_START)):
             if value not in allowed:
                 raise ValueError(f"{name} must be one of {allowed}, "
                                  f"got {value!r}")
         if self.max_iterations < 0:
             raise ValueError("max_iterations must be >= 0")
+        if self.warm_cache_size < 1:
+            raise ValueError("warm_cache_size must be >= 1")
+        if not 0.0 <= self.patch_churn_threshold <= 1.0:
+            raise ValueError("patch_churn_threshold must be in [0, 1]")
 
     def algo_key(self) -> tuple:
         """The hashable algorithm statics a plan specialises on."""
@@ -131,7 +143,7 @@ class DetectionResult:
     timings: dict[str, float]     # phase -> seconds
     bucket: tuple                 # (n, m, d), or (k, n, m, d) when batched
     cache_hit: bool               # plan came from the engine's plan cache
-    warm_started: bool            # fit started from caller labels
+    warm_started: bool            # fit started from caller or cached labels
     device: str = "cpu"           # where the fit ran
     modularity: float | None = None
     disconnected_fraction: float | None = None

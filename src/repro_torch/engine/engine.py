@@ -6,6 +6,7 @@
     result = eng.fit(graph)                 # DetectionResult
     result = eng.fit(graph2)                # same bucket -> plan reused
     result = eng.fit(graph, init_labels=result.labels)   # warm start
+    result = eng.fit("road.mtx")            # a graph file, via repro_torch.io
     results = eng.fit_many([g1, g2, g3])    # one batched dispatch
 
 ``fit`` buckets the graph, fetches (or builds) the backend's plan from the
@@ -14,18 +15,27 @@ split when requested, compacts the labels on the host, and optionally
 attaches quality metrics.  ``fit_many`` packs k graphs into one disjoint
 union and runs the backend's batched plan once; each member's result
 equals its solo ``fit``.
+
+Warm starts: ``init_labels`` seeds propagation with an assignment and
+``init_active`` seeds the unprocessed flags (pass a delta's affected
+frontier).  With ``warm_start="auto"`` the engine keeps a bounded LRU of
+``graph_fingerprint -> last labels``, stored after every fit and every
+``fit_many`` member, so a re-fit of a structurally identical graph starts
+warm; ``fit_many`` resolves its members against the cache as it stood
+before the dispatch, so members never warm-start off each other.
 """
 from __future__ import annotations
 
-import os
+import threading
 import time
+from collections import OrderedDict
 
 import numpy as np
 import torch
 
 import repro_torch.engine.backends  # noqa: F401  (registers the backends)
 from repro_torch.core.batch import GraphBatch
-from repro_torch.core.graph import Graph
+from repro_torch.core.graph import Graph, graph_fingerprint
 from repro_torch.core.split import split_bfs_host
 from repro_torch.engine.bucketing import batch_bucket_for, bucket_for
 from repro_torch.engine.cache import GLOBAL_CACHE, PLAN_LOG, PlanCache
@@ -48,6 +58,19 @@ def resolve_device(device: str | torch.device | None) -> torch.device:
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {dev}")
     return dev
+
+
+def _as_graph(graph) -> Graph:
+    """A Graph, or a path to a graph file (``.mtx`` / SNAP edge list)
+    loaded through :func:`repro_torch.io.load_graph`: the first load of a
+    file parses it and stores its CSR, later loads map the store entry."""
+    if isinstance(graph, Graph):
+        return graph
+    if isinstance(graph, str) or hasattr(graph, "__fspath__"):
+        from repro_torch.io import load_graph
+        return load_graph(graph)
+    raise TypeError(f"fit expects a Graph or a graph-file path, got "
+                    f"{type(graph).__name__}")
 
 
 def _compact_host(labels: np.ndarray) -> tuple[np.ndarray, int]:
@@ -92,22 +115,50 @@ def _check_init_active(active, n: int, name: str) -> np.ndarray:
     return active
 
 
-def _resolve_warm(n: int, init_labels, init_active, name: str):
-    """Checked (init_labels, init_active) of one fit.  A frontier means
-    nothing relative to a cold singleton start, so ``init_active`` is
-    dropped without labels (after being checked all the same)."""
-    if init_active is not None:
-        init_active = _check_init_active(
-            init_active, n, name.replace("labels", "active"))
-    if init_labels is None:
-        return None, None
-    return _check_init_labels(init_labels, n, name), init_active
+class _WarmCache:
+    """Bounded LRU of ``graph_fingerprint -> last compacted labels``, the
+    state of ``warm_start="auto"``.  One engine serves the micro-batcher's
+    worker, client threads calling ``fit`` and ``stats()`` pollers at once,
+    so every access holds the lock.  ``hits`` / ``misses`` / ``evictions``
+    count lookups and LRU drops."""
+
+    def __init__(self, max_entries: int):
+        self.max_entries = int(max_entries)
+        self._entries: OrderedDict[tuple, np.ndarray] = OrderedDict()
+        self._lock = threading.Lock()
+        self.hits = self.misses = self.evictions = 0
+
+    def get(self, fp: tuple) -> np.ndarray | None:
+        with self._lock:
+            labels = self._entries.get(fp)
+            if labels is None:
+                self.misses += 1
+            else:
+                self.hits += 1
+                self._entries.move_to_end(fp)
+            return labels
+
+    def put(self, fp: tuple, labels: np.ndarray) -> None:
+        with self._lock:
+            self._entries[fp] = labels
+            self._entries.move_to_end(fp)
+            while len(self._entries) > self.max_entries:
+                self._entries.popitem(last=False)
+                self.evictions += 1
+
+    def stats(self) -> dict:
+        with self._lock:
+            return {"warm_entries": len(self._entries),
+                    "warm_capacity": self.max_entries,
+                    "warm_hits": self.hits, "warm_misses": self.misses,
+                    "warm_evictions": self.evictions}
 
 
 class Engine:
     """GSL-LPA engine with pluggable backends and a plan cache.
 
-    ``cache=None`` shares the process-wide :data:`GLOBAL_CACHE`.
+    ``cache=None`` shares the process-wide :data:`GLOBAL_CACHE`; the
+    warm-start cache is per engine.
     """
 
     def __init__(self, config: EngineConfig | None = None,
@@ -115,12 +166,41 @@ class Engine:
         self.config = config if config is not None else EngineConfig()
         self.device = resolve_device(self.config.device)
         self.cache = cache if cache is not None else GLOBAL_CACHE
+        self._warm = _WarmCache(self.config.warm_cache_size)
 
-    def fit(self, graph: Graph, init_labels=None, init_active=None, *,
+    # --- warm-start resolution ---
+
+    def _auto_fp(self, graph: Graph) -> tuple | None:
+        return graph_fingerprint(graph) \
+            if self.config.warm_start == "auto" else None
+
+    def _resolve_warm(self, n: int, init_labels, init_active,
+                      fp: tuple | None, name: str):
+        """Checked (init_labels, init_active, warm_started) of one fit.
+
+        Explicit labels win; else, under ``warm_start="auto"``, the warm
+        cache is consulted.  A frontier means nothing relative to a cold
+        singleton start, so when no labels resolve (none given and a cache
+        miss) ``init_active`` is dropped, after being checked all the same,
+        and the fit is a full cold detection.
+        """
+        if init_labels is None and fp is not None:
+            init_labels = self._warm.get(fp)
+        if init_active is not None:
+            init_active = _check_init_active(
+                init_active, n, name.replace("labels", "active"))
+        if init_labels is None:
+            return None, None, False
+        return _check_init_labels(init_labels, n, name), init_active, True
+
+    def fit(self, graph, init_labels=None, init_active=None, *,
             backend: str | None = None,
             memory_budget: int | str | None = None) -> DetectionResult:
         """Detect communities; returns a :class:`DetectionResult`.
 
+        ``graph``: a :class:`Graph` or a path to a graph file, loaded
+        through :func:`repro_torch.io.load_graph` (parsed once per file
+        content, then mapped from the CSR store).
         ``init_labels``: optional (n,) vertex-id-valued initial assignment
         (warm start).  ``init_active``: optional (n,) unprocessed-seed
         mask, honored only alongside warm labels (a frontier means nothing
@@ -130,16 +210,15 @@ class Engine:
         """
         if memory_budget is not None:
             raise unported("memory_budget")
-        if isinstance(graph, (str, os.PathLike)):
-            raise unported("graph file paths")
-        if not isinstance(graph, Graph):
-            raise TypeError(f"fit expects a Graph, got "
-                            f"{type(graph).__name__}")
-        init_labels, init_active = _resolve_warm(graph.n, init_labels,
-                                                 init_active, "init_labels")
-        return self._fit_resolved(graph.to(self.device), init_labels,
-                                  init_active, backend,
-                                  init_labels is not None)
+        graph = _as_graph(graph)
+        fp = self._auto_fp(graph)
+        init_labels, init_active, warm = self._resolve_warm(
+            graph.n, init_labels, init_active, fp, "init_labels")
+        result = self._fit_resolved(graph.to(self.device), init_labels,
+                                    init_active, backend, warm)
+        if fp is not None:
+            self._warm.put(fp, result.labels)
+        return result
 
     def fit_many(self, graphs, *, init_labels=None, init_active=None,
                  backend: str | None = None) -> list[DetectionResult]:
@@ -152,33 +231,34 @@ class Engine:
         and iteration counts equal ``fit`` on that graph alone, cold or
         warm.
 
+        ``graphs``: Graphs or graph-file paths, as ``fit`` takes them.
         ``init_labels`` / ``init_active``: optional length-k sequences of
         per-member warm-start labels and unprocessed-seed masks (None
-        entries for cold members), each taken as ``fit`` takes it.
+        entries for cold members), each taken as ``fit`` takes it.  Under
+        ``warm_start="auto"`` members without labels look up the warm
+        cache as it stood before the dispatch, and every member's result
+        is stored afterwards.
 
         Batch-level stage times (prepare, propagation, split) are given to
         each member pro rata by its share of the packed work (vertices +
         edges) under ``"prorated_*"`` keys; the host split and the
         compaction are timed per member.
         """
-        graphs = list(graphs)
-        for g in graphs:
-            if isinstance(g, (str, os.PathLike)):
-                raise unported("graph file paths")
-            if not isinstance(g, Graph):
-                raise TypeError(f"fit_many expects Graphs, got "
-                                f"{type(g).__name__}")
+        graphs = [_as_graph(g) for g in graphs]
         if not graphs:
             return []
         k = len(graphs)
-        resolved = [_resolve_warm(g.n, lab, act, f"init_labels[{i}]")
-                    for i, (g, lab, act) in enumerate(zip(
+        fps = [self._auto_fp(g) for g in graphs]
+        # every lookup before the dispatch and every store after it: the
+        # members never warm-start off each other
+        resolved = [self._resolve_warm(g.n, lab, act, fp,
+                                       f"init_labels[{i}]")
+                    for i, (g, lab, act, fp) in enumerate(zip(
                         graphs, self._per_member(init_labels, k,
                                                  "init_labels"),
-                        self._per_member(init_active, k, "init_active")))]
-        labels_r = [lab for lab, _ in resolved]
-        active_r = [act for _, act in resolved]
-        warm_r = [lab is not None for lab in labels_r]
+                        self._per_member(init_active, k, "init_active"),
+                        fps))]
+        labels_r, active_r, warm_r = (list(x) for x in zip(*resolved))
 
         name = backend or self.config.backend
         if name == "auto":
@@ -186,8 +266,12 @@ class Engine:
         be = get_backend(name)
         if not getattr(be, "supports_batch", False):
             raise ValueError(f"backend {name!r} has no batched path")
-        return self._fit_many_packed(graphs, labels_r, active_r, warm_r,
-                                     name, be)
+        results = self._fit_many_packed(graphs, labels_r, active_r, warm_r,
+                                        name, be)
+        for fp, res in zip(fps, results):
+            if fp is not None:
+                self._warm.put(fp, res.labels)
+        return results
 
     @staticmethod
     def _per_member(seq, k: int, name: str) -> list:
@@ -310,5 +394,8 @@ class Engine:
         result.check_connected(graph)
 
     def stats(self) -> dict:
-        """Plan-cache observability: plans, hits, misses, builds per stage."""
-        return {**self.cache.stats(), "plan_builds": PLAN_LOG.snapshot()}
+        """Plan-cache observability (plans, hits, misses, builds per stage)
+        and the warm cache's entries, capacity, hits, misses and
+        evictions."""
+        return {**self.cache.stats(), "plan_builds": PLAN_LOG.snapshot(),
+                **self._warm.stats()}

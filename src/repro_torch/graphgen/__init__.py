@@ -1,5 +1,6 @@
 from repro_torch.graphgen.synthetic import (  # noqa: F401
     erdos_renyi,
+    evolving_sequence,
     figure1_graph,
     grid2d,
     karate_club,

@@ -8,6 +8,7 @@ from __future__ import annotations
 
 import numpy as np
 
+from repro_torch.core.delta import GraphDelta, undirected_edges
 from repro_torch.core.graph import Graph, build_graph
 
 
@@ -135,6 +136,55 @@ def karate_club(device="cpu") -> tuple[Graph, np.ndarray]:
                         1, 0, 1, 0, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1],
                        dtype=np.int32)
     return build_graph(np.array(e), n=34, device=device), faction
+
+
+def evolving_sequence(n: int, avg_degree: float, rounds: int,
+                      delta_edges: int, seed: int = 0,
+                      base: Graph | None = None,
+                      ) -> tuple[Graph, list[GraphDelta]]:
+    """Evolving-graph trace: a base graph plus ``rounds`` small deltas.
+
+    Each delta retires ``delta_edges`` existing undirected edges and
+    inserts ``delta_edges`` new ones (unit weight, no self loops, not
+    present before the round).  ``base`` defaults to
+    ``erdos_renyi(n, avg_degree, seed)``.  The draws are the JAX
+    package's, so one seed gives the same deltas in both.
+    """
+    rng = np.random.default_rng(seed)
+    if base is None:
+        base = erdos_renyi(n, avg_degree, seed=seed)
+    n = base.n
+    edges, _ = undirected_edges(base)
+    alive = {(int(u), int(v)) for u, v in edges}
+
+    deltas = []
+    for _ in range(rounds):
+        pool = sorted(alive)
+        k_del = min(delta_edges, len(pool))
+        idx = rng.choice(len(pool), size=k_del, replace=False) if k_del else []
+        dels = [pool[i] for i in idx]
+        alive.difference_update(dels)
+
+        # new with respect to the pre-round graph: an edge this delta
+        # deletes is never re-inserted (the pair would cancel out)
+        forbidden = alive | set(dels)
+        ins: list[tuple[int, int]] = []
+        attempts = 0
+        while len(ins) < delta_edges and attempts < 100 * delta_edges:
+            attempts += 1
+            u, v = int(rng.integers(n)), int(rng.integers(n))
+            if u == v:
+                continue
+            e = (min(u, v), max(u, v))
+            if e in forbidden:
+                continue
+            forbidden.add(e)
+            alive.add(e)
+            ins.append(e)
+        deltas.append(GraphDelta.make(
+            insert=np.asarray(ins, np.int64).reshape(-1, 2),
+            delete=np.asarray(dels, np.int64).reshape(-1, 2)))
+    return base, deltas
 
 
 def figure1_graph(device="cpu") -> tuple[Graph, np.ndarray, np.ndarray]:

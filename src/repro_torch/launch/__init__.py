@@ -1,1 +1,2 @@
-"""Host-side schedulers over the engine (micro-batching)."""
+"""Host-side entry points over the engine: micro-batching, streaming
+re-detection and the ingest CLI."""

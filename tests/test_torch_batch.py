@@ -249,7 +249,10 @@ def test_fit_many_prorated_timings_and_metrics():
         assert r.device == "cpu"
 
 
-def test_fit_many_checks_inputs():
+def test_fit_many_checks_inputs(tmp_path, monkeypatch):
+    from repro_torch.core.delta import undirected_edges
+    from repro_torch.io import write_mtx
+    monkeypatch.setenv("REPRO_GRAPH_CACHE", str(tmp_path / "store"))
     eng = port_engine("segment", "auto")
     graphs = [port_of(g) for g in graph_mix()[:2]]
     with pytest.raises(ValueError, match="entries"):
@@ -260,8 +263,13 @@ def test_fit_many_checks_inputs():
         eng.fit_many(graphs, init_labels=[np.zeros(3, np.int32), None])
     with pytest.raises(ValueError):   # checked even when dropped (cold)
         eng.fit_many(graphs, init_active=[np.ones(3, bool), None])
-    with pytest.raises(NotImplementedError, match="A8"):
-        eng.fit_many(["graph.mtx"])
+    # A8 is ported: graph-file paths fit as their graphs do
+    path = tmp_path / "karate.mtx"
+    write_mtx(path, undirected_edges(graphs[1])[0], n=graphs[1].n)
+    for r, w in zip(eng.fit_many([graphs[0], str(path)]),
+                    eng.fit_many(graphs)):
+        assert np.array_equal(r.labels, w.labels)
+        assert r.lpa_iterations == w.lpa_iterations
     with pytest.raises(TypeError):
         eng.fit_many([np.zeros((3, 2))])
 

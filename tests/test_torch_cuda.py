@@ -339,11 +339,61 @@ def test_cuda_dense_path_and_facades_match():
             (b.lpa_iterations, b.split_iterations)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend", ("tile", "segment"))
+def test_cuda_stream_warm_updates_match_cpu(backend):
+    """StreamSession on the card (warm, with the frontier) equals the same
+    session on the CPU, round for round; the graphs stay on the host."""
+    need_card()
+    from repro_torch.launch.stream import StreamSession
+    tr = [graphgen.evolving_sequence(n, 4.0, 2, 6, seed=50 + i)
+          for i, n in enumerate((300, 180))]
+    out = {}
+    for device in ("cuda", "cpu"):
+        eng = Engine(EngineConfig(backend=backend, split="lp",
+                                  device=device), cache=PlanCache())
+        ops.reset_launches()
+        with StreamSession(eng, max_batch=4) as sess:
+            sess.add_many({i: b for i, (b, _) in enumerate(tr)})
+            out[device] = [sess.update_many({i: ds[r] for i, (_, ds)
+                                             in enumerate(tr)})
+                           for r in range(2)]
+            assert all(sess.graph(i).device.type == "cpu" for i in (0, 1))
+        if device == "cuda" and backend == "tile":
+            assert ops.LAUNCHES["fused_move"] > 0
+    for got, want in zip(out["cuda"], out["cpu"]):
+        for i in (0, 1):
+            assert got[i].warm_started and got[i].device.startswith("cuda")
+            assert np.array_equal(got[i].labels, want[i].labels)
+            assert (got[i].lpa_iterations, got[i].split_iterations) == \
+                (want[i].lpa_iterations, want[i].split_iterations)
+
+
+@pytest.mark.cuda
+def test_cuda_fit_of_a_graph_file_matches_cpu(tmp_path, monkeypatch):
+    """Engine().fit(path) on the card equals the CPU fit of the same file,
+    and a second fit under warm_start="auto" is warm."""
+    need_card()
+    from repro_torch.core.delta import undirected_edges
+    from repro_torch.io import write_mtx
+    monkeypatch.setenv("REPRO_GRAPH_CACHE", str(tmp_path / "store"))
+    g = graphgen.grid2d(40)
+    path = tmp_path / "grid.mtx"
+    write_mtx(path, undirected_edges(g)[0], n=g.n, symmetric=True)
+    eng = Engine(EngineConfig(warm_start="auto"), cache=PlanCache())
+    got = eng.fit(str(path))
+    want = Engine(EngineConfig(device="cpu"), cache=PlanCache()).fit(g)
+    assert got.device.startswith("cuda") and not got.warm_started
+    assert np.array_equal(got.labels, want.labels)
+    assert eng.fit(str(path)).warm_started
+
+
 def test_port_import_pulls_in_no_jax():
     """Importing the whole port loads neither JAX nor the JAX package."""
     code = ("import sys; import repro_torch.engine, repro_torch.core, "
             "repro_torch.kernels.ops, repro_torch.graphgen, "
-            "repro_torch.models.attention; "
+            "repro_torch.models.attention, repro_torch.io, "
+            "repro_torch.launch.stream, repro_torch.launch.ingest; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]; assert not bad, bad")
     subprocess.run([sys.executable, "-c", code], check=True, timeout=120,

@@ -207,22 +207,32 @@ def test_default_device_is_cuda():
 @pytest.mark.parametrize("kw,item", [
     (dict(backend="sharded"), "A12"), (dict(mesh=object()), "A12"),
     (dict(exchange_every=2), "A12"), (dict(memory_budget=1 << 20), "A9"),
-    (dict(warm_start="auto"), "A7"), (dict(profile="convergence"), "A10"),
+    (dict(memory_budget="64MB"), "A9"), (dict(profile="convergence"), "A10"),
     (dict(quality="basic"), "A10")])
 def test_unported_options_raise(kw, item):
     with pytest.raises(NotImplementedError, match=item):
         EngineConfig(device="cpu", **kw)
 
 
-def test_unported_calls_raise():
+def test_unported_calls_raise(tmp_path, monkeypatch):
+    from repro_torch.core.delta import undirected_edges
+    from repro_torch.io import write_mtx
+    monkeypatch.setenv("REPRO_GRAPH_CACHE", str(tmp_path / "store"))
     eng = Engine(EngineConfig(device="cpu"), cache=PlanCache())
     g = port_of(jgen.karate_club()[0])
     with pytest.raises(NotImplementedError, match="A9"):
         eng.fit(g, memory_budget="64MB")
     with pytest.raises(NotImplementedError, match="A12"):
         eng.fit(g, backend="sharded")
-    with pytest.raises(NotImplementedError, match="A8"):
-        eng.fit("graph.mtx")
+    # A8 is ported: a graph-file path fits as its graph does
+    path = tmp_path / "karate.mtx"
+    write_mtx(path, undirected_edges(g)[0], n=g.n, symmetric=True)
+    with pytest.raises(NotImplementedError, match="A9"):
+        eng.fit(str(path), memory_budget="64MB")
+    res, want = eng.fit(str(path)), eng.fit(g)
+    assert np.array_equal(res.labels, want.labels)
+    assert (res.lpa_iterations, res.split_iterations) \
+        == (want.lpa_iterations, want.split_iterations)
 
 
 @pytest.mark.parametrize("kw", [dict(kernel_mode="ref"),
