@@ -52,6 +52,23 @@ Phases, one JSON line each:
            plus an edgeless 100-vertex and a one-vertex member (D=64), auto
            (must pick tile), tile unfused and segment, split lp and lpp with
            shortcut, all equal to each member's solo fit.
+  obs      repro_torch.obs (needs main, batch).  grid2d(3500) fitted
+           with profile="full", tile fused and unfused (launch counts reset
+           just before, read just after): labels and both iteration counts
+           equal main's, the propagation curves equal each other, the
+           split's changed columns too, 2 x lpa_iterations propagation
+           rows; the walls of the profiled and the unprofiled fused fit,
+           plans warm, median of 3 in turns, and the overhead share.
+           Traffic B's first member on the card (tile fused, unfused,
+           segment) and on the CPU (segment): equal propagation curves.
+           Traffic A through fit_many, profiled: members 0, 15 and 31 have
+           their solo fits' curves.  quality="full" and "basic" fits of
+           grid2d(3500): labels equal main's, disconnected fraction 0.0,
+           modularity equal to the compute_metrics fit's, the
+           engine.quality span of each.  A fit's engine.fit span beside
+           its host wall; the Chrome trace (build/obs_trace.json) loads;
+           the Prometheus text parses; the engine scope's fits counters
+           equal the fits made.
   microbatch  a MicroBatcher(max_batch=8) on the card takes 24 of traffic
            B's members from 4 threads; each result equals its solo fit.
   stream   warm starts and streaming.  (a) The main graph, kept on the
@@ -138,12 +155,14 @@ ER_GRAPH = "erdos_renyi(1 << 21, 16.0, seed=0)"
 PLANTED_GRAPH = "planted_partition(128, 1024, 0.3, 0.001, seed=0)"
 SKEW_GRAPH = "rmat(20, 16, seed=0)"
 PHASES = ("kernels", "parity", "c1", "main", "wide_fit", "dense",
-          "skew_fit", "batch", "microbatch", "stream", "ingest", "timing",
-          "trace", "flash")
+          "skew_fit", "batch", "obs", "microbatch", "stream", "ingest",
+          "timing", "trace", "flash")
 # phase -> the phases whose graphs and fits it reuses
 NEEDS = {"timing": ("main", "wide_fit"), "trace": ("main",),
          "dense": ("wide_fit",), "microbatch": ("batch",),
-         "stream": ("main",)}
+         "stream": ("main",), "obs": ("main", "batch")}
+# The obs phase's traffic-A members held against their solo fits.
+OBS_MEMBERS = (0, 15, 31)
 # The stream phase's road edits of the main graph, grid2d(ROAD_SIDE).
 ROAD_SIDE = 3500
 ROAD_ROUNDS = 3
@@ -651,6 +670,7 @@ def phase_batch(torch, rt, dev):
     t0 = time.perf_counter()
     graphs = _traffic_a()
     build_s = time.perf_counter() - t0
+    graphs_a = graphs
     solo, solo_s = _solo_fits(torch, graphs, backend="tile", split="lp")
     runs = {}
     for tag, fuse in (("fused", "on"), ("unfused", "off")):
@@ -730,7 +750,7 @@ def phase_batch(torch, rt, dev):
         "max_degree": max(int((g.row_ptr[1:] - g.row_ptr[:-1]).max())
                           for g in graphs if g.num_edges),
         "graph_build_s": build_s, "cases": cases}
-    return graphs, solo_lp, batch_launches, out
+    return graphs_a, graphs, solo_lp, batch_launches, out
 
 
 def phase_microbatch(torch, graphs, solo):
@@ -769,6 +789,193 @@ def phase_microbatch(torch, graphs, solo):
           f"{mb.batch_sizes}")
     return {"submissions": len(picks), "threads": 4, "max_batch": 8,
             "batch_sizes": mb.batch_sizes, "wall_s": wall, **mb.stats()}
+
+
+# ------------------------------------------------------------------- obs
+
+def _same_phase(a, b, cols=("sweep", "active", "changed")) -> bool:
+    return (a is None) == (b is None) and (a is None or all(
+        np.array_equal(getattr(a, c), getattr(b, c)) for c in cols))
+
+
+def _same_profile(a, b) -> bool:
+    return a.n == b.n and _same_phase(a.propagation, b.propagation) \
+        and _same_phase(a.split, b.split)
+
+
+def phase_obs(torch, rt, dev, g, fused, graphs_a, graphs_b):
+    """repro_torch.obs on the card: convergence profiles carried through
+    the four LPA kernels (profiled fits equal main's unprofiled fits; the
+    curves agree across fusion, backends, the CPU and fit_many), quality
+    reports, spans against the host wall, the Chrome trace and the
+    Prometheus text.  Launch counts are reset just before the two
+    profiled main-graph fits and read just after."""
+    from repro_torch.engine import Engine, EngineConfig, PlanCache
+    from repro_torch.obs import (REGISTRY, TRACER, parse_prometheus_text,
+                                 prometheus_text)
+    out = {}
+
+    def engine(**kw):
+        return Engine(EngineConfig(split="lp", **kw), cache=PlanCache())
+
+    # the main graph, profile="full", fused and unfused
+    prof_f = engine(backend="tile", profile="full")
+    prof_u = engine(backend="tile", fuse_sweeps="off", profile="full")
+    torch.cuda.synchronize()
+    rt.ops.reset_launches()
+    rf, wall_f = _wall(torch, lambda: prof_f.fit(g))
+    launches_f = {k: rt.ops.LAUNCHES[k] for k in LPA_KERNELS}
+    ru, wall_u = _wall(torch, lambda: prof_u.fit(g))
+    launches = {k: rt.ops.LAUNCHES[k] for k in LPA_KERNELS}
+    for name, n in launches.items():
+        check(n > 0, f"obs: {name} was not launched by the profiled fits")
+    for tag, r in (("fused", rf), ("unfused", ru)):
+        check(_same_fit(r, fused), f"obs: the profiled {tag} fit differs "
+              f"from main's unprofiled fits")
+        check(r.profile.propagation.num_sub_sweeps
+              == 2 * r.lpa_iterations, f"obs: {tag} propagation rows "
+              f"{r.profile.propagation.num_sub_sweeps} != 2 x "
+              f"{r.lpa_iterations}")
+        check(r.profile.split is not None and not r.profile.split.truncated
+              and r.profile.split.num_sub_sweeps == r.split_iterations,
+              f"obs: {tag} split curve")
+    check(_same_phase(rf.profile.propagation, ru.profile.propagation),
+          "obs: fused and unfused propagation curves differ")
+    check(_same_phase(rf.profile.split, ru.profile.split,
+                      ("sweep", "changed")),
+          "obs: fused and unfused split changed columns differ")
+    # walls, plans warm: profiled and unprofiled fused fits, in turns
+    plain = engine(backend="tile")
+    plain.fit(g)
+    walls = {"profiled": [], "unprofiled": []}
+    prop = {"profiled": [], "unprofiled": []}
+    for _ in range(3):
+        for tag, eng in (("profiled", prof_f), ("unprofiled", plain)):
+            r, wall = _wall(torch, lambda eng=eng: eng.fit(g))
+            walls[tag].append(wall)
+            prop[tag].append(r.timings["propagation"] + r.timings["split"])
+    med = {k: float(np.median(v)) for k, v in walls.items()}
+    med_dev = {k: float(np.median(v)) for k, v in prop.items()}
+    snap = REGISTRY.snapshot()
+    fits = {tag: snap[f"{eng._obs.label}.fits"]
+            for tag, eng in (("profiled", prof_f), ("unprofiled", plain))}
+    check(fits == {"profiled": 4, "unprofiled": 4},
+          f"obs: engine fits counters {fits}, want 4 each")
+    # a profile row's count against Tensor.sum() (the unprofiled loop's
+    # changed count), on a mask of the bucket's rows
+    from repro_torch.obs.convergence import count_true
+    mask = torch.rand(fused.bucket[0], device=dev) < 0.5
+    want = int(mask.sum())
+    check(int(count_true(mask)) == want, "obs: count_true")
+    count_ms = {"rows": mask.numel(),
+                "sum_ms": _time_ms(torch, mask.sum),
+                "count_true_ms": _time_ms(torch, lambda: count_true(mask))}
+    del mask
+    out["main"] = {
+        "graph": "grid2d(3500)", "profile": "full", "split": "lp",
+        "first_fit_wall_s": {"fused": wall_f, "unfused": wall_u},
+        "launches_fused_fit": launches_f,
+        "launches_unfused_fit": {k: launches[k] - launches_f[k]
+                                 for k in launches},
+        "propagation": rf.profile.propagation.to_dict(),
+        "split_fused": rf.profile.split.to_dict(),
+        "split_unfused_active": ru.profile.split.active.tolist(),
+        "wall_s_median_of_3": med, "walls_s": walls,
+        "propagation_plus_split_s_median_of_3": med_dev,
+        "profile_overhead_share": med["profiled"] / med["unprofiled"] - 1,
+        "profile_overhead_share_of_device_stages":
+            med_dev["profiled"] / med_dev["unprofiled"] - 1,
+        "engine_fits_counters": fits, "bool_count": count_ms}
+
+    # one traffic-B member: three backends on the card, segment on the CPU
+    pp = graphs_b[0]
+    fits_b = {}
+    for tag, kw in (("tile_fused", dict(backend="tile")),
+                    ("tile_unfused", dict(backend="tile",
+                                          fuse_sweeps="off")),
+                    ("segment", dict(backend="segment")),
+                    ("segment_cpu", dict(backend="segment", device="cpu"))):
+        fits_b[tag] = engine(profile="full", **kw).fit(pp)
+    for tag, r in fits_b.items():
+        check(_same_fit(r, fits_b["segment_cpu"])
+              and _same_phase(r.profile.propagation,
+                              fits_b["segment_cpu"].profile.propagation),
+              f"obs: {tag} propagation curve != the CPU segment fit's")
+    out["backends"] = {
+        "graph": "planted_partition(32, 512, 0.04, 0.0005, seed=0)",
+        "devices": {k: r.device for k, r in fits_b.items()},
+        "propagation_active": fits_b["segment_cpu"].profile.propagation
+        .active.tolist(),
+        "split_changed": {k: r.profile.split.changed.tolist()
+                          for k, r in fits_b.items()}}
+
+    # traffic A: fit_many profiled, members against their solo fits
+    eng_a = engine(backend="tile", profile="full")
+    res_a, wall_a = _wall(torch, lambda: eng_a.fit_many(graphs_a))
+    for i in OBS_MEMBERS:
+        solo = eng_a.fit(graphs_a[i])
+        check(_same_fit(res_a[i], solo)
+              and _same_profile(res_a[i].profile, solo.profile),
+              f"obs: traffic A member {i}'s curves != its solo fit's")
+    out["traffic_a"] = {"fit_many_wall_s": wall_a,
+                        "members_checked": list(OBS_MEMBERS),
+                        "lpa_iterations": [res_a[i].lpa_iterations
+                                           for i in OBS_MEMBERS]}
+
+    # quality reports on the main graph
+    metric = engine(backend="tile", compute_metrics=True).fit(g)
+    quality = {}
+    for mode in ("full", "basic"):
+        eng = engine(backend="tile", quality=mode)
+        TRACER.reset()
+        r, wall = _wall(torch, lambda eng=eng: eng.fit(g))
+        check(_same_fit(r, fused), f"obs: quality={mode} labels differ")
+        q = r.quality
+        (qs,) = TRACER.spans("engine.quality")
+        quality[mode] = {"engine_quality_s": qs.dur, "wall_s": wall,
+                         "report": q.to_dict()}
+        if mode == "full":
+            check(q.disconnected_fraction == 0.0,
+                  f"obs: disconnected fraction {q.disconnected_fraction}")
+            check(q.modularity == metric.modularity,
+                  f"obs: quality modularity {q.modularity} != "
+                  f"compute_metrics' {metric.modularity}")
+        else:
+            check(q.modularity is None and q.disconnected_fraction is None,
+                  "obs: basic quality made a device pass")
+    quality["compute_metrics_modularity"] = metric.modularity
+    out["quality"] = quality
+
+    # spans against the host wall, the Chrome trace, the Prometheus text
+    eng = engine(backend="tile")
+    eng.fit(g)
+    TRACER.reset()
+    r, wall = _wall(torch, lambda: eng.fit(g))
+    names = {s.name for s in TRACER.spans("engine.")}
+    need = {"engine.fit", "engine.prepare", "engine.dispatch",
+            "engine.compact"}
+    check(need <= names, f"obs: spans {sorted(names)}")
+    spans = {s.name: s.dur for s in TRACER.spans("engine.")}
+    trace_path = Path(__file__).resolve().parent / "build" / "obs_trace.json"
+    trace_path.parent.mkdir(parents=True, exist_ok=True)
+    n_events = TRACER.export_chrome(trace_path)
+    events = json.loads(trace_path.read_text())
+    check(len(events) == n_events >= 4, "obs: the Chrome trace")
+    parsed = parse_prometheus_text(prometheus_text())
+    label = eng._obs.label
+    snap = REGISTRY.snapshot()
+    check(snap[f"{label}.fits"] == 2, f"obs: {label}.fits = "
+          f"{snap[f'{label}.fits']}, want 2")
+    out["spans"] = {
+        "engine_fit_span_s": spans["engine.fit"], "host_wall_s": wall,
+        "span_over_wall": spans["engine.fit"] / wall,
+        "stage_spans_s": spans, "timings_s": r.timings,
+        "chrome_trace": str(trace_path.relative_to(
+            Path(__file__).resolve().parent)), "trace_events": n_events,
+        "prometheus_metrics": len(parsed),
+        "engine_names": sorted({k.split(".", 1)[1] for k in snap
+                                if k.startswith("engine")})}
+    return launches, out
 
 
 # ---------------------------------------------------------------- stream
@@ -1643,8 +1850,14 @@ def main(argv=None) -> int:
     if "skew_fit" in run:
         emit({"phase": "skew_fit", **phase_skew_fit(torch, dev)})
     if "batch" in run:
-        graphs_b, solo_b, batch_launches, res = phase_batch(torch, rt, dev)
+        graphs_a, graphs_b, solo_b, batch_launches, res = phase_batch(
+            torch, rt, dev)
         emit({"phase": "batch", **res})
+    if "obs" in run:
+        obs_launches, res = phase_obs(torch, rt, dev, g, fused, graphs_a,
+                                      graphs_b)
+        del graphs_a
+        emit({"phase": "obs", **res})
     if "microbatch" in run:
         emit({"phase": "microbatch",
               **phase_microbatch(torch, graphs_b, solo_b)})
@@ -1691,11 +1904,14 @@ def main(argv=None) -> int:
          "replaces": KERNELS[name][1], "launches": launches[name],
          "batch_launches": batch_launches[name],
          "stream_launches": stream_launches[name],
+         "obs_launches": obs_launches[name],
          "launched_by": "launches: tile fits of grid2d(3500), fused and "
                         "unfused; batch_launches: fit_many of traffic A "
                         "(32 grid2d members), tile fused and unfused; "
                         "stream_launches: the 3 warm road updates of "
-                        "grid2d(3500) through StreamSession (tile fused)",
+                        "grid2d(3500) through StreamSession (tile fused); "
+                        "obs_launches: profile=\"full\" tile fits of "
+                        "grid2d(3500), fused and unfused",
          "max_abs_err": kernel_err[name],
          **{k: timing[name][k] for k in keys}}
         for name in LPA_KERNELS]

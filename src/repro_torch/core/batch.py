@@ -35,6 +35,10 @@ from repro_torch.core.lpa import (
     segment_sum,
 )
 from repro_torch.core.split import _min_label_sweep
+from repro_torch.obs.convergence import (
+    empty_batch_profile_buffer,
+    record_row,
+)
 
 __all__ = ["GraphBatch", "batch_thresholds", "lpa_run_batched",
            "split_lp_batched", "warm_state_rows"]
@@ -204,7 +208,7 @@ def batch_thresholds(tau: float, sizes: np.ndarray) -> np.ndarray:
 def lpa_run_batched(graph: Graph, sizes: np.ndarray, graph_id: torch.Tensor,
                     voffset: torch.Tensor, labels0: torch.Tensor,
                     active0: torch.Tensor, *, tau: float,
-                    max_iterations: int) -> tuple[torch.Tensor, np.ndarray]:
+                    max_iterations: int, profile: bool = False):
     """Batched propagation over a packed, bucket-padded graph.
 
     sizes: (k1,) host per-slot real vertex counts (0 for empty slots and
@@ -217,6 +221,11 @@ def lpa_run_batched(graph: Graph, sizes: np.ndarray, graph_id: torch.Tensor,
     Returns (labels in local coordinates, per-slot iteration counts): each
     slot stops where its solo ``lpa_run`` would (the same float32
     threshold, hash seeds and parity classes of local ids).
+
+    ``profile``: also fill a ``(2 * max_iterations, 2, k1)`` int32 buffer
+    on the device with per-slot [candidate count, changed count] per
+    sub-sweep (exact integer segment sums), and return
+    ``(labels, iterations, buffer)``.
     """
     n = graph.n
     dev = graph.device
@@ -229,6 +238,8 @@ def lpa_run_batched(graph: Graph, sizes: np.ndarray, graph_id: torch.Tensor,
     done = torch.from_numpy(done_h).to(dev)
     iters = np.zeros(k1, np.int32)
     labels, active = labels0.to(torch.int32), active0.to(torch.bool)
+    buf = empty_batch_profile_buffer(2 * max_iterations, k1, dev) \
+        if profile else None
     it = 0
     while not done_h.all() and it < max_iterations:
         running = ~done[graph_id]
@@ -237,24 +248,33 @@ def lpa_run_batched(graph: Graph, sizes: np.ndarray, graph_id: torch.Tensor,
             cand = active & klass & running
             labels, changed, _ = lpa_move(graph, labels, cand, 2 * it + sweep)
             active = (active & ~cand) | neighbors_of(graph, changed)
-            dn += segment_sum(changed, graph_id, k1, sorted_ids=True)
+            sc = segment_sum(changed, graph_id, k1, sorted_ids=True)
+            dn += sc
+            if buf is not None:
+                record_row(buf, 2 * it + sweep, segment_sum(
+                    cand, graph_id, k1, sorted_ids=True), sc, 2 * it + sweep)
         iters += ~done_h
         done = done | (dn <= thr)
         done_h = done.cpu().numpy()
         it += 1
-    return labels, iters
+    return (labels, iters, buf) if profile else (labels, iters)
 
 
 def split_lp_batched(graph: Graph, sizes: np.ndarray, graph_id: torch.Tensor,
                      voffset: torch.Tensor, comm: torch.Tensor, *,
                      prune: bool = False, shortcut: bool = False,
-                     ) -> tuple[torch.Tensor, np.ndarray]:
+                     profile_rows: int = 0):
     """Batched Split-Last over a packed graph (local-label coordinates).
 
     Min-label sweeps are idempotent at a member's fixpoint, so converged
     members stop changing while the loop drains the rest; per-slot
     iteration counts record the sweep at which each member's solo
     ``split_lp`` would have stopped.
+
+    ``profile_rows`` (0 = off): also fill a ``(profile_rows, 2, k1)``
+    int32 per-slot [active count, changed count] buffer per sweep (rows
+    past the cap overwrite the last) and return
+    ``(labels, iterations, buffer)``.
     """
     n = graph.n
     dev = graph.device
@@ -265,11 +285,19 @@ def split_lp_batched(graph: Graph, sizes: np.ndarray, graph_id: torch.Tensor,
     done_h = np.asarray(sizes) == 0
     done = torch.from_numpy(done_h).to(dev)
     iters = np.zeros(k1, np.int32)
+    buf = empty_batch_profile_buffer(profile_rows, k1, dev) \
+        if profile_rows else None
+    it = 0
     while not done_h.all():
+        prev_active = active
         labels, active, changed, _ = _min_label_sweep(
             graph, comm, labels, active, prune, shortcut, voffset=voffset)
         dn = segment_sum(changed, graph_id, k1, sorted_ids=True)
+        if buf is not None:
+            record_row(buf, min(it, profile_rows - 1), segment_sum(
+                prev_active, graph_id, k1, sorted_ids=True), dn, it)
         iters += ~done_h
         done = done | (dn == 0)
         done_h = done.cpu().numpy()
-    return labels, iters
+        it += 1
+    return (labels, iters, buf) if profile_rows else (labels, iters)

@@ -29,6 +29,11 @@ import torch
 
 from repro_torch.core.graph import Graph
 from repro_torch.kernels.ref import label_hash
+from repro_torch.obs.convergence import (
+    count_true,
+    empty_profile_buffer,
+    record_row,
+)
 
 __all__ = ["LpaState", "label_hash", "lpa_move", "lpa_move_reference",
            "lpa_run", "neighbors_of", "segment_sum", "threshold_for"]
@@ -171,13 +176,20 @@ def lpa_move(graph: Graph, labels: torch.Tensor, active: torch.Tensor,
 def lpa_run(graph: Graph, tau: float = 0.05, max_iterations: int = 20,
             init_labels: torch.Tensor | None = None,
             n_real: int | None = None,
-            init_active: torch.Tensor | None = None) -> LpaState:
+            init_active: torch.Tensor | None = None,
+            profile: bool = False):
     """Run LPA to convergence: ``delta_n <= threshold`` or iteration cap.
 
     Faithful to Algorithm 3 lines 1-6.  ``n_real``: the unpadded vertex
     count of a bucketed graph (padding vertices are isolated and inert,
     but the threshold is ``tau * n_real``).  ``init_active`` seeds the
     unprocessed flags.  One scalar is read back per iteration.
+
+    ``profile``: also fill a ``(2 * max_iterations, 3)`` int32 buffer on
+    the graph's device, row ``2*it + sweep`` = [candidate count (padding
+    vertices left out), changed count, row], and return
+    ``(LpaState, buffer)``.  The buffer never feeds back and adds no host
+    read.
     """
     n = graph.n
     dev = graph.device
@@ -186,8 +198,13 @@ def lpa_run(graph: Graph, tau: float = 0.05, max_iterations: int = 20,
     active = (torch.ones(n, dtype=torch.bool, device=dev)
               if init_active is None else init_active.to(torch.bool))
     threshold = threshold_for(tau, n, n_real)
-    parity = (label_hash(torch.arange(n, dtype=torch.int32, device=dev), -1)
-              & 1).bool()
+    ids = torch.arange(n, dtype=torch.int32, device=dev)
+    parity = (label_hash(ids, -1) & 1).bool()
+    if profile:
+        buf = empty_profile_buffer(2 * max_iterations, dev)
+        real = ids < (n if n_real is None else n_real)
+    else:
+        buf = None
 
     it, dn = 0, n
     while dn > threshold and it < max_iterations:
@@ -199,9 +216,13 @@ def lpa_run(graph: Graph, tau: float = 0.05, max_iterations: int = 20,
             # pruning: processed vertices sleep; neighbors of changed wake
             active = (active & ~cand) | neighbors_of(graph, changed)
             dn_t += d
+            if buf is not None:
+                row = 2 * it + sweep
+                record_row(buf, row, count_true(cand & real), d, row)
         it += 1
         dn = int(dn_t)
-    return LpaState(labels=labels, active=active, iteration=it, delta_n=dn)
+    state = LpaState(labels=labels, active=active, iteration=it, delta_n=dn)
+    return (state, buf) if profile else state
 
 
 def lpa_move_reference(graph: Graph, labels: torch.Tensor,

@@ -20,6 +20,11 @@ import numpy as np
 import torch
 
 from repro_torch.core.graph import Graph
+from repro_torch.obs.convergence import (
+    count_true,
+    empty_profile_buffer,
+    record_row,
+)
 
 _INT32_MAX = 2147483647
 
@@ -66,25 +71,44 @@ def _min_label_sweep(graph: Graph, comm: torch.Tensor, labels: torch.Tensor,
 
 
 def split_lp(graph: Graph, comm: torch.Tensor, prune: bool = False,
-             shortcut: bool = False) -> SplitState:
+             shortcut: bool = False, profile_rows: int = 0,
+             n_real: int | None = None):
     """Algorithm 1: SL-LP (``prune=False``) / SL-LPP (``prune=True``).
 
     Each vertex ends with the minimum vertex id reachable within its
     community and connected component: one label per component per
     community, which is exactly the split partition.
+
+    ``profile_rows`` (0 = off): also fill a ``(profile_rows, 3)`` int32
+    buffer on the device, row ``min(iterations, profile_rows - 1)`` =
+    [active count, changed count, iterations] (a split that outruns the
+    buffer overwrites its last row), and return ``(SplitState, buffer)``.
+    ``n_real`` leaves bucket-padding vertices out of the active counts;
+    it does not change the sweep.
     """
     n = graph.n
     dev = graph.device
     comm = comm.to(torch.int32)
     labels = torch.arange(n, dtype=torch.int32, device=dev)
     active = torch.ones(n, dtype=torch.bool, device=dev)
+    if profile_rows:
+        buf = empty_profile_buffer(profile_rows, dev)
+        real = labels < (n if n_real is None else n_real)
+    else:
+        buf = None
     it, dn = 0, n
     while dn > 0:
+        prev_active = active
         labels, active, _, d = _min_label_sweep(graph, comm, labels, active,
                                                 prune, shortcut)
+        if buf is not None:
+            record_row(buf, min(it, profile_rows - 1),
+                       count_true(prev_active & real), d, it)
         it += 1
         dn = int(d)
-    return SplitState(labels=labels, active=active, iterations=it, delta_n=dn)
+    state = SplitState(labels=labels, active=active, iterations=it,
+                       delta_n=dn)
+    return (state, buf) if profile_rows else state
 
 
 def split_lpp(graph: Graph, comm: torch.Tensor,

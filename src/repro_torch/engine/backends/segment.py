@@ -9,6 +9,10 @@ backend's oracle.
 With ``bucketing="exact"`` the convergence threshold is the Python-float
 ``int(tau * n)``; with ``"pow2"`` it is taken in float32 from the real
 vertex count, as the JAX engine does.
+
+Profiling (``EngineConfig.profile``) passes ``profile`` / ``profile_rows``
+down to the core loops, which fill their buffers on the device; ``run``
+and ``run_batch`` fetch them once with the labels.
 """
 from __future__ import annotations
 
@@ -40,10 +44,12 @@ from repro_torch.engine.registry import (
     BatchBackendRun,
     batch_index,
     device_sync,
+    profile_plan,
     register_backend,
     to_device,
     to_host,
 )
+from repro_torch.obs.convergence import batch_profiles, solo_profile
 
 
 @register_backend("segment")
@@ -64,7 +70,7 @@ class SegmentBackend:
             device=device, exact=config.bucketing == "exact",
             tau=config.tau, max_iterations=config.max_iterations,
             do_split=do_split, prune=config.split == "lpp",
-            shortcut=config.shortcut)
+            shortcut=config.shortcut, **profile_plan(config, do_split))
 
     def prepare(self, graph: Graph, bucket: BucketKey,
                 config: EngineConfig) -> Graph:
@@ -82,23 +88,31 @@ class SegmentBackend:
 
         device_sync(dev)
         t0 = time.perf_counter()
-        state = lpa_run(g, tau=plan.tau, max_iterations=plan.max_iterations,
-                        init_labels=labels0,
-                        n_real=None if plan.exact else n_real,
-                        init_active=active0)
+        out = lpa_run(g, tau=plan.tau, max_iterations=plan.max_iterations,
+                      init_labels=labels0,
+                      n_real=None if plan.exact else n_real,
+                      init_active=active0, profile=plan.profile)
+        state, pbuf = out if plan.profile else (out, None)
         labels = state.labels
         device_sync(dev)
         t1 = time.perf_counter()
-        split_iters = 0
+        split_iters, sbuf = 0, None
         if plan.do_split:
-            st = split_lp(g, labels, prune=plan.prune, shortcut=plan.shortcut)
+            out = split_lp(g, labels, prune=plan.prune,
+                           shortcut=plan.shortcut,
+                           profile_rows=plan.split_rows, n_real=n_real)
+            st, sbuf = out if plan.split_rows else (out, None)
             labels, split_iters = st.labels, st.iterations
         device_sync(dev)
         t2 = time.perf_counter()
-        return BackendRun(labels=to_host(labels, n_real),
-                          lpa_iterations=state.iteration,
+        labels, pbuf, sbuf = to_host(labels, n_real, pbuf, sbuf)
+        profile = solo_profile(pbuf, state.iteration, sbuf, split_iters,
+                               plan.split_rows, n_real) \
+            if plan.profile else None
+        return BackendRun(labels=labels, lpa_iterations=state.iteration,
                           split_iterations=split_iters,
-                          lpa_seconds=t1 - t0, split_seconds=t2 - t1)
+                          lpa_seconds=t1 - t0, split_seconds=t2 - t1,
+                          profile=profile)
 
     # --- batched dispatch (GraphBatch disjoint-union packing) ---
 
@@ -111,7 +125,8 @@ class SegmentBackend:
         return SimpleNamespace(
             device=device, tau=config.tau,
             max_iterations=config.max_iterations, do_split=do_split,
-            prune=config.split == "lpp", shortcut=config.shortcut)
+            prune=config.split == "lpp", shortcut=config.shortcut,
+            **profile_plan(config, do_split))
 
     def prepare_batch(self, batch, bucket: BatchBucketKey,
                       config: EngineConfig):
@@ -129,19 +144,27 @@ class SegmentBackend:
 
         device_sync(dev)
         t0 = time.perf_counter()
-        labels, iters = lpa_run_batched(
+        out = lpa_run_batched(
             g, b.sizes, b.graph_id, b.voffset, labels0, active0,
-            tau=plan.tau, max_iterations=plan.max_iterations)
+            tau=plan.tau, max_iterations=plan.max_iterations,
+            profile=plan.profile)
+        labels, iters, pbuf = out if plan.profile else (*out, None)
         device_sync(dev)
         t1 = time.perf_counter()
-        split_iters = np.zeros(len(b.sizes), np.int32)
+        split_iters, sbuf = np.zeros(len(b.sizes), np.int32), None
         if plan.do_split:
-            labels, split_iters = split_lp_batched(
+            out = split_lp_batched(
                 g, b.sizes, b.graph_id, b.voffset, labels, prune=plan.prune,
-                shortcut=plan.shortcut)
+                shortcut=plan.shortcut, profile_rows=plan.split_rows)
+            labels, split_iters, sbuf = out if plan.split_rows \
+                else (*out, None)
         device_sync(dev)
         t2 = time.perf_counter()
-        return BatchBackendRun(labels=to_host(labels, b.n_total),
-                               lpa_iterations=iters,
+        labels, pbuf, sbuf = to_host(labels, b.n_total, pbuf, sbuf)
+        profiles = batch_profiles(pbuf, iters, sbuf, split_iters,
+                                  plan.split_rows, b.sizes) \
+            if plan.profile else None
+        return BatchBackendRun(labels=labels, lpa_iterations=iters,
                                split_iterations=split_iters,
-                               lpa_seconds=t1 - t0, split_seconds=t2 - t1)
+                               lpa_seconds=t1 - t0, split_seconds=t2 - t1,
+                               profile=profiles)

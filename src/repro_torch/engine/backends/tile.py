@@ -17,6 +17,14 @@ convergence test.
 The batched trio runs the same kernels over a packed disjoint union of
 graphs (``core.batch``), reading one per-slot ``done`` vector per
 iteration.
+
+Profiling (``EngineConfig.profile``): each loop takes an optional buffer
+on the device and writes one row per sub-sweep (split sweep) into it with
+``obs.convergence.record_row``: the row index is a Python int, the counts
+stay device tensors, so no host read is added.  Propagation records the
+sub-sweep's candidate set; the unfused split its ``active & real`` rows,
+the fused split its wake source ``chg & real`` (it never builds the prune
+worklist), as the JAX engine does.
 """
 from __future__ import annotations
 
@@ -43,15 +51,25 @@ from repro_torch.engine.registry import (
     BatchIndex,
     batch_index,
     device_sync,
+    profile_plan,
     register_backend,
     to_device,
     to_host,
 )
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import label_hash
+from repro_torch.obs.convergence import (
+    batch_profiles,
+    count_true,
+    empty_batch_profile_buffer,
+    empty_profile_buffer,
+    record_row,
+    solo_profile,
+)
 
 
-def _propagate(plan, nbr, nw, nmask, n_real: int, labels, active):
+def _propagate(plan, nbr, nw, nmask, n_real: int, labels, active,
+               buf=None):
     real = plan.ids < n_real
     threshold = threshold_for(plan.tau, plan.rows, n_real)
     active = active & real
@@ -59,22 +77,27 @@ def _propagate(plan, nbr, nw, nmask, n_real: int, labels, active):
     while dn > threshold and it < plan.max_iterations:
         dn_t = torch.zeros((), dtype=torch.int64, device=plan.device)
         for sweep, klass in enumerate(plan.klasses):
+            seed = 2 * it + sweep
             cand = active & klass
             best_lab, best_w, cur_w = ops.label_argmax(nbr, nw, nmask, labels,
-                                                       2 * it + sweep)
+                                                       seed)
             adopt = cand & (best_w > cur_w.clamp_min(0.0))
             new = torch.where(adopt, best_lab, labels)
             changed = new != labels
             wake = (changed[nbr] & nmask).any(dim=1)
             active = (active & ~cand) | (wake & real)
             labels = new
-            dn_t += changed.sum()
+            sc = changed.sum()
+            dn_t += sc
+            if buf is not None:
+                record_row(buf, seed, count_true(cand), sc, seed)
         it += 1
         dn = int(dn_t)
     return labels, it
 
 
-def _propagate_fused(plan, nbr, nw, nmask, n_real: int, labels, active):
+def _propagate_fused(plan, nbr, nw, nmask, n_real: int, labels, active,
+                     buf=None):
     real = plan.ids < n_real
     threshold = threshold_for(plan.tau, plan.rows, n_real)
     active = active & real
@@ -86,19 +109,25 @@ def _propagate_fused(plan, nbr, nw, nmask, n_real: int, labels, active):
     while dn > threshold and it < plan.max_iterations:
         dn_t = torch.zeros((), dtype=torch.int64, device=plan.device)
         for sweep, klass in enumerate(plan.klasses):
+            seed = 2 * it + sweep
             new, active = ops.fused_move(nbr, nw, nmask, labels, chg, active,
-                                         candp, klass, real, 2 * it + sweep)
+                                         candp, klass, real, seed)
             chg = new != labels
+            # this sub-sweep's candidate set: the unfused loop's cand
             candp = active & klass
             labels = new
-            dn_t += chg.sum()
+            sc = chg.sum()
+            dn_t += sc
+            if buf is not None:
+                record_row(buf, seed, count_true(candp), sc, seed)
         it += 1
         dn = int(dn_t)
     return labels, it
 
 
-def _split(plan, nbr, nmask, comm):
+def _split(plan, nbr, nmask, comm, n_real: int, buf=None):
     labels = plan.ids.clone()
+    real = plan.ids < n_real if buf is not None else None
     active = torch.ones(plan.rows, dtype=torch.bool, device=plan.device)
     same = ((comm[nbr] == comm[:, None]) & nmask) if plan.prune else None
     it, dn = 0, plan.rows
@@ -109,16 +138,21 @@ def _split(plan, nbr, nmask, comm):
         if plan.shortcut:
             new = torch.minimum(new, new[new])
         changed = new != labels
+        sc = changed.sum()
+        if buf is not None:
+            record_row(buf, min(it, len(buf) - 1),
+                       count_true(active & real), sc, it)
         if plan.prune:
             active = (changed[nbr] & same).any(dim=1)
         labels = new
         it += 1
-        dn = int(changed.sum())
+        dn = int(sc)
     return labels, it
 
 
-def _split_fused(plan, nbr, nmask, comm):
+def _split_fused(plan, nbr, nmask, comm, n_real: int, buf=None):
     labels = plan.ids.clone()
+    real = plan.ids < n_real if buf is not None else None
     # ones on the first sweep: a row with no same-community neighbor
     # reduces to its own label, as the eager all-active start does.
     chg = torch.ones(plan.rows, dtype=torch.bool, device=plan.device)
@@ -127,10 +161,16 @@ def _split_fused(plan, nbr, nmask, comm):
         new = ops.fused_split(nbr, nmask, labels, comm, chg, plan.prune)
         if plan.shortcut:
             new = torch.minimum(new, new[new])
-        chg = new != labels
+        changed = new != labels
+        sc = changed.sum()
+        if buf is not None:
+            # the wake source stands in for the worklist the kernel folds
+            record_row(buf, min(it, len(buf) - 1), count_true(chg & real),
+                       sc, it)
+        chg = changed
         labels = new
         it += 1
-        dn = int(chg.sum())
+        dn = int(sc)
     return labels, it
 
 
@@ -140,7 +180,8 @@ def _split_fused(plan, nbr, nmask, comm):
 # each member where its solo run would stop, and each slot's changed count
 # is an exact integer segment sum over graph_id.
 
-def _propagate_batch(plan, nbr, nw, nmask, b: BatchIndex, labels, active):
+def _propagate_batch(plan, nbr, nw, nmask, b: BatchIndex, labels, active,
+                     buf=None):
     dev = plan.device
     k1 = len(b.sizes)
     local = plan.ids - b.voffset
@@ -166,7 +207,7 @@ def _propagate_batch(plan, nbr, nw, nmask, b: BatchIndex, labels, active):
                 new, active = ops.fused_move(nbr, nw, nmask, labels, chg,
                                              active, candp, klass & running,
                                              real, seed)
-                candp = active & klass & running
+                cand = candp = active & klass & running
                 chg = new != labels
             else:
                 cand = active & klass & running
@@ -178,7 +219,11 @@ def _propagate_batch(plan, nbr, nw, nmask, b: BatchIndex, labels, active):
                 wake = (chg[nbr] & nmask).any(dim=1)
                 active = (active & ~cand) | (wake & real)
             labels = new
-            dn += segment_sum(chg, b.graph_id, k1, sorted_ids=True)
+            sc = segment_sum(chg, b.graph_id, k1, sorted_ids=True)
+            dn += sc
+            if buf is not None:
+                record_row(buf, seed, segment_sum(cand, b.graph_id, k1,
+                                                  sorted_ids=True), sc, seed)
         iters += ~done_h
         done = done | (dn <= thr)
         done_h = done.cpu().numpy()
@@ -186,7 +231,7 @@ def _propagate_batch(plan, nbr, nw, nmask, b: BatchIndex, labels, active):
     return labels, iters
 
 
-def _split_batch(plan, nbr, nmask, b: BatchIndex, comm):
+def _split_batch(plan, nbr, nmask, b: BatchIndex, comm, buf=None):
     dev = plan.device
     k1 = len(b.sizes)
     labels = plan.ids - b.voffset
@@ -199,6 +244,7 @@ def _split_batch(plan, nbr, nmask, b: BatchIndex, comm):
     done_h = b.sizes == 0
     done = torch.from_numpy(done_h).to(dev)
     iters = np.zeros(k1, np.int32)
+    it = 0
     while not done_h.all():
         if plan.fuse:
             new = ops.fused_split(nbr, nmask, labels, comm, chg, plan.prune)
@@ -208,14 +254,21 @@ def _split_batch(plan, nbr, nmask, b: BatchIndex, comm):
                 new = torch.where(active, new, labels)
         if plan.shortcut:
             new = torch.minimum(new, new[new + b.voffset])
-        chg = new != labels
+        changed = new != labels
+        dn = segment_sum(changed, b.graph_id, k1, sorted_ids=True)
+        if buf is not None:
+            # fused: the wake source (last sweep's chg) as the frontier
+            record_row(buf, min(it, len(buf) - 1), segment_sum(
+                chg if plan.fuse else active, b.graph_id, k1,
+                sorted_ids=True), dn, it)
+        chg = changed
         if same is not None:
             active = (chg[nbr] & same).any(dim=1)
         labels = new
-        dn = segment_sum(chg, b.graph_id, k1, sorted_ids=True)
         iters += ~done_h
         done = done | (dn == 0)
         done_h = done.cpu().numpy()
+        it += 1
     return labels, iters
 
 
@@ -242,7 +295,8 @@ class TileBackend:
             max_iterations=config.max_iterations, prune=config.split == "lpp",
             shortcut=config.shortcut,
             propagate=_propagate_fused if fuse else _propagate,
-            split=(_split_fused if fuse else _split) if do_split else None)
+            split=(_split_fused if fuse else _split) if do_split else None,
+            **profile_plan(config, do_split))
 
     def prepare(self, graph: Graph, bucket: BucketKey,
                 config: EngineConfig):
@@ -258,21 +312,31 @@ class TileBackend:
             else pad_labels(init_labels, n_real, plan.rows), dev)
         active0 = to_device(pad_active(init_active, n_real, plan.rows), dev)
 
+        pbuf = empty_profile_buffer(2 * plan.max_iterations, dev) \
+            if plan.profile else None
+        sbuf = empty_profile_buffer(plan.split_rows, dev) \
+            if plan.split_rows and plan.split is not None else None
+
         device_sync(dev)
         t0 = time.perf_counter()
         labels, lpa_iters = plan.propagate(plan, nbr, nw, nmask, n_real,
-                                           labels0, active0)
+                                           labels0, active0, pbuf)
         device_sync(dev)
         t1 = time.perf_counter()
         split_iters = 0
         if plan.split is not None:
-            labels, split_iters = plan.split(plan, nbr, nmask, labels)
+            labels, split_iters = plan.split(plan, nbr, nmask, labels,
+                                             n_real, sbuf)
         device_sync(dev)
         t2 = time.perf_counter()
-        return BackendRun(labels=to_host(labels, n_real),
-                          lpa_iterations=lpa_iters,
+        labels, pbuf, sbuf = to_host(labels, n_real, pbuf, sbuf)
+        profile = solo_profile(pbuf, lpa_iters, sbuf, split_iters,
+                               plan.split_rows, n_real) \
+            if plan.profile else None
+        return BackendRun(labels=labels, lpa_iterations=lpa_iters,
                           split_iterations=split_iters,
-                          lpa_seconds=t1 - t0, split_seconds=t2 - t1)
+                          lpa_seconds=t1 - t0, split_seconds=t2 - t1,
+                          profile=profile)
 
     # --- batched dispatch (GraphBatch disjoint-union packing) ---
 
@@ -289,7 +353,8 @@ class TileBackend:
             rows=bucket.n, device=device, fuse=fuse, do_split=do_split,
             ids=torch.arange(bucket.n, dtype=torch.int32, device=device),
             tau=config.tau, max_iterations=config.max_iterations,
-            prune=config.split == "lpp", shortcut=config.shortcut)
+            prune=config.split == "lpp", shortcut=config.shortcut,
+            **profile_plan(config, do_split))
 
     def prepare_batch(self, batch, bucket: BatchBucketKey,
                       config: EngineConfig):
@@ -306,18 +371,29 @@ class TileBackend:
                                      init_active)
         labels0, active0 = to_device(lab0, dev), to_device(act0, dev)
 
+        k1 = len(b.sizes)
+        pbuf = empty_batch_profile_buffer(2 * plan.max_iterations, k1, dev) \
+            if plan.profile else None
+        sbuf = empty_batch_profile_buffer(plan.split_rows, k1, dev) \
+            if plan.split_rows else None
+
         device_sync(dev)
         t0 = time.perf_counter()
         labels, iters = _propagate_batch(plan, nbr, nw, nmask, b, labels0,
-                                         active0)
+                                         active0, pbuf)
         device_sync(dev)
         t1 = time.perf_counter()
-        split_iters = np.zeros(len(b.sizes), np.int32)
+        split_iters = np.zeros(k1, np.int32)
         if plan.do_split:
-            labels, split_iters = _split_batch(plan, nbr, nmask, b, labels)
+            labels, split_iters = _split_batch(plan, nbr, nmask, b, labels,
+                                               sbuf)
         device_sync(dev)
         t2 = time.perf_counter()
-        return BatchBackendRun(labels=to_host(labels, b.n_total),
-                               lpa_iterations=iters,
+        labels, pbuf, sbuf = to_host(labels, b.n_total, pbuf, sbuf)
+        profiles = batch_profiles(pbuf, iters, sbuf, split_iters,
+                                  plan.split_rows, b.sizes) \
+            if plan.profile else None
+        return BatchBackendRun(labels=labels, lpa_iterations=iters,
                                split_iterations=split_iters,
-                               lpa_seconds=t1 - t0, split_seconds=t2 - t1)
+                               lpa_seconds=t1 - t0, split_seconds=t2 - t1,
+                               profile=profiles)

@@ -20,6 +20,8 @@ BUCKETING = ("pow2", "exact")
 FUSE_SWEEPS = ("auto", "on", "off")
 KERNEL_MODES = ("auto",)
 WARM_START = ("off", "auto")
+PROFILE = ("off", "convergence", "full")
+QUALITY = ("off", "basic", "full")
 
 # Option -> the ROADMAP item (Queue A) that ports it.
 UNPORTED = {
@@ -27,8 +29,6 @@ UNPORTED = {
     "mesh": "A12 (multi-device)",
     "exchange_every": "A12 (multi-device)",
     "memory_budget": "A9 (out-of-core)",
-    "profile": "A10 (observability and quality)",
-    "quality": "A10 (observability and quality)",
 }
 
 
@@ -71,8 +71,23 @@ class EngineConfig:
       (``apply_delta_patch``) when it touches fewer than this share of the
       vertices, and rebuilds it (``apply_delta``) otherwise.  The same
       bytes either way.
-    memory_budget, exchange_every, mesh, profile, quality: accepted only
-      at their defaults (see ``UNPORTED``).
+    profile: per-fit convergence profile depth (``repro_torch.obs``).
+      ``"convergence"`` records the propagation phase's per-sub-sweep
+      frontier / changed counts, ``"full"`` the Split-Last phase too.  The
+      loops write them into a buffer on the device that comes down once
+      with the labels, so labels and iteration counts equal ``"off"``'s
+      and no host read enters a sweep loop.  Part of ``algo_key()``:
+      ``"off"`` keeps its own plans.  Results: ``DetectionResult.profile``.
+    quality: per-fit result-quality report (``repro_torch.obs.quality``)
+      on the final labels, after convergence.  ``"basic"`` is host-only:
+      community count, size summary, churn against the warm-start labels;
+      ``"full"`` adds the disconnected fraction (``check_connected``,
+      cached by fingerprint) and one modularity pass.  Not part of
+      ``algo_key()``: every mode shares the ``"off"`` plans.  Results:
+      ``DetectionResult.quality`` and the engine scope's ``quality.*``
+      metrics.
+    memory_budget, exchange_every, mesh: accepted only at their defaults
+      (see ``UNPORTED``).
     """
     backend: str = "auto"
     tau: float = 0.05
@@ -104,17 +119,15 @@ class EngineConfig:
             raise unported("exchange_every")
         if self.memory_budget is not None:
             raise unported("memory_budget")
-        if self.profile != "off":
-            raise unported("profile")
-        if self.quality != "off":
-            raise unported("quality")
         for name, value, allowed in (
                 ("backend", self.backend, BACKENDS),
                 ("split", self.split, SPLIT_METHODS),
                 ("bucketing", self.bucketing, BUCKETING),
                 ("fuse_sweeps", self.fuse_sweeps, FUSE_SWEEPS),
                 ("kernel_mode", self.kernel_mode, KERNEL_MODES),
-                ("warm_start", self.warm_start, WARM_START)):
+                ("warm_start", self.warm_start, WARM_START),
+                ("profile", self.profile, PROFILE),
+                ("quality", self.quality, QUALITY)):
             if value not in allowed:
                 raise ValueError(f"{name} must be one of {allowed}, "
                                  f"got {value!r}")
@@ -128,7 +141,7 @@ class EngineConfig:
     def algo_key(self) -> tuple:
         """The hashable algorithm statics a plan specialises on."""
         return (self.tau, self.max_iterations, self.split, self.shortcut,
-                self.kernel_mode, self.fuse_sweeps)
+                self.kernel_mode, self.fuse_sweeps, self.profile)
 
 
 @dataclasses.dataclass
@@ -153,6 +166,11 @@ class DetectionResult:
     # measurements.
     batch_size: int = 1
     batch_index: int = 0
+    # ``EngineConfig.profile != "off"``: a
+    # :class:`repro_torch.obs.ConvergenceProfile`; ``quality != "off"``: a
+    # :class:`repro_torch.obs.QualityReport`.  None otherwise.
+    profile: Any = dataclasses.field(default=None, compare=False)
+    quality: Any = dataclasses.field(default=None, compare=False)
     _connected_fp: Any = dataclasses.field(
         default=None, repr=False, compare=False)
 

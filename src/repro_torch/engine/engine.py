@@ -12,7 +12,8 @@
 ``fit`` buckets the graph, fetches (or builds) the backend's plan from the
 plan cache, runs the backend on the configured device, applies the host
 split when requested, compacts the labels on the host, and optionally
-attaches quality metrics.  ``fit_many`` packs k graphs into one disjoint
+attaches quality metrics, a convergence profile (``profile``) and a
+quality report (``quality``).  ``fit_many`` packs k graphs into one disjoint
 union and runs the backend's batched plan once; each member's result
 equals its solo ``fit``.
 
@@ -23,6 +24,15 @@ frontier).  With ``warm_start="auto"`` the engine keeps a bounded LRU of
 ``fit_many`` member, so a re-fit of a structurally identical graph starts
 warm; ``fit_many`` resolves its members against the cache as it stood
 before the dispatch, so members never warm-start off each other.
+
+Observability (``repro_torch.obs``): each engine claims an ``engine``
+registry scope (``fits``, ``batch_fits``, the warm cache's
+``warm_hits`` / ``warm_misses`` / ``warm_evictions`` / ``warm_entries``,
+and ``quality.*`` under ``quality != "off"``) and wraps its stages in the
+spans ``engine.fit`` / ``engine.fit_many``, ``engine.prepare``,
+``engine.dispatch``, ``engine.split_host``, ``engine.compact`` and
+``engine.quality``.  The timed stages end with a device synchronize, so a
+span's length includes its device work.
 """
 from __future__ import annotations
 
@@ -46,6 +56,7 @@ from repro_torch.engine.registry import (
     device_sync,
     get_backend,
 )
+from repro_torch.obs import REGISTRY, span
 
 
 def resolve_device(device: str | torch.device | None) -> torch.device:
@@ -119,22 +130,27 @@ class _WarmCache:
     """Bounded LRU of ``graph_fingerprint -> last compacted labels``, the
     state of ``warm_start="auto"``.  One engine serves the micro-batcher's
     worker, client threads calling ``fit`` and ``stats()`` pollers at once,
-    so every access holds the lock.  ``hits`` / ``misses`` / ``evictions``
-    count lookups and LRU drops."""
+    so every access holds the lock.  Lookups and LRU drops count in the
+    registry ``scope`` (``warm_hits``, ``warm_misses``,
+    ``warm_evictions``; ``warm_entries`` is a gauge), which ``stats()``
+    reads back."""
 
-    def __init__(self, max_entries: int):
+    def __init__(self, max_entries: int, scope):
         self.max_entries = int(max_entries)
         self._entries: OrderedDict[tuple, np.ndarray] = OrderedDict()
         self._lock = threading.Lock()
-        self.hits = self.misses = self.evictions = 0
+        self._hits = scope.counter("warm_hits")
+        self._misses = scope.counter("warm_misses")
+        self._evictions = scope.counter("warm_evictions")
+        self._count = scope.gauge("warm_entries")
 
     def get(self, fp: tuple) -> np.ndarray | None:
         with self._lock:
             labels = self._entries.get(fp)
             if labels is None:
-                self.misses += 1
+                self._misses.inc()
             else:
-                self.hits += 1
+                self._hits.inc()
                 self._entries.move_to_end(fp)
             return labels
 
@@ -144,14 +160,16 @@ class _WarmCache:
             self._entries.move_to_end(fp)
             while len(self._entries) > self.max_entries:
                 self._entries.popitem(last=False)
-                self.evictions += 1
+                self._evictions.inc()
+            self._count.set(len(self._entries))
 
     def stats(self) -> dict:
         with self._lock:
             return {"warm_entries": len(self._entries),
                     "warm_capacity": self.max_entries,
-                    "warm_hits": self.hits, "warm_misses": self.misses,
-                    "warm_evictions": self.evictions}
+                    "warm_hits": self._hits.value,
+                    "warm_misses": self._misses.value,
+                    "warm_evictions": self._evictions.value}
 
 
 class Engine:
@@ -166,7 +184,13 @@ class Engine:
         self.config = config if config is not None else EngineConfig()
         self.device = resolve_device(self.config.device)
         self.cache = cache if cache is not None else GLOBAL_CACHE
-        self._warm = _WarmCache(self.config.warm_cache_size)
+        self._obs = REGISTRY.scope("engine")
+        self._warm = _WarmCache(self.config.warm_cache_size, self._obs)
+        self._m_fits = self._obs.counter("fits")
+        self._m_batch_fits = self._obs.counter("batch_fits")
+        # claimed here, so concurrent fits never race a lazy scope() call
+        self._q_obs = self._obs.scope("quality") \
+            if self.config.quality != "off" else None
 
     # --- warm-start resolution ---
 
@@ -286,58 +310,71 @@ class Engine:
     def _fit_many_packed(self, graphs, labels_r, active_r, warm_r,
                          name: str, be) -> list[DetectionResult]:
         cfg = self.config
-        t0 = time.perf_counter()
-        batch = GraphBatch.pack(graphs, device=self.device)
-        bucket = batch_bucket_for(batch, bucketing=cfg.bucketing,
-                                  min_vertex_bucket=cfg.min_vertex_bucket,
-                                  min_edge_bucket=cfg.min_edge_bucket)
-        key = (name, "batch", bucket, cfg.bucketing, cfg.algo_key(),
-               be.plan_key(cfg), str(self.device))
-        plan, cache_hit = self.cache.get_or_build(
-            key, lambda: be.build_batch(bucket, cfg, self.device))
-        inputs = be.prepare_batch(batch, bucket, cfg)
-        # a solo graph's vertex ids are its local ids, so per-member warm
-        # labels pack as they are
-        labels0 = batch.pack_labels(labels_r)
-        active0 = batch.pack_active(active_r)
-        device_sync(self.device)
-        t_prep = time.perf_counter() - t0
-
-        run = be.run_batch(plan, inputs, labels0, active0)
-
-        # One dispatch serves every member, so per-member stage seconds
-        # are not measurable: each member carries its share of the packed
-        # work (vertices + edges) of the batch's times.
-        work = (batch.sizes + batch.edge_counts).astype(np.float64)
-        weights = work / work.sum() if work.sum() > 0 \
-            else np.full(len(graphs), 1.0 / len(graphs))
-        results = []
-        for i, graph in enumerate(graphs):
-            lo, hi = int(batch.offsets[i]), int(batch.offsets[i + 1])
-            labels = run.labels[lo:hi]
-            w = float(weights[i])
+        with span("engine.fit_many", backend=name, k=len(graphs)):
             t0 = time.perf_counter()
-            split_host = 0.0
-            if cfg.split == "bfs_host":
-                labels = split_bfs_host(graph, labels)
-                split_host = time.perf_counter() - t0
-            t0 = time.perf_counter()
-            labels, k = _compact_host(labels)
-            t_compact = time.perf_counter() - t0
-            result = DetectionResult(
-                labels=labels, num_communities=k, backend=name,
-                lpa_iterations=int(run.lpa_iterations[i]),
-                split_iterations=int(run.split_iterations[i]),
-                timings={"prorated_prepare": t_prep * w,
-                         "prorated_propagation": run.lpa_seconds * w,
-                         "prorated_split": run.split_seconds * w,
-                         "split": split_host, "compact": t_compact},
-                bucket=tuple(bucket), cache_hit=cache_hit,
-                warm_started=warm_r[i], device=str(self.device),
-                batch_size=len(graphs), batch_index=i)
-            if cfg.compute_metrics:
-                self._attach_metrics(result, graph.to(self.device))
-            results.append(result)
+            with span("engine.prepare"):
+                batch = GraphBatch.pack(graphs, device=self.device)
+                bucket = batch_bucket_for(
+                    batch, bucketing=cfg.bucketing,
+                    min_vertex_bucket=cfg.min_vertex_bucket,
+                    min_edge_bucket=cfg.min_edge_bucket)
+                key = (name, "batch", bucket, cfg.bucketing, cfg.algo_key(),
+                       be.plan_key(cfg), str(self.device))
+                plan, cache_hit = self.cache.get_or_build(
+                    key, lambda: be.build_batch(bucket, cfg, self.device))
+                inputs = be.prepare_batch(batch, bucket, cfg)
+                # a solo graph's vertex ids are its local ids, so
+                # per-member warm labels pack as they are
+                labels0 = batch.pack_labels(labels_r)
+                active0 = batch.pack_active(active_r)
+                device_sync(self.device)
+            t_prep = time.perf_counter() - t0
+
+            with span("engine.dispatch"):
+                run = be.run_batch(plan, inputs, labels0, active0)
+
+            # One dispatch serves every member, so per-member stage
+            # seconds are not measurable: each member carries its share of
+            # the packed work (vertices + edges) of the batch's times.
+            work = (batch.sizes + batch.edge_counts).astype(np.float64)
+            weights = work / work.sum() if work.sum() > 0 \
+                else np.full(len(graphs), 1.0 / len(graphs))
+            results = []
+            for i, graph in enumerate(graphs):
+                lo, hi = int(batch.offsets[i]), int(batch.offsets[i + 1])
+                labels = run.labels[lo:hi]
+                w = float(weights[i])
+                t0 = time.perf_counter()
+                split_host = 0.0
+                if cfg.split == "bfs_host":
+                    with span("engine.split_host"):
+                        labels = split_bfs_host(graph, labels)
+                    split_host = time.perf_counter() - t0
+                t0 = time.perf_counter()
+                with span("engine.compact"):
+                    labels, k = _compact_host(labels)
+                t_compact = time.perf_counter() - t0
+                result = DetectionResult(
+                    labels=labels, num_communities=k, backend=name,
+                    lpa_iterations=int(run.lpa_iterations[i]),
+                    split_iterations=int(run.split_iterations[i]),
+                    timings={"prorated_prepare": t_prep * w,
+                             "prorated_propagation": run.lpa_seconds * w,
+                             "prorated_split": run.split_seconds * w,
+                             "split": split_host, "compact": t_compact},
+                    bucket=tuple(bucket), cache_hit=cache_hit,
+                    warm_started=warm_r[i], device=str(self.device),
+                    batch_size=len(graphs), batch_index=i,
+                    profile=run.profile[i] if run.profile else None)
+                if cfg.compute_metrics or cfg.quality == "full":
+                    graph = graph.to(self.device)
+                if cfg.compute_metrics:
+                    self._attach_metrics(result, graph)
+                if cfg.quality != "off":
+                    self._attach_quality(result, graph, labels_r[i])
+                results.append(result)
+        self._m_batch_fits.inc()
+        self._m_fits.inc(len(graphs))
         return results
 
     def _fit_resolved(self, graph: Graph, init_labels, init_active,
@@ -354,27 +391,34 @@ class Engine:
                             min_edge_bucket=cfg.min_edge_bucket)
         key = (name, bucket, cfg.bucketing, cfg.algo_key(),
                be.plan_key(cfg), str(self.device))
-        plan, cache_hit = self.cache.get_or_build(
-            key, lambda: be.build(bucket, cfg, self.device))
+        with span("engine.fit", backend=name, n=graph.n):
+            plan, cache_hit = self.cache.get_or_build(
+                key, lambda: be.build(bucket, cfg, self.device))
 
-        t0 = time.perf_counter()
-        inputs = be.prepare(graph, bucket, cfg)
-        device_sync(self.device)
-        t_prep = time.perf_counter() - t0
-
-        run = be.run(plan, inputs, graph.n, init_labels, init_active)
-        labels = np.asarray(run.labels)[: graph.n]
-
-        split_seconds = run.split_seconds
-        if cfg.split == "bfs_host":
             t0 = time.perf_counter()
-            labels = split_bfs_host(graph, labels)
-            split_seconds += time.perf_counter() - t0
+            with span("engine.prepare"):
+                inputs = be.prepare(graph, bucket, cfg)
+                device_sync(self.device)
+            t_prep = time.perf_counter() - t0
 
-        t0 = time.perf_counter()
-        labels, k = _compact_host(labels)
-        t_compact = time.perf_counter() - t0
+            with span("engine.dispatch"):
+                run = be.run(plan, inputs, graph.n, init_labels,
+                             init_active)
+            labels = np.asarray(run.labels)[: graph.n]
 
+            split_seconds = run.split_seconds
+            if cfg.split == "bfs_host":
+                t0 = time.perf_counter()
+                with span("engine.split_host"):
+                    labels = split_bfs_host(graph, labels)
+                split_seconds += time.perf_counter() - t0
+
+            t0 = time.perf_counter()
+            with span("engine.compact"):
+                labels, k = _compact_host(labels)
+            t_compact = time.perf_counter() - t0
+
+        self._m_fits.inc()
         result = DetectionResult(
             labels=labels, num_communities=k, backend=name,
             lpa_iterations=run.lpa_iterations,
@@ -382,9 +426,12 @@ class Engine:
             timings={"prepare": t_prep, "propagation": run.lpa_seconds,
                      "split": split_seconds, "compact": t_compact},
             bucket=tuple(bucket), cache_hit=cache_hit,
-            warm_started=warm_started, device=str(self.device))
+            warm_started=warm_started, device=str(self.device),
+            profile=run.profile)
         if cfg.compute_metrics:
             self._attach_metrics(result, graph)
+        if cfg.quality != "off":
+            self._attach_quality(result, graph, init_labels)
         return result
 
     def _attach_metrics(self, result: DetectionResult, graph: Graph) -> None:
@@ -392,6 +439,32 @@ class Engine:
         labels = torch.from_numpy(result.labels).to(graph.device)
         result.modularity = float(modularity(graph, labels))
         result.check_connected(graph)
+
+    def _attach_quality(self, result: DetectionResult, graph: Graph,
+                        prev_labels) -> None:
+        """The quality report of a fit (``EngineConfig.quality``), on its
+        final labels after convergence.  ``prev_labels``: the resolved
+        warm-start labels, the churn baseline (None on a cold fit).
+
+        ``"basic"`` is host-only (sizes, count, churn); ``"full"`` adds
+        ``check_connected`` (cached by fingerprint) and one modularity
+        pass on the graph's device, unless ``compute_metrics`` paid them.
+        """
+        from repro_torch.obs.quality import compute_quality, record_report
+        mode = self.config.quality
+        with span("engine.quality", mode=mode):
+            full = mode == "full"
+            if full:
+                result.check_connected(graph)
+            result.quality = compute_quality(
+                result.labels, mode=mode, graph=graph if full else None,
+                prev_labels=prev_labels,
+                num_communities=result.num_communities,
+                modularity=result.modularity,
+                disconnected_fraction=result.disconnected_fraction)
+            if result.modularity is None:
+                result.modularity = result.quality.modularity
+            record_report(self._q_obs, result.quality)
 
     def stats(self) -> dict:
         """Plan-cache observability (plans, hits, misses, builds per stage)

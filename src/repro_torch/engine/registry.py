@@ -18,7 +18,7 @@ per-member solo warm runs would.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Protocol
+from typing import Any, NamedTuple, Protocol
 
 import numpy as np
 import torch
@@ -41,6 +41,7 @@ class BackendRun(NamedTuple):
     split_iterations: int
     lpa_seconds: float
     split_seconds: float
+    profile: Any = None       # ConvergenceProfile when profiling
 
 
 class BatchBackendRun(NamedTuple):
@@ -50,6 +51,7 @@ class BatchBackendRun(NamedTuple):
     split_iterations: np.ndarray  # (k_bucket + 1,) int32 per slot
     lpa_seconds: float
     split_seconds: float
+    profile: Any = None           # one ConvergenceProfile per slot
 
 
 class BatchIndex(NamedTuple):
@@ -113,17 +115,31 @@ def batch_index(batch, k_bucket: int, rows: int,
                       voffset_host=voffset, n_total=batch.total_vertices)
 
 
-def to_host(values: torch.Tensor, n: int) -> np.ndarray:
-    """The first ``n`` entries of a 1-D tensor as a numpy array: from CUDA
-    sliced on the device, copied into pinned memory, then one
-    synchronize."""
-    values = values[:n]
-    if values.device.type != "cuda":
-        return values.numpy()
-    host = torch.empty(values.shape, dtype=values.dtype, pin_memory=True)
-    host.copy_(values, non_blocking=True)
-    torch.cuda.current_stream(values.device).synchronize()
-    return host.numpy()
+def to_host(values: torch.Tensor, n: int,
+            *buffers: torch.Tensor | None) -> tuple:
+    """The first ``n`` entries of a 1-D tensor, and each of ``buffers``
+    whole (profile buffers; None passes through), as numpy arrays: from
+    CUDA each is copied into pinned memory, then one synchronize."""
+    out = []
+    for t in (values[:n], *buffers):
+        if t is not None and t.device.type == "cuda":
+            host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            host.copy_(t, non_blocking=True)
+            t = host
+        out.append(t)
+    if values.device.type == "cuda":
+        torch.cuda.current_stream(values.device).synchronize()
+    return tuple(None if t is None else t.numpy() for t in out)
+
+
+def profile_plan(config: EngineConfig, do_split: bool) -> dict:
+    """A plan's profile statics: ``profile`` (propagation records) and
+    ``split_rows``, the split buffer's rows (0: the split records
+    nothing; ``profile="full"`` with a split gives ``2 * max_iterations``,
+    and a longer split overwrites the last row)."""
+    full = config.profile == "full" and do_split
+    return {"profile": config.profile != "off",
+            "split_rows": 2 * config.max_iterations if full else 0}
 
 
 _BACKENDS: dict[str, Backend] = {}

@@ -13,6 +13,12 @@ dispatch.  Every submission resolves to the same per-graph
         subs = [mb.submit(g) for g in graphs]
         results = [s.result(timeout=60) for s in subs]
     print(mb.stats())   # batch-size histogram, p50/p95 latency
+
+Each batcher writes through to a ``batcher`` registry scope
+(``requests``, ``batches``, the ``batch_size`` and ``latency_ms``
+histograms; ``repro_torch.obs``), released when it closes, and wraps each
+dispatch and settlement in the spans ``batch.dispatch`` and
+``batch.settle``.
 """
 from __future__ import annotations
 
@@ -23,6 +29,12 @@ from collections import Counter
 from concurrent.futures import Future
 
 import numpy as np
+
+from repro_torch.obs import REGISTRY, span
+
+# Histogram bucket bounds (cumulative upper edges, Prometheus-style).
+_BATCH_BUCKETS = (1, 2, 4, 8, 16, 32, 64)
+_LATENCY_MS_BUCKETS = (0.5, 1, 2, 5, 10, 25, 50, 100, 250, 1000, 5000)
 
 
 class Submission:
@@ -62,6 +74,8 @@ class MicroBatcher:
     autostart: start the worker thread at once.  ``autostart=False`` lets
       callers enqueue a burst first and then :meth:`start`, which makes the
       batches deterministic.
+    The batcher claims a ``batcher`` registry scope, released by
+    :meth:`close` once the worker has stopped.
     """
 
     def __init__(self, engine, max_batch: int = 8,
@@ -75,6 +89,12 @@ class MicroBatcher:
         self.backend = backend
         self.batch_sizes: list[int] = []   # one entry per dispatched batch
         self._latencies: list[float] = []  # one entry per completed request
+        self._obs = REGISTRY.scope("batcher")
+        self._m_requests = self._obs.counter("requests")
+        self._m_batches = self._obs.counter("batches")
+        self._h_batch = self._obs.histogram("batch_size", _BATCH_BUCKETS)
+        self._h_latency = self._obs.histogram("latency_ms",
+                                              _LATENCY_MS_BUCKETS)
         self._q: "queue.Queue[Submission | None]" = queue.Queue()
         self._lock = threading.Lock()  # orders submits against the sentinel
         self._closed = False
@@ -96,7 +116,8 @@ class MicroBatcher:
 
     def close(self, wait: bool = True, timeout: float | None = None) -> None:
         """Stop accepting requests; drain the queue, then stop the worker
-        (waiting at most ``timeout`` seconds for it when ``wait``)."""
+        (waiting at most ``timeout`` seconds for it when ``wait``).  The
+        registry scope is released once the worker has stopped."""
         with self._lock:
             first = not self._closed
             if first:
@@ -106,6 +127,8 @@ class MicroBatcher:
             self.start()
         if wait and self._started:
             self._thread.join(timeout)
+            if not self._thread.is_alive():
+                self._obs.release()
 
     def __enter__(self) -> "MicroBatcher":
         return self.start()
@@ -130,6 +153,7 @@ class MicroBatcher:
             if self._closed:
                 raise RuntimeError("MicroBatcher is closed")
             self._q.put(sub)
+        self._m_requests.inc()
         return sub
 
     # --- worker ---
@@ -193,21 +217,29 @@ class MicroBatcher:
                 kwargs["init_labels"] = [s.init_labels for s in batch]
             if any(s.init_active is not None for s in batch):
                 kwargs["init_active"] = [s.init_active for s in batch]
-            results = self.engine.fit_many([s.graph for s in batch],
-                                           backend=self.backend, **kwargs)
+            with span("batch.dispatch", size=len(batch)):
+                results = self.engine.fit_many([s.graph for s in batch],
+                                               backend=self.backend,
+                                               **kwargs)
         except BaseException as e:  # propagate to every waiter
             for s in batch:
                 s._future.set_exception(e)
             return
         now = time.perf_counter()
-        with self._lock:
-            self.batch_sizes.append(len(batch))
-            for s in batch:
-                s.latency_s = now - s.submitted
-                s.batch_size = len(batch)
-                self._latencies.append(s.latency_s)
-        for s, res in zip(batch, results):
-            s._future.set_result(res)
+        # settlement under its own span, so the latency histogram's
+        # exemplars carry a span id
+        with span("batch.settle", size=len(batch)):
+            with self._lock:
+                self.batch_sizes.append(len(batch))
+                for s in batch:
+                    s.latency_s = now - s.submitted
+                    s.batch_size = len(batch)
+                    self._latencies.append(s.latency_s)
+            self._m_batches.inc()
+            self._h_batch.observe(len(batch))
+            for s, res in zip(batch, results):
+                self._h_latency.observe(s.latency_s * 1e3)
+                s._future.set_result(res)
 
     # --- observability ---
 

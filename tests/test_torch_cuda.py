@@ -388,12 +388,76 @@ def test_cuda_fit_of_a_graph_file_matches_cpu(tmp_path, monkeypatch):
     assert eng.fit(str(path)).warm_started
 
 
+def _same_profile(a, b) -> bool:
+    phases = [(a.propagation, b.propagation), (a.split, b.split)]
+    return a.n == b.n and all(
+        (x is None) == (y is None) and (x is None or all(
+            np.array_equal(getattr(x, f), getattr(y, f))
+            for f in ("sweep", "active", "changed")))
+        for x, y in phases)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("split", ["none", "lp", "lpp"])
+@pytest.mark.parametrize("backend,fuse", [("tile", "on"), ("tile", "off"),
+                                          ("segment", "auto")])
+def test_cuda_profiled_fit_equals_unprofiled_fit(backend, fuse, split):
+    """profile="full" on the card, the hand kernels in the loop: the labels
+    and both iteration counts of the unprofiled fit, solo and batched."""
+    need_card()
+    graphs = [graphgen.karate_club()[0],
+              graphgen.erdos_renyi(180, 5.0, seed=11),
+              graphgen.figure1_graph()[0], graphgen.grid2d(20)]
+    cfg = dict(backend=backend, fuse_sweeps=fuse, split=split)
+    ops.reset_launches()
+    prof = Engine(EngineConfig(profile="full", **cfg), cache=PlanCache())
+    base = Engine(EngineConfig(**cfg), cache=PlanCache())
+    got_many = prof.fit_many(graphs)
+    want_many = base.fit_many(graphs)
+    for i, g in enumerate(graphs):
+        got, want = prof.fit(g), base.fit(g)
+        for a, b in ((got, want), (got_many[i], want_many[i])):
+            assert np.array_equal(a.labels, b.labels), i
+            assert (a.lpa_iterations, a.split_iterations) == \
+                (b.lpa_iterations, b.split_iterations), i
+            assert b.profile is None
+            assert a.profile.propagation.num_sub_sweeps \
+                == 2 * a.lpa_iterations
+        assert _same_profile(got.profile, got_many[i].profile), i
+    if backend == "tile":
+        assert ops.LAUNCHES["fused_move" if fuse == "on"
+                            else "label_argmax"] > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("split", ["lp", "lpp"])
+@pytest.mark.parametrize("backend,fuse", [("tile", "on"), ("tile", "off"),
+                                          ("segment", "auto")])
+def test_cuda_profile_equals_cpu_profile(backend, fuse, split):
+    """The card's convergence curves equal the CPU's on the same graphs
+    and the same backend, solo and batched."""
+    need_card()
+    graphs = [graphgen.planted_partition(6, 30, 0.3, 0.01, seed=3)[0],
+              graphgen.erdos_renyi(300, 6.0, seed=2), graphgen.grid2d(24)]
+    cfg = dict(backend=backend, fuse_sweeps=fuse, split=split,
+               profile="full")
+    card = Engine(EngineConfig(**cfg), cache=PlanCache())
+    host = Engine(EngineConfig(device="cpu", **cfg), cache=PlanCache())
+    many_card, many_host = card.fit_many(graphs), host.fit_many(graphs)
+    for i, g in enumerate(graphs):
+        a, b = card.fit(g), host.fit(g)
+        assert a.device.startswith("cuda") and b.device == "cpu"
+        assert _same_profile(a.profile, b.profile), i
+        assert _same_profile(many_card[i].profile, many_host[i].profile), i
+
+
 def test_port_import_pulls_in_no_jax():
     """Importing the whole port loads neither JAX nor the JAX package."""
     code = ("import sys; import repro_torch.engine, repro_torch.core, "
             "repro_torch.kernels.ops, repro_torch.graphgen, "
             "repro_torch.models.attention, repro_torch.io, "
-            "repro_torch.launch.stream, repro_torch.launch.ingest; "
+            "repro_torch.launch.stream, repro_torch.launch.ingest, "
+            "repro_torch.obs, repro_torch.launch.obs; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]; assert not bad, bad")
     subprocess.run([sys.executable, "-c", code], check=True, timeout=120,

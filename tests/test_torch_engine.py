@@ -207,9 +207,19 @@ def test_default_device_is_cuda():
 @pytest.mark.parametrize("kw,item", [
     (dict(backend="sharded"), "A12"), (dict(mesh=object()), "A12"),
     (dict(exchange_every=2), "A12"), (dict(memory_budget=1 << 20), "A9"),
-    (dict(memory_budget="64MB"), "A9"), (dict(profile="convergence"), "A10"),
-    (dict(quality="basic"), "A10")])
+    (dict(memory_budget="64MB"), "A9"), (dict(profile="everything"), "A10"),
+    (dict(quality="x"), "A10")])
 def test_unported_options_raise(kw, item):
+    if item == "A10":
+        # ported: every mode the reference takes is valid, others raise
+        (option, bad), = kw.items()
+        with pytest.raises(ValueError, match=option):
+            EngineConfig(device="cpu", **kw)
+        for mode in ("off", "convergence", "full") if option == "profile" \
+                else ("off", "basic", "full"):
+            assert getattr(EngineConfig(device="cpu", **{option: mode}),
+                           option) == mode
+        return
     with pytest.raises(NotImplementedError, match=item):
         EngineConfig(device="cpu", **kw)
 
