@@ -98,6 +98,25 @@ Phases, one JSON line each:
            equal to grid2d(2000) with its fingerprint; Engine().fit(path)
            equals Engine().fit(grid2d(2000)), and a second fit(path) under
            warm_start="auto" is warm through the stored fingerprint.
+  ooc      out-of-core fits (needs main, ingest).  grid2d(3500) under a
+           budget of 3/4 of its in-core edge bytes (13 B per slot):
+           Engine.fit(g, memory_budget=B), tile fused and unfused (launch
+           counts reset just before, read just after each), 4 to 16
+           partitions, labels and both iteration counts equal to main's,
+           no disconnected community, the ledger's peak within B, B3 / B4
+           (fused) or B1 / B2 (unfused) launched once per partition visit;
+           the fused fit again with prefetch off and profile="full": the
+           prefetched fit's labels and an in-core profiled fit's
+           propagation curve; a real-weight segment fit
+           (weighted_planted_partition(40, 500, 0.05, 0.001, seed=3))
+           out of core against in core; the ingest phase's file through
+           python -m repro_torch.launch.ingest --ooc (subprocess) and
+           Engine().fit(path, memory_budget=...) reading windows only, both
+           equal to the in-core fit(path).  Each fit's line: partitions,
+           budget, peak, loads, prefetch and halo-cache hits, bytes saved,
+           exchange bytes, plan / propagation / split / compact seconds,
+           the wait on window loads, wall beside the in-core
+           wall (main's cold fits; the road fits also beside a warm one).
   timing   the four LPA kernels (CUDA events) beside their plain versions
            and bounds, at the main fit's D=4 tiles, the ER graph's D=64
            tiles and planted_partition(128, 1024, 0.3, 0.001)'s D=512
@@ -156,11 +175,12 @@ PLANTED_GRAPH = "planted_partition(128, 1024, 0.3, 0.001, seed=0)"
 SKEW_GRAPH = "rmat(20, 16, seed=0)"
 PHASES = ("kernels", "parity", "c1", "main", "wide_fit", "dense",
           "skew_fit", "batch", "obs", "microbatch", "stream", "ingest",
-          "timing", "trace", "flash")
+          "ooc", "timing", "trace", "flash")
 # phase -> the phases whose graphs and fits it reuses
 NEEDS = {"timing": ("main", "wide_fit"), "trace": ("main",),
          "dense": ("wide_fit",), "microbatch": ("batch",),
-         "stream": ("main",), "obs": ("main", "batch")}
+         "stream": ("main",), "obs": ("main", "batch"),
+         "ooc": ("main", "ingest")}
 # The obs phase's traffic-A members held against their solo fits.
 OBS_MEMBERS = (0, 15, 31)
 # The stream phase's road edits of the main graph, grid2d(ROAD_SIDE).
@@ -1247,19 +1267,19 @@ def _mapped_ranges(path: Path) -> list[tuple[int, int]]:
     return out
 
 
-def phase_ingest(torch, dev):
-    """grid2d(2000) written as MatrixMarket, ingested by the CLI in a
-    subprocess (--stats --detect, on the card), then loaded in process
-    twice (parse, store hit) and fitted from its path, cold and warm."""
+def phase_ingest(torch, dev, tmp: Path):
+    """grid2d(2000) written as MatrixMarket into ``tmp``, ingested by the
+    CLI in a subprocess (--stats --detect, on the card), then loaded in
+    process twice (parse, store hit) and fitted from its path, cold and
+    warm.  Returns the file, the in-core fit(path), its wall and the
+    phase's line (the ooc phase reuses the file, the fit and the store in
+    ``tmp``)."""
     import os
-    import shutil
-    import tempfile
 
     from repro_torch.core.delta import undirected_edges
     from repro_torch.engine import Engine, EngineConfig, PlanCache
     from repro_torch.graphgen import grid2d
     from repro_torch.io import load_graph, write_mtx
-    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_ingest_"))
     old_store = os.environ.get("REPRO_GRAPH_CACHE")
     try:
         g = grid2d(INGEST_SIDE)
@@ -1310,7 +1330,7 @@ def phase_ingest(torch, dev):
         check(not a.warm_started and b.warm_started
               and _same_fit(b, warm_want), "ingest: the second fit(path) "
               "was not warm through the stored fingerprint")
-        return {
+        return path, got, got_wall, {
             "graph": f"grid2d({INGEST_SIDE})", "n": g.n,
             "undirected_edges": g.num_edges // 2,
             "file_bytes": path.stat().st_size, "write_s": write_s,
@@ -1331,11 +1351,214 @@ def phase_ingest(torch, dev):
             "warm_second_fit": {"lpa_iterations": b.lpa_iterations,
                                 "timings_s": b.timings}}
     finally:
-        if old_store is None:
-            os.environ.pop("REPRO_GRAPH_CACHE", None)
-        else:
-            os.environ["REPRO_GRAPH_CACHE"] = old_store
-        shutil.rmtree(tmp, ignore_errors=True)
+        _restore_env("REPRO_GRAPH_CACHE", old_store)
+
+
+def _restore_env(name: str, value: str | None) -> None:
+    import os
+    if value is None:
+        os.environ.pop(name, None)
+    else:
+        os.environ[name] = value
+
+
+# ---------------------------------------------------------------- ooc
+
+def _ooc_line(res, wall, launches, incore_wall):
+    """The printed line of one out-of-core fit."""
+    o = res.ooc
+    return {"partitions": res.partitions, "budget": o["budget"],
+            "peak_resident_bytes": o["peak_resident_bytes"],
+            "partition_loads": o["partition_loads"],
+            "prefetches": o["prefetches"],
+            "prefetch_hits": o["prefetch_hits"],
+            "halo_cache_hits": o["halo_cache_hits"],
+            "halo_cache_bytes_saved": o["halo_cache_bytes_saved"],
+            "exchange_bytes": o["exchange_bytes"],
+            "halo_vertices": o["halo_vertices"],
+            "plan_s": res.timings["prepare"],
+            "propagation_s": res.timings["propagation"],
+            "split_s": res.timings["split"],
+            "compact_s": res.timings["compact"],
+            "load_wait_s": o["load_wait_seconds"], "wall_s": wall,
+            "in_core_wall_s": incore_wall,
+            "wall_over_in_core": wall / incore_wall,
+            "lpa_iterations": res.lpa_iterations,
+            "split_iterations": res.split_iterations,
+            "communities": res.num_communities,
+            "launches": launches}
+
+
+def _ooc_launch_check(launches, res, fused: bool) -> None:
+    """One launch of the move and of the split kernel per partition visit,
+    none of the other pair."""
+    move, split = (("fused_move", "fused_split") if fused
+                   else ("label_argmax", "min_label"))
+    other = set(LPA_KERNELS) - {move, split}
+    p = res.partitions
+    check(launches[move] == p * 2 * res.lpa_iterations
+          and launches[split] == p * res.split_iterations
+          and not any(launches[k] for k in other),
+          f"ooc: launches {launches} are not one {move} per partition "
+          f"visit ({p} x {2 * res.lpa_iterations}) and one {split} per "
+          f"split visit ({p} x {res.split_iterations})")
+
+
+def phase_ooc(torch, rt, dev, g, main_fused, main_res, path, path_fit,
+              path_wall, tmp: Path):
+    """Out-of-core fits on the card (A9).
+
+    (a) grid2d(3500) under a budget of 3/4 of its in-core edge bytes
+    (13 B per slot), tile fused and unfused, launch counts reset just
+    before and read just after each: equal to main's in-core fits (labels,
+    both iteration counts), no disconnected community, peak within the
+    budget, B3 / B4 (fused) or B1 / B2 (unfused) once per partition visit.
+    (b) The fused fit again with the prefetch worker off and
+    profile="full": the labels of (a)'s fused fit (prefetch on), and the
+    propagation curve of an in-core profiled fused fit.  (c) A real-weight
+    segment fit out of core against the in-core segment fit.  (d) The
+    ingest phase's file: the CLI with --ooc in a subprocess, and
+    Engine().fit(path, memory_budget=...) in process with
+    EntryHandle.to_graph disabled (windows only), both equal to the
+    in-core fit(path).
+    """
+    import os
+
+    from repro_torch.engine import Engine, EngineConfig, PlanCache
+    from repro_torch.graphgen import weighted_planted_partition
+    from repro_torch.io.store import EntryHandle
+    from repro_torch.partition.ooc import (
+        IN_CORE_EDGE_BYTES,
+        fit_out_of_core,
+        open_source,
+    )
+    g_host = g.to("cpu")
+    in_core = g.m_pad * IN_CORE_EDGE_BYTES
+    budget = in_core * 3 // 4
+    # in-core walls with plans built, beside main's cold ones
+    warm = {}
+    for name, fuse in (("fused", "auto"), ("unfused", "off")):
+        eng = Engine(EngineConfig(backend="tile", split="lp",
+                                  fuse_sweeps=fuse), cache=PlanCache())
+        eng.fit(g)
+        warm[name] = _wall(torch, lambda: eng.fit(g))[1]
+    lines = {"in_core_warm_wall_s": warm}
+
+    def road_fit(fuse):
+        eng = Engine(EngineConfig(backend="tile", split="lp",
+                                  fuse_sweeps=fuse), cache=PlanCache())
+        return _launched(torch, rt, lambda: eng.fit(
+            g_host, memory_budget=budget))
+
+    for fuse in ("auto", "off"):
+        res, wall, launches = road_fit(fuse)
+        name = "fused" if fuse == "auto" else "unfused"
+        # main's fused and unfused in-core fits are equal (phase main)
+        check(_same_fit(res, main_fused), f"ooc: the {name} road fit != "
+              f"main's in-core fit")
+        check(4 <= res.partitions <= 16, f"ooc: {res.partitions} "
+              f"partitions, not 4 to 16")
+        check(res.ooc["peak_resident_bytes"] <= budget,
+              f"ooc: peak {res.ooc['peak_resident_bytes']} > {budget}")
+        check(res.device.startswith("cuda"), "ooc: not on the card")
+        _ooc_launch_check(launches, res, fused=fuse == "auto")
+        lines[name] = {**_ooc_line(res, wall, launches,
+                                   main_res[name]["wall_s"]),
+                       "wall_over_in_core_warm": wall / warm[name]}
+        if fuse == "auto":
+            fused = res
+    frac = fused.check_connected(g)
+    check(frac == 0.0, f"ooc: disconnected fraction {frac}")
+
+    # prefetch off + profiled: fused's labels, the in-core curve
+    cfg = EngineConfig(backend="tile", split="lp", profile="full")
+    run, wall, launches = _launched(torch, rt, lambda: fit_out_of_core(
+        open_source(g_host), cfg, memory_budget=budget, prefetch=False))
+    labels = np.unique(run.labels, return_inverse=True)[1]
+    check(np.array_equal(labels, fused.labels)
+          and (run.lpa_iterations, run.split_iterations)
+          == (fused.lpa_iterations, fused.split_iterations)
+          and run.prefetches == 0, "ooc: prefetch off != prefetch on")
+    check(run.peak_resident_bytes <= budget, "ooc: peak over the budget")
+    incore_prof = Engine(cfg, cache=PlanCache()).fit(g)
+    check(_same_phase(run.profile.propagation,
+                      incore_prof.profile.propagation),
+          "ooc: the profiled propagation curve != the in-core curve")
+    lines["fused_prefetch_off_profiled"] = {
+        "partitions": run.num_partitions, "wall_s": wall,
+        "plan_s": run.plan_seconds, "propagation_s": run.lpa_seconds,
+        "split_s": run.split_seconds, "prefetches": run.prefetches,
+        "load_wait_s": run.load_wait_seconds,
+        "peak_resident_bytes": run.peak_resident_bytes,
+        "partition_loads": run.partition_loads,
+        "halo_cache_hits": run.halo_cache_hits, "launches": launches,
+        "propagation_rows": run.profile.propagation.num_sub_sweeps}
+    del g_host, run, labels
+
+    # the segment path, real weights
+    gw = weighted_planted_partition(40, 500, 0.05, 0.001, seed=3)
+    seg = Engine(EngineConfig(backend="segment", split="lp"),
+                 cache=PlanCache())
+    want, want_wall = _wall(torch, lambda: seg.fit(gw))
+    seg_budget = gw.m_pad * IN_CORE_EDGE_BYTES // 3
+    res, wall = _wall(torch, lambda: seg.fit(gw, memory_budget=seg_budget))
+    check(res.partitions > 1 and _same_fit(res, want)
+          and res.backend == "segment", "ooc: the segment fit != in core")
+    lines["segment"] = {"graph": "weighted_planted_partition(40, 500, "
+                        "0.05, 0.001, seed=3)", "n": gw.n,
+                        **_ooc_line(res, wall, {}, want_wall)}
+
+    # from the store: the CLI and fit(path), windows only
+    old_store = os.environ.get("REPRO_GRAPH_CACHE")
+    os.environ["REPRO_GRAPH_CACHE"] = str(tmp / "store")
+    try:
+        src = open_source(str(path))
+        path_fit_budget = src.m_pad * IN_CORE_EDGE_BYTES * 3 // 4
+        handle_budget = str(path_fit_budget)
+        report = tmp / "ooc_report.json"
+        env = {**os.environ,
+               "PYTHONPATH": str(Path(__file__).resolve().parent / "src")}
+        t0 = time.perf_counter()
+        cli = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.ingest", str(path),
+             "--ooc", "--memory-budget", handle_budget, "--json",
+             str(report)], capture_output=True, text=True, env=env,
+            timeout=600)
+        cli_s = time.perf_counter() - t0
+        check(cli.returncode == 0, f"ingest --ooc exited {cli.returncode}: "
+              f"{cli.stderr[-2000:]}")
+        rep = json.loads(report.read_text())[0]["ooc"]
+        check(rep["partitions"] > 1
+              and rep["peak_resident_bytes"] <= path_fit_budget
+              and rep["communities"] == path_fit.num_communities
+              and (rep["lpa_iterations"], rep["split_iterations"])
+              == (path_fit.lpa_iterations, path_fit.split_iterations),
+              f"ingest --ooc != the in-core fit(path): {rep}")
+        to_graph = EntryHandle.to_graph
+
+        def windows_only(self):
+            raise AssertionError("the out-of-core path built the graph")
+
+        EntryHandle.to_graph = windows_only
+        try:
+            res, wall = _wall(torch, lambda: Engine(cache=PlanCache()).fit(
+                str(path), memory_budget=path_fit_budget))
+        finally:
+            EntryHandle.to_graph = to_graph
+        check(res.partitions > 1 and _same_fit(res, path_fit),
+              "ooc: fit(path) out of core != the in-core fit(path)")
+    finally:
+        _restore_env("REPRO_GRAPH_CACHE", old_store)
+    lines["store"] = {
+        "graph": f"grid2d({INGEST_SIDE}) from its .mtx store entry",
+        "cli_s": cli_s, "cli_stdout": cli.stdout.splitlines()[-2:],
+        "cli_report": {k: rep[k] for k in (
+            "backend", "partitions", "budget", "peak_resident_bytes",
+            "partition_loads", "prefetch_hits", "plan_seconds",
+            "lpa_seconds", "split_seconds")},
+        **_ooc_line(res, wall, {}, path_wall)}
+    return {"graph": "grid2d(3500)", "in_core_edge_bytes": in_core,
+            "budget": budget, **lines}
 
 
 # ---------------------------------------------------------------- timing
@@ -1839,9 +2062,9 @@ def main(argv=None) -> int:
     if "c1" in run:
         emit({"phase": "c1", **phase_c1(torch, dev)})
     if "main" in run:
-        g, fused, res = phase_main(torch, rt, dev)
-        launches = res["launches"]
-        emit({"phase": "main", **res})
+        g, fused, main_res = phase_main(torch, rt, dev)
+        launches = main_res["launches"]
+        emit({"phase": "main", **main_res})
     if "wide_fit" in run:
         g_er, fused_er, res = phase_wide_fit(torch, rt, dev)
         emit({"phase": "wide_fit", **res})
@@ -1865,7 +2088,23 @@ def main(argv=None) -> int:
         stream_launches, res = phase_stream(torch, rt, dev, g, fused)
         emit({"phase": "stream", **res})
     if "ingest" in run:
-        emit({"phase": "ingest", **phase_ingest(torch, dev)})
+        import shutil
+        import tempfile
+        ingest_tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_ingest_"))
+        try:
+            mtx, path_fit, path_wall, res = phase_ingest(torch, dev,
+                                                         ingest_tmp)
+            emit({"phase": "ingest", **res})
+            if "ooc" in run:
+                rt.ops.reset_launches()
+                res = phase_ooc(torch, rt, dev, g, fused, main_res, mtx,
+                                path_fit, path_wall, ingest_tmp)
+                ooc_launches = {k: res["fused"]["launches"][k]
+                                + res["unfused"]["launches"][k]
+                                for k in LPA_KERNELS}
+                emit({"phase": "ooc", **res})
+        finally:
+            shutil.rmtree(ingest_tmp, ignore_errors=True)
     if "timing" in run:
         from repro_torch.engine.bucketing import bucket_for
         from repro_torch.graphgen import planted_partition
@@ -1905,13 +2144,16 @@ def main(argv=None) -> int:
          "batch_launches": batch_launches[name],
          "stream_launches": stream_launches[name],
          "obs_launches": obs_launches[name],
+         "ooc_launches": ooc_launches[name],
          "launched_by": "launches: tile fits of grid2d(3500), fused and "
                         "unfused; batch_launches: fit_many of traffic A "
                         "(32 grid2d members), tile fused and unfused; "
                         "stream_launches: the 3 warm road updates of "
                         "grid2d(3500) through StreamSession (tile fused); "
                         "obs_launches: profile=\"full\" tile fits of "
-                        "grid2d(3500), fused and unfused",
+                        "grid2d(3500), fused and unfused; ooc_launches: "
+                        "out-of-core tile fits of grid2d(3500), fused "
+                        "and unfused, one launch per partition visit",
          "max_abs_err": kernel_err[name],
          **{k: timing[name][k] for k in keys}}
         for name in LPA_KERNELS]

@@ -5,7 +5,8 @@ The counterpart of the JAX package ``repro``, module for module: graphs
 kernels and flash attention (``kernels``), the attention oracle
 (``models.attention``), the in-core ``Engine.fit`` and the batched
 ``Engine.fit_many`` (``engine``), graph deltas (``core.delta``), graph-file
-ingestion (``io``), and the micro-batching scheduler, streaming sessions
-and ingest CLI (``launch``).
+ingestion (``io``), out-of-core detection under a memory budget
+(``partition``), observability (``obs``), and the micro-batching
+scheduler, streaming sessions and the ingest and obs CLIs (``launch``).
 It imports neither JAX nor the JAX package.
 """

@@ -38,17 +38,24 @@ class SplitState(NamedTuple):
 
 def _min_label_sweep(graph: Graph, comm: torch.Tensor, labels: torch.Tensor,
                      active: torch.Tensor, prune: bool, shortcut: bool,
-                     voffset: torch.Tensor | None = None):
+                     voffset: torch.Tensor | None = None,
+                     label_bound: int | None = None):
     """One sweep of Algorithm 1's loop body (lines 8-21), vectorised.
 
     ``voffset``: per-vertex owner offsets when labels are in per-graph
     *local* coordinates (the batched path): the shortcut's pointer jump
     gathers at the label's global row, ``label + voffset``.
+
+    ``label_bound``: exclusive upper bound on label values, the sentinel
+    of edges to another community.  Defaults to ``graph.n``; a partition's
+    local rows carry *global* labels, so the out-of-core path passes the
+    whole graph's vertex count.
     """
     n = graph.n
+    bound = n if label_bound is None else int(label_bound)
     src = graph.src.long()
     same = graph.edge_mask & (comm[graph.src] == comm[graph.dst])
-    cand = torch.where(same, labels[graph.dst], n)
+    cand = torch.where(same, labels[graph.dst], bound)
     nbr_min = torch.full((n,), _INT32_MAX, dtype=labels.dtype,
                          device=labels.device)
     nbr_min.scatter_reduce_(0, src, cand.to(labels.dtype), "amin")
@@ -114,6 +121,45 @@ def split_lp(graph: Graph, comm: torch.Tensor, prune: bool = False,
 def split_lpp(graph: Graph, comm: torch.Tensor,
               shortcut: bool = False) -> SplitState:
     return split_lp(graph, comm, prune=True, shortcut=shortcut)
+
+
+def min_label_sweep(graph: Graph, comm: torch.Tensor, labels: torch.Tensor,
+                    active: torch.Tensor, label_bound: int,
+                    prune: bool = False) -> torch.Tensor:
+    """Partition-local split sweep: one Algorithm-1 step over a CSR slice.
+
+    The out-of-core loop (:mod:`repro_torch.partition.ooc`) runs the
+    Split-Last phase one partition at a time: ``graph`` is a compact local
+    subgraph (owned rows, then halo rows), ``comm`` / ``labels`` carry
+    *global* community ids and split labels gathered for those rows, and
+    ``label_bound`` is the whole graph's vertex count.  The sweep is
+    synchronous, so sweeping the partitions one after another against one
+    snapshot reproduces the in-core :func:`split_lp` sweep bit for bit.
+    The pointer-jump shortcut needs the whole label array, so it is not
+    applied here; the loop applies it after assembling the sweep.
+    Returns the new labels (before any shortcut).
+    """
+    new, _, _, _ = _min_label_sweep(graph, comm, labels, active,
+                                    prune=prune, shortcut=False,
+                                    label_bound=label_bound)
+    return new
+
+
+def min_label_wake(graph: Graph, comm: torch.Tensor,
+                   changed: torch.Tensor) -> torch.Tensor:
+    """Pruning reactivation of a partition-local split sweep.
+
+    A vertex re-enters the SL-LPP worklist exactly when a same-community
+    neighbor changed label in the previous sweep (Algorithm 1 lines
+    20-21).  ``changed`` holds the previous sweep's changed flags gathered
+    to this slice's local rows; the slice's own edges suffice, because the
+    rule reads each vertex's *own* neighborhood.
+    """
+    same = graph.edge_mask & (comm[graph.src] == comm[graph.dst])
+    hit = (changed[graph.dst] & same).to(torch.int32)
+    wake = torch.zeros(graph.n, dtype=torch.int32, device=hit.device)
+    wake.scatter_reduce_(0, graph.src.long(), hit, "amax")
+    return wake > 0
 
 
 def split_bfs_host(graph: Graph, comm) -> np.ndarray:

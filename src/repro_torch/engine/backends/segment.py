@@ -13,6 +13,9 @@ vertex count, as the JAX engine does.
 Profiling (``EngineConfig.profile``) passes ``profile`` / ``profile_rows``
 down to the core loops, which fill their buffers on the device; ``run``
 and ``run_batch`` fetch them once with the labels.
+
+The partition hooks run one out-of-core partition visit each
+(:mod:`repro_torch.partition.ooc`) over a compact local Graph.
 """
 from __future__ import annotations
 
@@ -28,8 +31,8 @@ from repro_torch.core.batch import (
     warm_state_rows,
 )
 from repro_torch.core.graph import Graph
-from repro_torch.core.lpa import lpa_run
-from repro_torch.core.split import split_lp
+from repro_torch.core.lpa import lpa_move, lpa_run, neighbors_of
+from repro_torch.core.split import min_label_sweep, min_label_wake, split_lp
 from repro_torch.engine.bucketing import (
     BatchBucketKey,
     BucketKey,
@@ -44,6 +47,7 @@ from repro_torch.engine.registry import (
     BatchBackendRun,
     batch_index,
     device_sync,
+    pad_to_device,
     profile_plan,
     register_backend,
     to_device,
@@ -56,6 +60,7 @@ from repro_torch.obs.convergence import batch_profiles, solo_profile
 class SegmentBackend:
     name = "segment"
     supports_batch = True
+    supports_partition = True
 
     def plan_key(self, config: EngineConfig) -> tuple:
         return ()
@@ -168,3 +173,108 @@ class SegmentBackend:
                                split_iterations=split_iters,
                                lpa_seconds=t1 - t0, split_seconds=t2 - t1,
                                profile=profiles)
+
+    # --- out-of-core partition sweeps (repro_torch.partition.ooc) ---
+    #
+    # One partition's edge window runs as a compact local Graph: rows
+    # [0, size) are the owned vertex range, rows [size, n_local) the halo
+    # imports (no out-edges, so they never adopt).  Label *values* stay
+    # global vertex ids (the tie-break hash is a function of the raw
+    # value), so every sweep takes the whole graph's vertex count as its
+    # ``label_bound`` sentinel.  Local row counts and edge windows are
+    # padded to one per-run shape.  Each hook takes device tensors for the
+    # local vectors and host arrays for the owned-row state, and returns
+    # device tensors.
+
+    def build_partition(self, config: EngineConfig, device: torch.device):
+        # The fused sweeps are plain tensor compositions here (one pass
+        # over the window's edges instead of two per visit), so 'auto'
+        # fuses on every device, as the JAX engine's segment path does.
+        PLAN_LOG.record("segment:partition")
+        return SimpleNamespace(device=device, prune=config.split == "lpp",
+                               fuse=config.fuse_sweeps != "off")
+
+    def partition_caps(self, budget: int, d_bucket: int):
+        """(max_edges, max_vertices) per partition for a byte budget.
+
+        One resident partition costs ~12 B/edge of locally remapped window
+        plus ~13 B/edge x pow2 padding of device CSR and ~24 B/row of
+        vertex-indexed locals; halving the budget leaves the LRU headroom
+        for the staged window and the label caches.
+        """
+        half = max(budget // 2, 1)
+        return max(half // 64, 1), max(half // 48, 8)
+
+    def partition_prepare_nbytes(self, shapes) -> int:
+        return shapes.m * 13 + (shapes.n_loc + 1) * 4 + shapes.n_loc * 4
+
+    def prepare_partition(self, resident, shapes, config: EngineConfig,
+                          device: torch.device):
+        """Pad a resident slice to the run's local-Graph shape, on
+        ``device``."""
+        n_loc, m = shapes.n_loc, shapes.m
+        m_w = len(resident.src)
+        src = np.zeros(m, np.int32)
+        dst = np.zeros(m, np.int32)
+        wgt = np.zeros(m, np.float32)
+        mask = np.zeros(m, bool)
+        src[:m_w] = resident.src
+        dst[:m_w] = resident.dst
+        wgt[:m_w] = resident.wgt
+        mask[:m_w] = True
+        row_ptr = np.full(n_loc + 1, m_w, np.int32)
+        row_ptr[: resident.size + 1] = resident.row_ptr
+        g = Graph(n=n_loc, m_pad=m, num_edges=m_w,
+                  row_ptr=to_device(row_ptr, device),
+                  src=to_device(src, device), dst=to_device(dst, device),
+                  wgt=to_device(wgt, device),
+                  edge_mask=to_device(mask, device),
+                  kdeg=torch.zeros(n_loc, dtype=torch.float32,
+                                   device=device))
+        return g, self.partition_prepare_nbytes(shapes)
+
+    def partition_move(self, sweeps, g: Graph, labels_loc, cand_owned,
+                       seed: int, bound: int) -> torch.Tensor:
+        cand = pad_to_device(cand_owned, g.n, sweeps.device)
+        new, _, _ = lpa_move(g, labels_loc, cand, seed, label_bound=bound)
+        return new
+
+    def partition_wake(self, sweeps, g: Graph, changed_loc) -> torch.Tensor:
+        return neighbors_of(g, changed_loc)
+
+    def partition_split(self, sweeps, g: Graph, comm_loc, labels_loc,
+                        active_owned, bound: int) -> torch.Tensor:
+        active = pad_to_device(active_owned, g.n, sweeps.device)
+        return min_label_sweep(g, comm_loc, labels_loc, active, bound,
+                               prune=sweeps.prune)
+
+    def partition_split_wake(self, sweeps, g: Graph, comm_loc,
+                             changed_loc) -> torch.Tensor:
+        return min_label_wake(g, comm_loc, changed_loc)
+
+    # Fused partition sweeps: the out-of-core lazy-wake loop lets wake +
+    # active refresh + move (and split-wake + min-label) run as one call
+    # per visit, with no host round trip of the intermediate wake mask.
+
+    def partition_move_fused(self, sweeps, g: Graph, labels_loc,
+                             changed_loc, active_owned, cand_prev_owned,
+                             klass_owned, seed: int, bound: int):
+        dev = sweeps.device
+        wake = neighbors_of(g, changed_loc)
+        act = ((pad_to_device(active_owned, g.n, dev)
+                & ~pad_to_device(cand_prev_owned, g.n, dev)) | wake)
+        new, _, _ = lpa_move(g, labels_loc,
+                             act & pad_to_device(klass_owned, g.n, dev),
+                             seed, label_bound=bound)
+        return new, act
+
+    def partition_split_fused(self, sweeps, g: Graph, comm_loc, labels_loc,
+                              changed_loc, bound: int) -> torch.Tensor:
+        if sweeps.prune:
+            sact = min_label_wake(g, comm_loc, changed_loc)
+        else:
+            # no-prune sweeps every row; a row with no same-community
+            # neighbor reduces to its own label, so all-ones is exact
+            sact = torch.ones(g.n, dtype=torch.bool, device=sweeps.device)
+        return min_label_sweep(g, comm_loc, labels_loc, sact, bound,
+                               prune=sweeps.prune)

@@ -16,7 +16,9 @@ convergence test.
 
 The batched trio runs the same kernels over a packed disjoint union of
 graphs (``core.batch``), reading one per-slot ``done`` vector per
-iteration.
+iteration.  The partition hooks run one out-of-core partition visit each
+(:mod:`repro_torch.partition.ooc`): B1 / B2 unfused, B3 / B4 fused, on the
+partition's owned-row tiles and its ``[owned; halo]`` label vectors.
 
 Profiling (``EngineConfig.profile``): each loop takes an optional buffer
 on the device and writes one row per sub-sweep (split sweep) into it with
@@ -51,6 +53,7 @@ from repro_torch.engine.registry import (
     BatchIndex,
     batch_index,
     device_sync,
+    pad_to_device,
     profile_plan,
     register_backend,
     to_device,
@@ -276,6 +279,7 @@ def _split_batch(plan, nbr, nmask, b: BatchIndex, comm, buf=None):
 class TileBackend:
     name = "tile"
     supports_batch = True
+    supports_partition = True
 
     def plan_key(self, config: EngineConfig) -> tuple:
         return ()
@@ -397,3 +401,120 @@ class TileBackend:
                                split_iterations=split_iters,
                                lpa_seconds=t1 - t0, split_seconds=t2 - t1,
                                profile=profiles)
+
+    # --- out-of-core partition sweeps (repro_torch.partition.ooc) ---
+    #
+    # A partition's tiles hold only its *owned* rows (``shapes.rows``
+    # high), but neighbor ids index the whole local row space (owned +
+    # halo), and the kernels gather ``labels`` / ``comm`` / ``chg`` through
+    # ``nbr`` from vectors longer than the tile, so the halo imports need
+    # no copy into the tile.  Label values are global vertex ids: the
+    # argmax hash is a function of the raw value and the kernels' sentinel
+    # is INT32_MAX, so ``bound`` is not needed here.  The tile width is the
+    # in-core degree bucket, so a row is folded at the in-core width and
+    # slot order.  Owned-row state comes in as host arrays, padded to the
+    # tile rows and uploaded; results stay on the device.
+
+    def build_partition(self, config: EngineConfig, device: torch.device):
+        fuse = ops.resolve_fuse(config.fuse_sweeps, device)
+        PLAN_LOG.record("tile:partition_fused" if fuse else "tile:partition")
+        return SimpleNamespace(device=device, prune=config.split == "lpp",
+                               fuse=fuse)
+
+    def partition_caps(self, budget: int, d_bucket: int):
+        """(max_edges, max_vertices) per partition for a byte budget.
+
+        The port's own sizing for its tiles: 9 B per cell (nbr, weight,
+        mask) at ``d_bucket`` cells per row, rows padded to a power of two
+        (at most 2x), and ~12 B/edge of window.  The JAX engine pads the
+        width to 128 lanes, a TPU layout this port does not carry, so for
+        one budget the two may cut a different number of partitions; the
+        labels are the same either way.  Halving the budget leaves room
+        for the staged window and the label caches.
+        """
+        half = max(budget // 2, 1)
+        return max(half // 40, 1), max(half // (18 * max(d_bucket, 1)), 8)
+
+    def partition_prepare_nbytes(self, shapes) -> int:
+        return shapes.rows * shapes.d * 9
+
+    def prepare_partition(self, resident, shapes, config: EngineConfig,
+                          device: torch.device):
+        """Dense (rows, d) neighbor tiles of one partition's owned rows,
+        built on ``device`` from the uploaded window.
+
+        The padding of ``to_padded_neighbors`` (self-pointing ids, zero
+        weight, masked out), one scatter.  The tiles are fresh
+        allocations, never views of a larger tile: the kernels take only
+        16-byte aligned tiles.
+        """
+        rows, d = shapes.rows, shapes.d
+        size, m_w = resident.size, len(resident.dst)
+        nbr = torch.arange(rows, dtype=torch.int32,
+                           device=device)[:, None].repeat(1, d)
+        nw = torch.zeros((rows, d), dtype=torch.float32, device=device)
+        nmask = torch.zeros((rows, d), dtype=torch.bool, device=device)
+        if size and m_w:
+            row_ptr = to_device(resident.row_ptr, device).long()
+            deg = row_ptr[1:] - row_ptr[:-1]
+            ridx = torch.repeat_interleave(
+                torch.arange(size, device=device), deg, output_size=m_w)
+            cidx = torch.arange(m_w, device=device) - row_ptr[ridx]
+            nbr[ridx, cidx] = to_device(resident.dst, device)
+            nw[ridx, cidx] = to_device(resident.wgt, device)
+            nmask[ridx, cidx] = True
+        return (nbr, nw, nmask), self.partition_prepare_nbytes(shapes)
+
+    def partition_move(self, sweeps, inputs, labels_loc, cand_owned,
+                       seed: int, bound: int) -> torch.Tensor:
+        nbr, nw, nmask = inputs
+        rows = nbr.shape[0]
+        cand = pad_to_device(cand_owned, rows, sweeps.device)
+        best_lab, best_w, cur_w = ops.label_argmax(nbr, nw, nmask, labels_loc,
+                                                   seed)
+        adopt = cand & (best_w > cur_w.clamp_min(0.0))
+        return torch.where(adopt, best_lab, labels_loc[:rows])
+
+    def partition_wake(self, sweeps, inputs, changed_loc) -> torch.Tensor:
+        nbr, _nw, nmask = inputs
+        return (changed_loc[nbr] & nmask).any(dim=1)
+
+    def partition_split(self, sweeps, inputs, comm_loc, labels_loc,
+                        active_owned, bound: int) -> torch.Tensor:
+        nbr, _nw, nmask = inputs
+        rows = nbr.shape[0]
+        new = ops.min_label(nbr, nmask, labels_loc, comm_loc)
+        if sweeps.prune:
+            active = pad_to_device(active_owned, rows, sweeps.device)
+            new = torch.where(active, new, labels_loc[:rows])
+        return new
+
+    def partition_split_wake(self, sweeps, inputs, comm_loc,
+                             changed_loc) -> torch.Tensor:
+        nbr, _nw, nmask = inputs
+        rows = nbr.shape[0]
+        same = (comm_loc[nbr] == comm_loc[:rows, None]) & nmask
+        return (changed_loc[nbr] & same).any(dim=1)
+
+    # Fused partition sweeps: the out-of-core lazy-wake loop matches the
+    # fused kernels' contract, so wake + move (and split-wake + min-label)
+    # are one launch per visit.  Padded tile rows have no real cell and a
+    # false klass, so they never wake or adopt.
+
+    def partition_move_fused(self, sweeps, inputs, labels_loc, changed_loc,
+                             active_owned, cand_prev_owned, klass_owned,
+                             seed: int, bound: int):
+        nbr, nw, nmask = inputs
+        rows, dev = nbr.shape[0], sweeps.device
+        real = torch.ones(rows, dtype=torch.bool, device=dev)
+        return ops.fused_move(nbr, nw, nmask, labels_loc, changed_loc,
+                              pad_to_device(active_owned, rows, dev),
+                              pad_to_device(cand_prev_owned, rows, dev),
+                              pad_to_device(klass_owned, rows, dev), real,
+                              seed)
+
+    def partition_split_fused(self, sweeps, inputs, comm_loc, labels_loc,
+                              changed_loc, bound: int) -> torch.Tensor:
+        nbr, _nw, nmask = inputs
+        return ops.fused_split(nbr, nmask, labels_loc, comm_loc, changed_loc,
+                               sweeps.prune)

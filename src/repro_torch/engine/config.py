@@ -28,7 +28,6 @@ UNPORTED = {
     "sharded backend": "A12 (multi-device)",
     "mesh": "A12 (multi-device)",
     "exchange_every": "A12 (multi-device)",
-    "memory_budget": "A9 (out-of-core)",
 }
 
 
@@ -86,8 +85,14 @@ class EngineConfig:
       ``algo_key()``: every mode shares the ``"off"`` plans.  Results:
       ``DetectionResult.quality`` and the engine scope's ``quality.*``
       metrics.
-    memory_budget, exchange_every, mesh: accepted only at their defaults
-      (see ``UNPORTED``).
+    memory_budget: resident edge-byte cap of a fit (bytes, or ``"64MB"`` /
+      ``"1GiB"``; ``None``: no cap).  A graph whose edge arrays
+      (13 B per directed edge slot) exceed it is fitted out of core,
+      partition by partition (``repro_torch.partition``), with labels
+      equal to the in-core fit's.  ``Engine.fit(..., memory_budget=)``
+      overrides it per call.
+    exchange_every, mesh: accepted only at their defaults (see
+      ``UNPORTED``).
     """
     backend: str = "auto"
     tau: float = 0.05
@@ -118,7 +123,11 @@ class EngineConfig:
         if self.exchange_every != 1:
             raise unported("exchange_every")
         if self.memory_budget is not None:
-            raise unported("memory_budget")
+            from repro_torch.partition.plan import parse_bytes
+            budget = parse_bytes(self.memory_budget)
+            if budget < 1:
+                raise ValueError("memory_budget must be >= 1 byte")
+            object.__setattr__(self, "memory_budget", budget)
         for name, value, allowed in (
                 ("backend", self.backend, BACKENDS),
                 ("split", self.split, SPLIT_METHODS),
@@ -166,6 +175,11 @@ class DetectionResult:
     # measurements.
     batch_size: int = 1
     batch_index: int = 0
+    # Out-of-core fits: the partition count (1 = in core) and the loop's
+    # counters (``OocRun.stats()``: peak resident bytes, halo exchange
+    # bytes, partition loads, prefetch and cache hits).
+    partitions: int = 1
+    ooc: dict | None = None
     # ``EngineConfig.profile != "off"``: a
     # :class:`repro_torch.obs.ConvergenceProfile`; ``quality != "off"``: a
     # :class:`repro_torch.obs.QualityReport`.  None otherwise.

@@ -7,6 +7,7 @@
     result = eng.fit(graph2)                # same bucket -> plan reused
     result = eng.fit(graph, init_labels=result.labels)   # warm start
     result = eng.fit("road.mtx")            # a graph file, via repro_torch.io
+    result = eng.fit("road.mtx", memory_budget="256MB")  # out of core
     results = eng.fit_many([g1, g2, g3])    # one batched dispatch
 
 ``fit`` buckets the graph, fetches (or builds) the backend's plan from the
@@ -15,7 +16,9 @@ split when requested, compacts the labels on the host, and optionally
 attaches quality metrics, a convergence profile (``profile``) and a
 quality report (``quality``).  ``fit_many`` packs k graphs into one disjoint
 union and runs the backend's batched plan once; each member's result
-equals its solo ``fit``.
+equals its solo ``fit``.  Under a ``memory_budget`` smaller than the
+graph's edge arrays, ``fit`` runs out of core (``repro_torch.partition``):
+partition by partition on the same device, with the in-core labels.
 
 Warm starts: ``init_labels`` seeds propagation with an assignment and
 ``init_active`` seeds the unprocessed flags (pass a delta's affected
@@ -29,7 +32,8 @@ Observability (``repro_torch.obs``): each engine claims an ``engine``
 registry scope (``fits``, ``batch_fits``, the warm cache's
 ``warm_hits`` / ``warm_misses`` / ``warm_evictions`` / ``warm_entries``,
 and ``quality.*`` under ``quality != "off"``) and wraps its stages in the
-spans ``engine.fit`` / ``engine.fit_many``, ``engine.prepare``,
+spans ``engine.fit`` / ``engine.fit_many`` / ``engine.fit_ooc``,
+``engine.prepare``,
 ``engine.dispatch``, ``engine.split_host``, ``engine.compact`` and
 ``engine.quality``.  The timed stages end with a device synchronize, so a
 span's length includes its device work.
@@ -49,7 +53,7 @@ from repro_torch.core.graph import Graph, graph_fingerprint
 from repro_torch.core.split import split_bfs_host
 from repro_torch.engine.bucketing import batch_bucket_for, bucket_for
 from repro_torch.engine.cache import GLOBAL_CACHE, PLAN_LOG, PlanCache
-from repro_torch.engine.config import DetectionResult, EngineConfig, unported
+from repro_torch.engine.config import DetectionResult, EngineConfig
 from repro_torch.engine.registry import (
     choose_backend,
     choose_backend_batch,
@@ -231,15 +235,94 @@ class Engine:
         relative to a cold singleton start).  ``backend`` overrides the
         configured strategy for this call.  The graph is moved to the
         engine's device if it lives elsewhere.
+
+        ``memory_budget`` (bytes, or ``"64MB"``-style; defaults to
+        ``config.memory_budget``) routes the fit: in core when the graph's
+        edge arrays fit the budget, otherwise out of core, partitioned
+        CSR slices swept one resident partition at a time with halo-label
+        exchange (:mod:`repro_torch.partition`), with labels equal to the
+        in-core fit's.  For a path the routing reads only the store
+        entry's metadata, so a file bigger than the budget is never
+        materialized.
         """
-        if memory_budget is not None:
-            raise unported("memory_budget")
+        budget = memory_budget if memory_budget is not None \
+            else self.config.memory_budget
+        if budget is not None:
+            from repro_torch.partition.ooc import (
+                IN_CORE_EDGE_BYTES,
+                in_core_edge_bytes,
+                open_source,
+            )
+            from repro_torch.partition.plan import parse_bytes
+            budget = parse_bytes(budget)
+            if isinstance(graph, Graph):
+                # routing from metadata; no source unless it is needed
+                too_big = graph.m_pad * IN_CORE_EDGE_BYTES > budget
+                source = open_source(graph) if too_big else None
+            else:
+                source = open_source(graph)  # the store entry's handle
+                too_big = in_core_edge_bytes(source) > budget
+            if too_big:
+                return self._fit_ooc(source, budget, init_labels,
+                                     init_active, backend)
+            if source is not None:
+                # fits in core: the full graph from the handle already
+                # open (no second content hash or store open)
+                graph = source.to_graph()
         graph = _as_graph(graph)
         fp = self._auto_fp(graph)
         init_labels, init_active, warm = self._resolve_warm(
             graph.n, init_labels, init_active, fp, "init_labels")
         result = self._fit_resolved(graph.to(self.device), init_labels,
                                     init_active, backend, warm)
+        if fp is not None:
+            self._warm.put(fp, result.labels)
+        return result
+
+    def _fit_ooc(self, source, budget: int, init_labels, init_active,
+                 backend: str | None) -> DetectionResult:
+        """Out-of-core partitioned fit over an array source, on the
+        engine's device."""
+        from repro_torch.partition.ooc import fit_out_of_core
+        cfg = self.config
+        if cfg.compute_metrics:
+            raise ValueError(
+                "compute_metrics needs the full graph on the device; "
+                "compute quality metrics separately after an out-of-core "
+                "fit")
+        fp = source.fingerprint() if cfg.warm_start == "auto" else None
+        fp = tuple(fp) if fp else None
+        init_labels, init_active, warm_started = self._resolve_warm(
+            source.n, init_labels, init_active, fp, "init_labels")
+
+        with span("engine.fit_ooc", n=source.n):
+            run = fit_out_of_core(source, cfg, memory_budget=budget,
+                                  backend=backend, cache=self.cache,
+                                  init_labels=init_labels,
+                                  init_active=init_active,
+                                  device=self.device)
+            t0 = time.perf_counter()
+            with span("engine.compact"):
+                labels, k = _compact_host(run.labels)
+            t_compact = time.perf_counter() - t0
+
+        self._m_fits.inc()
+        result = DetectionResult(
+            labels=labels, num_communities=k, backend=run.backend,
+            lpa_iterations=run.lpa_iterations,
+            split_iterations=run.split_iterations,
+            timings={"prepare": run.plan_seconds,
+                     "propagation": run.lpa_seconds,
+                     "split": run.split_seconds, "compact": t_compact},
+            bucket=(source.n, source.num_edges), cache_hit=run.cache_hit,
+            warm_started=warm_started, device=str(self.device),
+            partitions=run.num_partitions, ooc=run.stats(),
+            profile=run.profile)
+        if cfg.quality != "off":
+            # host-only report: out of core the whole graph never sits on
+            # the device, so modularity and the disconnected fraction stay
+            # None; sizes, count and churn still come
+            self._attach_quality(result, None, init_labels)
         if fp is not None:
             self._warm.put(fp, result.labels)
         return result
@@ -449,12 +532,13 @@ class Engine:
         ``"basic"`` is host-only (sizes, count, churn); ``"full"`` adds
         ``check_connected`` (cached by fingerprint) and one modularity
         pass on the graph's device, unless ``compute_metrics`` paid them.
+        ``graph=None`` gives the host-only report of an out-of-core fit.
         """
         from repro_torch.obs.quality import compute_quality, record_report
         mode = self.config.quality
         with span("engine.quality", mode=mode):
             full = mode == "full"
-            if full:
+            if full and graph is not None:
                 result.check_connected(graph)
             result.quality = compute_quality(
                 result.labels, mode=mode, graph=graph if full else None,

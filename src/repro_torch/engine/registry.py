@@ -15,6 +15,13 @@ trio ``build_batch`` / ``prepare_batch`` / ``run_batch``: a whole
 takes optional packed (total_vertices,) warm labels and active seeds in
 local coordinates (``GraphBatch.pack_labels``) and treats them as
 per-member solo warm runs would.
+
+Backends that set ``supports_partition = True`` also carry the partition
+hooks of the out-of-core loop (:mod:`repro_torch.partition.ooc`):
+``build_partition``, ``partition_caps``, ``partition_prepare_nbytes``,
+``prepare_partition`` and the per-visit sweeps ``partition_move`` /
+``partition_wake`` / ``partition_split`` / ``partition_split_wake`` and
+their fused twins ``partition_move_fused`` / ``partition_split_fused``.
 """
 from __future__ import annotations
 
@@ -105,6 +112,15 @@ def to_device(array: np.ndarray, device: torch.device) -> torch.Tensor:
     if device.type != "cuda":
         return host
     return host.pin_memory().to(device, non_blocking=True)
+
+
+def pad_to_device(col: np.ndarray, length: int,
+                  device: torch.device) -> torch.Tensor:
+    """A host vector zero-padded to ``length``, as a tensor on ``device``
+    (an out-of-core partition's owned-row state padded to its rows)."""
+    out = np.zeros(length, dtype=col.dtype)
+    out[: len(col)] = col
+    return to_device(out, device)
 
 
 def batch_index(batch, k_bucket: int, rows: int,

@@ -451,13 +451,115 @@ def test_cuda_profile_equals_cpu_profile(backend, fuse, split):
         assert _same_profile(many_card[i].profile, many_host[i].profile), i
 
 
+def _ooc_budget(g) -> int:
+    """Half the in-core edge bytes: the tile fit must partition."""
+    from repro_torch.partition.ooc import IN_CORE_EDGE_BYTES
+    return g.m_pad * IN_CORE_EDGE_BYTES // 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("split", ["lp", "lpp"])
+@pytest.mark.parametrize("fuse", ["on", "off"])
+def test_cuda_ooc_tile_fit_matches_cpu_in_core(fuse, split):
+    """An out-of-core tile fit on the card: B3 / B4 (fused) or B1 / B2
+    (unfused) once per partition visit, on tiles whose label vectors run
+    past their rows into the halo, with the labels and iteration counts
+    of the CPU's in-core fit and the peak within the budget."""
+    need_card()
+    from repro_torch.partition.ooc import fit_out_of_core, open_source
+    for g in (graphgen.grid2d(40), graphgen.erdos_renyi(300, 6.0, seed=2),
+              graphgen.planted_partition(6, 30, 0.3, 0.01, seed=3)[0]):
+        budget = _ooc_budget(g)
+        cfg = dict(backend="tile", fuse_sweeps=fuse, split=split)
+        want = Engine(EngineConfig(device="cpu", **cfg),
+                      cache=PlanCache()).fit(g)
+        ops.reset_launches()
+        run = fit_out_of_core(open_source(g), EngineConfig(**cfg),
+                              memory_budget=budget)
+        launches = dict(ops.LAUNCHES)
+        got = Engine(EngineConfig(**cfg), cache=PlanCache()).fit(
+            g, memory_budget=budget)
+        assert run.num_partitions > 1 and got.partitions > 1
+        assert got.device.startswith("cuda")
+        assert np.array_equal(got.labels, want.labels)
+        assert (got.lpa_iterations, got.split_iterations) == \
+            (want.lpa_iterations, want.split_iterations)
+        assert run.peak_resident_bytes <= budget
+        assert got.ooc["peak_resident_bytes"] <= budget
+        move, split_k = (("fused_move", "fused_split") if fuse == "on"
+                         else ("label_argmax", "min_label"))
+        p = run.num_partitions
+        assert launches[move] == p * 2 * run.lpa_iterations
+        assert launches[split_k] == p * run.split_iterations
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fuse", ["on", "off"])
+def test_cuda_ooc_prefetch_on_and_off_agree(fuse):
+    """The prefetch worker uploads on a stream of its own; with it on and
+    off (and the label caches on and off) the labels are identical, and a
+    budget with room for a staged window is used."""
+    need_card()
+    from repro_torch.partition.ooc import fit_out_of_core, open_source
+    g = graphgen.grid2d(60)
+    source = open_source(g)
+    cfg = EngineConfig(backend="tile", fuse_sweeps=fuse, split="lpp")
+    runs = [fit_out_of_core(source, cfg, memory_budget=budget,
+                            num_partitions=6, prefetch=prefetch,
+                            halo_cache=cache)
+            for budget in (_ooc_budget(g), 4 * _ooc_budget(g))
+            for prefetch in (False, True) for cache in (False, True)]
+    for r in runs[1:]:
+        assert np.array_equal(r.labels, runs[0].labels)
+        assert (r.lpa_iterations, r.split_iterations) == \
+            (runs[0].lpa_iterations, runs[0].split_iterations)
+    assert all(r.peak_resident_bytes <= r.budget for r in runs)
+    assert max(r.prefetch_hits for r in runs) > 0
+
+
+@pytest.mark.cuda
+def test_cuda_kernels_on_partition_vectors_match_plain_versions():
+    """B1-B4 on tiles of 64 rows whose labels / comm / chg vectors are
+    longer than the tile (owned rows, then a halo), nbr reaching into the
+    halo: equal to the plain versions."""
+    need_card()
+    rng = np.random.default_rng(7)
+    rows, d, n_loc = 64, 8, 200
+    mask = rng.random((rows, d)) < 0.7
+    host = dict(
+        nbr=rng.integers(0, n_loc, size=(rows, d)).astype(np.int32),
+        nw=rng.integers(1, 4, size=(rows, d)).astype(np.float32),
+        nmask=mask,
+        labels=rng.integers(0, 10_000, size=n_loc).astype(np.int32),
+        comm=rng.integers(0, 3, size=n_loc).astype(np.int32),
+        chg=rng.random(n_loc) < 0.3, active=rng.random(rows) < 0.6,
+        cand_prev=rng.random(rows) < 0.3, klass=rng.random(rows) < 0.5,
+        real=np.ones(rows, bool))
+    for dev_out in ("cpu", "cuda"):
+        t = {k: torch.from_numpy(v).to(dev_out) for k, v in host.items()}
+        out = (ops.label_argmax(t["nbr"], t["nw"], t["nmask"], t["labels"],
+                                5),
+               ops.min_label(t["nbr"], t["nmask"], t["labels"], t["comm"]),
+               ops.fused_move(t["nbr"], t["nw"], t["nmask"], t["labels"],
+                              t["chg"], t["active"], t["cand_prev"],
+                              t["klass"], t["real"], 5),
+               ops.fused_split(t["nbr"], t["nmask"], t["labels"], t["comm"],
+                               t["chg"], True))
+        if dev_out == "cpu":
+            want = out
+    flat = [x for o in out for x in (o if isinstance(o, tuple) else (o,))]
+    flat_w = [x for o in want for x in (o if isinstance(o, tuple) else (o,))]
+    assert all(torch.equal(a.cpu(), b) for a, b in zip(flat, flat_w))
+
+
 def test_port_import_pulls_in_no_jax():
     """Importing the whole port loads neither JAX nor the JAX package."""
     code = ("import sys; import repro_torch.engine, repro_torch.core, "
             "repro_torch.kernels.ops, repro_torch.graphgen, "
             "repro_torch.models.attention, repro_torch.io, "
             "repro_torch.launch.stream, repro_torch.launch.ingest, "
-            "repro_torch.obs, repro_torch.launch.obs; "
+            "repro_torch.obs, repro_torch.launch.obs, "
+            "repro_torch.partition; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]; assert not bad, bad")
     subprocess.run([sys.executable, "-c", code], check=True, timeout=120,

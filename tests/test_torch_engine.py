@@ -210,6 +210,15 @@ def test_default_device_is_cuda():
     (dict(memory_budget="64MB"), "A9"), (dict(profile="everything"), "A10"),
     (dict(quality="x"), "A10")])
 def test_unported_options_raise(kw, item):
+    if item == "A9":
+        # ported: a budget parses to bytes, as the reference's does
+        (option, value), = kw.items()
+        got = EngineConfig(device="cpu", **kw).memory_budget
+        assert got == JConfig(**kw).memory_budget == int(
+            value if isinstance(value, int) else 64_000_000)
+        with pytest.raises(ValueError, match=option):
+            EngineConfig(device="cpu", memory_budget=0)
+        return
     if item == "A10":
         # ported: every mode the reference takes is valid, others raise
         (option, bad), = kw.items()
@@ -230,15 +239,18 @@ def test_unported_calls_raise(tmp_path, monkeypatch):
     monkeypatch.setenv("REPRO_GRAPH_CACHE", str(tmp_path / "store"))
     eng = Engine(EngineConfig(device="cpu"), cache=PlanCache())
     g = port_of(jgen.karate_club()[0])
-    with pytest.raises(NotImplementedError, match="A9"):
-        eng.fit(g, memory_budget="64MB")
+    # A9 is ported: a budget the edges fit runs in core, a smaller one
+    # partitions, both with the same labels
+    big, small = (eng.fit(g, memory_budget=b) for b in ("64MB", "3KB"))
+    assert big.partitions == 1 and small.partitions > 1
+    assert np.array_equal(big.labels, small.labels)
     with pytest.raises(NotImplementedError, match="A12"):
         eng.fit(g, backend="sharded")
     # A8 is ported: a graph-file path fits as its graph does
     path = tmp_path / "karate.mtx"
     write_mtx(path, undirected_edges(g)[0], n=g.n, symmetric=True)
-    with pytest.raises(NotImplementedError, match="A9"):
-        eng.fit(str(path), memory_budget="64MB")
+    assert np.array_equal(eng.fit(str(path), memory_budget="3KB").labels,
+                          big.labels)
     res, want = eng.fit(str(path)), eng.fit(g)
     assert np.array_equal(res.labels, want.labels)
     assert (res.lpa_iterations, res.split_iterations) \

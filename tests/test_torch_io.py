@@ -501,9 +501,15 @@ def test_ingest_cli_in_process(tmp_path, capsys, graph_store):
     assert "cache hit" in capsys.readouterr().out
     assert ingest.main(["--list-cache"]) == 0
     assert f"1 cached graphs in {graph_store}" in capsys.readouterr().out
-    for argv in ([path, "--ooc"], [path, "--memory-budget", "64MB"]):
-        with pytest.raises(NotImplementedError, match="A9"):
-            ingest.main(argv)
+    # A9 is ported: --ooc fits out of core from the store entry
+    assert ingest.main([path, "--ooc", "--memory-budget", "1KB",
+                        "--backend", "tile", "--device", "cpu",
+                        "--json", str(out)]) == 0
+    text = capsys.readouterr().out
+    assert "store entry" in text and "ooc[tile]" in text
+    rep = json.loads(out.read_text())[0]
+    assert rep["ooc"]["partitions"] > 1
+    assert rep["ooc"]["communities"] == want.num_communities
 
 
 def test_ingest_cli_subprocess(tmp_path, graph_store):
