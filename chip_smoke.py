@@ -117,6 +117,31 @@ Phases, one JSON line each:
            exchange bytes, plan / propagation / split / compact seconds,
            the wait on window loads, wall beside the in-core
            wall (main's cold fits; the road fits also beside a warm one).
+  serve    the multi-tenant serving tier (repro_torch.serve): 32 tenants,
+           tenant i evolving_sequence(100000, 5.0, ..., delta_edges=100,
+           seed=7 + 17 * i) (3.2M vertices, ~16M directed edges; traces
+           made once, in worker processes), each a register and 3 rounds
+           (every third a cold refresh, but for the 4 parity tenants) from
+           8 client threads through TenantService(queue_capacity=16,
+           max_batch=8) on Engine(backend="tile", quality="full"), B3 / B4
+           on every batch.  (a) Warm budget 16,000,000 B: 128 requests, none
+           stranded or failed, no spill, the parity tenants equal
+           replay_parity, every tenant's last health sample has
+           disconnected fraction 0.0, B3 and B4 launched (counts reset just
+           before, read just after); then the four LPA kernels on one
+           served batch's packed tiles (8 tenants after (a), their labels),
+           exact against their plain versions, timed, with their bounds.
+           (b) 9,600,000 B: spills, the peak within the budget, the same
+           gates.  (a) again under torch.profiler (device activity only):
+           the device's busy and idle share of the load.  (c) (a)'s
+           snapshot through CheckpointManager restored into a new service
+           on a fresh engine (32 restored, labels equal), round 4 on the
+           parity tenants equal to a solo replay of all 4.  The checkpoint
+           directory is removed whatever fails.  (d) serve_communities and
+           serve_streaming at their defaults, then python -m
+           repro_torch.launch.serve --mode tenants --metrics-jsonl (a
+           subprocess).  Wall, p50 / p99, edges/s, warm peak, spills, the
+           batch histogram and the launches of each run.
   timing   the four LPA kernels (CUDA events) beside their plain versions
            and bounds, at the main fit's D=4 tiles, the ER graph's D=64
            tiles and planted_partition(128, 1024, 0.3, 0.001)'s D=512
@@ -175,7 +200,7 @@ PLANTED_GRAPH = "planted_partition(128, 1024, 0.3, 0.001, seed=0)"
 SKEW_GRAPH = "rmat(20, 16, seed=0)"
 PHASES = ("kernels", "parity", "c1", "main", "wide_fit", "dense",
           "skew_fit", "batch", "obs", "microbatch", "stream", "ingest",
-          "ooc", "timing", "trace", "flash")
+          "ooc", "serve", "timing", "trace", "flash")
 # phase -> the phases whose graphs and fits it reuses
 NEEDS = {"timing": ("main", "wide_fit"), "trace": ("main",),
          "dense": ("wide_fit",), "microbatch": ("batch",),
@@ -187,6 +212,21 @@ OBS_MEMBERS = (0, 15, 31)
 ROAD_SIDE = 3500
 ROAD_ROUNDS = 3
 ROAD_DELTA_EDGES = 1000
+# The serve phase's tenants: evolving_sequence(SERVE_SIZE, 5.0, ...,
+# SERVE_DELTA_EDGES, seed=7 + 17 * i), SERVE_ROUNDS deltas through the
+# service, one more for the restored parity tenants; the warm-label
+# budgets of runs (a) and (b) (32 x 400,000 B of labels; (b) holds 24).
+SERVE_TENANTS = 32
+SERVE_SIZE = 100_000
+SERVE_ROUNDS = 3
+SERVE_DELTA_EDGES = 100
+SERVE_PARITY = 4
+SERVE_BUDGETS = (16_000_000, 9_600_000)
+# Spans summed per serve run: the batcher's fits (engine.*; serial on its
+# worker), the dispatcher's launches (a delta's splice) and settlements.
+SERVE_SPANS = ("engine.fit_many", "engine.prepare", "engine.dispatch",
+               "engine.compact", "engine.quality", "serve.launch",
+               "serve.settle")
 # The ingest phase's file: grid2d(INGEST_SIDE) as MatrixMarket.
 INGEST_SIDE = 2000
 GRAPH_FIELDS = ("row_ptr", "src", "dst", "wgt", "edge_mask", "kdeg")
@@ -1561,6 +1601,251 @@ def phase_ooc(torch, rt, dev, g, main_fused, main_res, path, path_fit,
             "budget": budget, **lines}
 
 
+# ----------------------------------------------------------------- serve
+
+def _serve_trace(load: dict, i: int):
+    """Tenant i's evolving trace under ``LoadConfig(**load)`` as host
+    arrays and deltas (a worker process's job; the parent rebuilds the
+    Graph)."""
+    src = str(Path(__file__).resolve().parent / "src")
+    if src not in sys.path:
+        sys.path.insert(0, src)
+    from repro_torch.serve.loadgen import LoadConfig, tenant_trace
+    name, (base, deltas) = tenant_trace(LoadConfig(**load), i)
+    return (name, base.n, base.num_edges,
+            [getattr(base, f).numpy() for f in GRAPH_FIELDS], deltas)
+
+
+def _serve_traces(load):
+    """``build_traces(load)``, generated in parallel worker processes."""
+    import dataclasses
+    import multiprocessing
+    import os
+    from concurrent.futures import ProcessPoolExecutor
+
+    from repro_torch.core.graph import graph_from_arrays
+    workers = max(1, min(8, os.cpu_count() or 1))
+    with ProcessPoolExecutor(
+            workers, mp_context=multiprocessing.get_context("spawn")) as ex:
+        parts = list(ex.map(_serve_trace,
+                            [dataclasses.asdict(load)] * load.tenants,
+                            range(load.tenants)))
+    return {name: (graph_from_arrays(n, m, *arrays), deltas)
+            for name, n, m, arrays, deltas in parts}, workers
+
+
+def _serve_run(rt, eng, traces, budget, load):
+    """One run of the load through a TenantService on ``eng``; launch
+    counts and spans reset just before ``run_load`` and read just after.
+    Returns the service (open) and the run's line: the summary, the
+    launches and the host seconds inside each span (SERVE_SPANS) summed
+    over the run."""
+    from repro_torch.obs import TRACER
+    from repro_torch.serve import ServiceConfig, TenantService
+    from repro_torch.serve.loadgen import run_load
+    svc = TenantService(eng, ServiceConfig(
+        queue_capacity=16, max_batch=8, warm_budget=budget))
+    try:
+        TRACER.reset()
+        rt.ops.reset_launches()
+        _, summary = run_load(svc, traces, load)
+        launches = dict(rt.ops.LAUNCHES)
+        span_s = {name: sum(x.dur for x in TRACER.spans(name)
+                            if x.name == name) for name in SERVE_SPANS}
+        stats = svc.stats()
+        lasts = [tl["last"] for tl in stats["health"]["tenants"].values()]
+        check(summary["requests"] == SERVE_TENANTS * (1 + SERVE_ROUNDS)
+              and summary["stranded"] == 0 and summary["failed"] == 0
+              and summary["errors"] == 0 and summary["give_ups"] == 0
+              and summary["outstanding"] == 0,
+              f"serve: requests lost or failed under budget {budget}: "
+              f"{summary}")
+        check(len(lasts) == SERVE_TENANTS and all(
+            s is not None and s["disconnected_fraction"] == 0.0
+            for s in lasts), f"serve: a tenant's last fit has a "
+            f"disconnected community (or no quality) under budget {budget}")
+        check(summary["warm_bytes_peak"] <= budget, f"serve: warm bytes "
+              f"peak {summary['warm_bytes_peak']} > {budget}")
+    except BaseException:
+        svc.close()
+        raise
+    line = {"warm_budget": budget, "launches": launches, "span_s": span_s,
+            "fit_many_share_of_wall": span_s["engine.fit_many"]
+            / summary["wall_s"],
+            "batch_size_hist": stats["batcher"]["batch_size_hist"],
+            "health_alerts": stats["health"]["alert_counts"],
+            **{k: summary[k] for k in (
+                "requests", "completed", "failed", "stranded", "rejections",
+                "retries", "queue_depth_peak", "warm_bytes_peak", "spills",
+                "wall_s", "edges_per_s", "p50_ms", "p99_ms", "mean_batch")}}
+    return svc, line
+
+
+def _serve_kernels(torch, rt, dev, cfg, graphs, labels):
+    """The four LPA kernels on one served batch's packed tiles (as
+    ``Engine.fit_many`` packs and buckets them under ``cfg``), with the
+    members' labels: exact against their plain versions, timed, with
+    their bounds."""
+    from repro_torch.core.batch import GraphBatch
+    from repro_torch.engine.bucketing import batch_bucket_for
+    batch = GraphBatch.pack(graphs, device=dev)
+    bucket = batch_bucket_for(batch, bucketing=cfg.bucketing,
+                              min_vertex_bucket=cfg.min_vertex_bucket,
+                              min_edge_bucket=cfg.min_edge_bucket)
+    shift = np.repeat(batch.offsets[:-1], batch.sizes).astype(np.int32)
+    t = _timing_tiles(torch, batch.graph, bucket.n, bucket.d,
+                      np.concatenate(labels) + shift, dev)
+    kern = _time_argmax(torch, rt, t, plain_reps=5)
+    kern.update(_time_split(torch, rt, t, plain_reps=5))
+    return {"members": len(graphs), "rows": bucket.n, "d": bucket.d,
+            "real_cells": int(t["nmask"].sum()), **kern}
+
+
+def phase_serve(torch, rt, dev):
+    """The multi-tenant serving tier on the card (see the module doc)."""
+    import dataclasses
+    import os
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.engine import Engine, EngineConfig, PlanCache
+    from repro_torch.launch.serve import serve_communities, serve_streaming
+    from repro_torch.serve import ServiceConfig, TenantService
+    from repro_torch.serve.loadgen import LoadConfig, replay_parity
+
+    load = LoadConfig(tenants=SERVE_TENANTS, rounds=SERVE_ROUNDS,
+                      size=SERVE_SIZE, delta_edges=SERVE_DELTA_EDGES,
+                      refresh_every=3, parity_tenants=SERVE_PARITY,
+                      client_threads=8, seed=7)
+    t0 = time.perf_counter()
+    # one round more than the load, for the restored parity tenants
+    full, workers = _serve_traces(
+        dataclasses.replace(load, rounds=SERVE_ROUNDS + 1))
+    gen_s = time.perf_counter() - t0
+    traces = {t: (b, d[:SERVE_ROUNDS]) for t, (b, d) in full.items()}
+    parity = list(traces)[:SERVE_PARITY]
+    eng_cfg = EngineConfig(backend="tile", quality="full")
+    eng = Engine(eng_cfg, cache=PlanCache())
+    out = {"tenants": SERVE_TENANTS, "size": SERVE_SIZE,
+           "directed_edges": sum(b.num_edges for b, _ in traces.values()),
+           "rounds": SERVE_ROUNDS, "trace_gen_s": gen_s,
+           "trace_gen_workers": workers}
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_serve_") as tmp:
+        # (a) every tenant's labels fit the budget
+        svc, out["a"] = _serve_run(rt, eng, traces, SERVE_BUDGETS[0], load)
+        try:
+            check(out["a"]["spills"] == 0, f"serve (a): spills {out['a']}")
+            final = {t: svc.labels(t) for t in traces}
+            graphs = {t: svc.graph(t) for t in traces}
+            t0 = time.perf_counter()
+            saved = svc.snapshot(CheckpointManager(tmp))
+            out["snapshot_s"] = time.perf_counter() - t0
+        finally:
+            svc.close()
+        check(all(e["warm"] for e in saved["tenants"].values())
+              and len(saved["tenants"]) == SERVE_TENANTS,
+              "serve (a): the snapshot is not warm for every tenant")
+        t0 = time.perf_counter()
+        solo = replay_parity(traces, parity, eng_cfg)
+        out["a"]["replay_parity_s"] = time.perf_counter() - t0
+        for t in parity:
+            check(final[t] is not None and np.array_equal(final[t], solo[t]),
+                  f"serve (a): parity tenant {t} != its solo replay")
+        launches = out["a"]["launches"]
+        check(launches["fused_move"] > 0 and launches["fused_split"] > 0,
+              f"serve (a): B3 / B4 not launched on the serving path: "
+              f"{launches}")
+        # the kernels at a served batch's shapes: max_batch tenants after
+        # (a), packed as the batcher packs them, with their labels
+        members = list(traces)[:8]
+        out["a"]["kernels_served_shape"] = _serve_kernels(
+            torch, rt, dev, eng_cfg, [graphs[t] for t in members],
+            [final[t] for t in members])
+
+        # (b) the same traces under a budget that holds 24 of 32 tenants
+        svc, out["b"] = _serve_run(rt, eng, traces, SERVE_BUDGETS[1], load)
+        svc.close()
+        check(out["b"]["spills"] > 0, f"serve (b): no spill: {out['b']}")
+
+        # (a) once more under torch.profiler (device activity only): the
+        # device's busy share of the load's wall
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            svc, traced = _serve_run(rt, eng, traces, SERVE_BUDGETS[0],
+                                     load)
+            svc.close()
+        events, busy_s = _device_busy(torch, prof)
+        out["a_traced"] = {
+            "device_events": events, "device_busy_s": busy_s,
+            "device_idle_share": (1.0 - busy_s / traced["wall_s"])
+            if events else None,
+            **{k: traced[k] for k in ("wall_s", "p50_ms", "p99_ms",
+                                      "launches", "span_s")}}
+
+        # (c) restore (a)'s snapshot into a new service on a fresh engine,
+        # then round SERVE_ROUNDS on the parity tenants
+        eng_c = Engine(eng_cfg, cache=PlanCache())
+        svc = TenantService(eng_c, ServiceConfig(
+            queue_capacity=16, max_batch=8, warm_budget=SERVE_BUDGETS[0]))
+        try:
+            t0 = time.perf_counter()
+            report = svc.restore(CheckpointManager(tmp), graphs)
+            restore_s = time.perf_counter() - t0
+            check(len(report["restored"]) == SERVE_TENANTS
+                  and not report["mismatched"] and not report["cold"],
+                  f"serve (c): restore report {report}")
+            for t in traces:
+                check(np.array_equal(svc.labels(t), final[t]),
+                      f"serve (c): restored labels of {t} != (a)'s")
+            t0 = time.perf_counter()
+            tickets = {t: svc.update(t, full[t][1][SERVE_ROUNDS])
+                       for t in parity}
+            res = {t: k.result(timeout=600) for t, k in tickets.items()}
+            update_s = time.perf_counter() - t0
+            after = {t: svc.labels(t) for t in parity}
+        finally:
+            svc.close()
+    solo4 = replay_parity(full, parity, eng_cfg)
+    for t in parity:
+        check(res[t].warm_started and np.array_equal(after[t], solo4[t]),
+              f"serve (c): {t} after round {SERVE_ROUNDS} != its solo "
+              "replay of every round")
+    out["c"] = {"restored": len(report["restored"]),
+                "mismatched": len(report["mismatched"]),
+                "restore_s": restore_s, "parity_update_wall_s": update_s,
+                "lpa_iterations": [res[t].lpa_iterations for t in parity]}
+
+    # (d) the launch drivers at their defaults, then the CLI
+    _, comm = serve_communities()
+    _, strm = serve_streaming()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_serve_") as d:
+        jsonl = Path(d) / "metrics.jsonl"
+        env = {**os.environ,
+               "PYTHONPATH": str(Path(__file__).resolve().parent / "src")}
+        t0 = time.perf_counter()
+        cli = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.serve", "--mode",
+             "tenants", "--metrics-jsonl", str(jsonl)],
+            capture_output=True, text=True, env=env, timeout=600)
+        cli_s = time.perf_counter() - t0
+        check(cli.returncode == 0, f"serve CLI exited {cli.returncode}: "
+              f"{cli.stderr[-2000:]}")
+        tags = [json.loads(x)["tag"] for x in jsonl.read_text().splitlines()]
+    check("(0 stranded" in cli.stdout and tags[-1:] == ["shutdown"],
+          f"serve CLI: {cli.stdout[-2000:]}")
+    out["d"] = {"communities": {k: comm[k] for k in (
+                    "requests", "batches", "batch_size_hist", "wall_s",
+                    "edges_per_s", "p50_ms", "p95_ms")},
+                "streaming": {k: strm[k] for k in (
+                    "cold_s", "warm_s", "speedup", "p50_ms")},
+                "cli_wall_s": cli_s,
+                "cli_summary": [x for x in cli.stdout.splitlines()
+                                if x.startswith("[serve-tenants]")][-1:]}
+    return out
+
+
 # ---------------------------------------------------------------- timing
 
 def _time_ms(torch, fn, reps=20, warmup=3):
@@ -1820,19 +2105,8 @@ def phase_timing(torch, rt, dev, cases):
 
 # ----------------------------------------------------------------- trace
 
-def phase_trace(torch, g):
-    from torch.profiler import ProfilerActivity, profile
-
-    from repro_torch.engine import Engine, EngineConfig, PlanCache
-    eng = Engine(EngineConfig(backend="tile", split="lp"), cache=PlanCache())
-    eng.fit(g)   # plan and allocator warm
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        res = eng.fit(g)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+def _device_busy(torch, prof) -> tuple[int, float]:
+    """(device events, seconds in their union) of a profiler run."""
     spans = sorted((e.time_range.start, e.time_range.end)
                    for e in prof.events()
                    if e.device_type == torch.autograd.DeviceType.CUDA)
@@ -1846,15 +2120,32 @@ def phase_trace(torch, g):
             cur_e = max(cur_e, e)
     if cur_e is not None:
         busy += cur_e - cur_s
-    busy_s = busy * 1e-6
+    return len(spans), busy * 1e-6
+
+
+def phase_trace(torch, g):
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.engine import Engine, EngineConfig, PlanCache
+    eng = Engine(EngineConfig(backend="tile", split="lp"), cache=PlanCache())
+    eng.fit(g)   # plan and allocator warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        res = eng.fit(g)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    n_events, busy_s = _device_busy(torch, prof)
     top = sorted(((a.key, a.self_device_time_total * 1e-6, a.count)
                   for a in prof.key_averages()
                   if a.self_device_time_total > 0),
                  key=lambda x: -x[1])[:8]
     return {"fit": "fused tile fit of grid2d(3500), plan warm",
             "wall_s": wall, "timings_s": res.timings,
-            "device_events": len(spans), "device_busy_s": busy_s,
-            "device_idle_share": (1.0 - busy_s / wall) if spans else None,
+            "device_events": n_events, "device_busy_s": busy_s,
+            "device_idle_share": ((1.0 - busy_s / wall) if n_events
+                                  else None),
             "top_device": [{"name": k[:80], "s": s, "count": c}
                            for k, s, c in top]}
 
@@ -2105,6 +2396,10 @@ def main(argv=None) -> int:
                 emit({"phase": "ooc", **res})
         finally:
             shutil.rmtree(ingest_tmp, ignore_errors=True)
+    if "serve" in run:
+        res = phase_serve(torch, rt, dev)
+        serve_launches = res["a"]["launches"]
+        emit({"phase": "serve", **res})
     if "timing" in run:
         from repro_torch.engine.bucketing import bucket_for
         from repro_torch.graphgen import planted_partition
@@ -2145,6 +2440,7 @@ def main(argv=None) -> int:
          "stream_launches": stream_launches[name],
          "obs_launches": obs_launches[name],
          "ooc_launches": ooc_launches[name],
+         "serve_launches": serve_launches[name],
          "launched_by": "launches: tile fits of grid2d(3500), fused and "
                         "unfused; batch_launches: fit_many of traffic A "
                         "(32 grid2d members), tile fused and unfused; "
@@ -2153,7 +2449,10 @@ def main(argv=None) -> int:
                         "obs_launches: profile=\"full\" tile fits of "
                         "grid2d(3500), fused and unfused; ooc_launches: "
                         "out-of-core tile fits of grid2d(3500), fused "
-                        "and unfused, one launch per partition visit",
+                        "and unfused, one launch per partition visit; "
+                        "serve_launches: the serve phase's run (a), 32 "
+                        "tenants x 4 requests through TenantService "
+                        "(tile, fused)",
          "max_abs_err": kernel_err[name],
          **{k: timing[name][k] for k in keys}}
         for name in LPA_KERNELS]
@@ -2163,6 +2462,7 @@ def main(argv=None) -> int:
         "source": KERNELS["flash_attention"][0],
         "replaces": KERNELS["flash_attention"][1],
         "launches": fm["launches"],
+        "serve_launches": serve_launches["flash_attention"],
         "launched_by": "flash phase: ops.flash_attention at Yi-9B width "
                        "(B=1, S=4096, H=32, K=4, hd=128, bf16, causal)",
         "max_abs_err": fm["max_abs_err"], **{k: fm[k] for k in keys}})

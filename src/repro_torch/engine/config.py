@@ -28,6 +28,7 @@ UNPORTED = {
     "sharded backend": "A12 (multi-device)",
     "mesh": "A12 (multi-device)",
     "exchange_every": "A12 (multi-device)",
+    "lm serving": "A15 (LM scaffolding)",
 }
 
 

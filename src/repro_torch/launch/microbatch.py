@@ -16,7 +16,8 @@ dispatch.  Every submission resolves to the same per-graph
 
 Each batcher writes through to a ``batcher`` registry scope
 (``requests``, ``batches``, the ``batch_size`` and ``latency_ms``
-histograms; ``repro_torch.obs``), released when it closes, and wraps each
+histograms; ``repro_torch.obs``), released when it closes (a scope
+passed in belongs to its owner), and wraps each
 dispatch and settlement in the spans ``batch.dispatch`` and
 ``batch.settle``.
 """
@@ -74,13 +75,15 @@ class MicroBatcher:
     autostart: start the worker thread at once.  ``autostart=False`` lets
       callers enqueue a burst first and then :meth:`start`, which makes the
       batches deterministic.
-    The batcher claims a ``batcher`` registry scope, released by
-    :meth:`close` once the worker has stopped.
+    scope: the registry scope to write under.  ``None`` (standalone)
+      claims a ``batcher`` scope, released by :meth:`close` once the
+      worker has stopped; a given scope (the serving tier's
+      ``serve.batcher``) belongs to its owner and is never released here.
     """
 
     def __init__(self, engine, max_batch: int = 8,
                  batch_timeout_ms: float = 2.0, backend: str | None = None,
-                 autostart: bool = True):
+                 autostart: bool = True, scope=None):
         if max_batch < 1:
             raise ValueError("max_batch must be >= 1")
         self.engine = engine
@@ -89,7 +92,8 @@ class MicroBatcher:
         self.backend = backend
         self.batch_sizes: list[int] = []   # one entry per dispatched batch
         self._latencies: list[float] = []  # one entry per completed request
-        self._obs = REGISTRY.scope("batcher")
+        self._own_scope = scope is None
+        self._obs = REGISTRY.scope("batcher") if scope is None else scope
         self._m_requests = self._obs.counter("requests")
         self._m_batches = self._obs.counter("batches")
         self._h_batch = self._obs.histogram("batch_size", _BATCH_BUCKETS)
@@ -116,8 +120,8 @@ class MicroBatcher:
 
     def close(self, wait: bool = True, timeout: float | None = None) -> None:
         """Stop accepting requests; drain the queue, then stop the worker
-        (waiting at most ``timeout`` seconds for it when ``wait``).  The
-        registry scope is released once the worker has stopped."""
+        (waiting at most ``timeout`` seconds for it when ``wait``).  An
+        owned registry scope is released once the worker has stopped."""
         with self._lock:
             first = not self._closed
             if first:
@@ -127,7 +131,7 @@ class MicroBatcher:
             self.start()
         if wait and self._started:
             self._thread.join(timeout)
-            if not self._thread.is_alive():
+            if not self._thread.is_alive() and self._own_scope:
                 self._obs.release()
 
     def __enter__(self) -> "MicroBatcher":

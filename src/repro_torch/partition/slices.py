@@ -103,17 +103,27 @@ class MemoryLedger:
 
     def acquire(self, nbytes: int, what: str = "") -> int:
         nbytes = int(nbytes)
+        if not self.try_acquire(nbytes):
+            raise MemoryBudgetExceeded(
+                f"acquiring {nbytes} bytes for {what or 'a partition'} "
+                f"would put {self.current + nbytes} resident edge bytes "
+                f"over the {self.budget}-byte budget")
+        return nbytes
+
+    def try_acquire(self, nbytes: int, what: str = "") -> bool:
+        """:meth:`acquire` that returns False instead of raising, for
+        callers with an eviction policy of their own (the serving tier
+        spills least-recently-served tenants and retries).  ``what`` is
+        kept for the reference's signature."""
+        nbytes = int(nbytes)
         with self._lock:
             if (self.budget is not None
                     and self.current + nbytes > self.budget):
-                raise MemoryBudgetExceeded(
-                    f"acquiring {nbytes} bytes for {what or 'a partition'} "
-                    f"would put {self.current + nbytes} resident edge bytes "
-                    f"over the {self.budget}-byte budget")
+                return False
             self.current += nbytes
             self.peak = max(self.peak, self.current)
         self._publish()
-        return nbytes
+        return True
 
     def release(self, nbytes: int) -> None:
         with self._lock:

@@ -552,6 +552,48 @@ def test_cuda_kernels_on_partition_vectors_match_plain_versions():
     assert all(torch.equal(a.cpu(), b) for a, b in zip(flat, flat_w))
 
 
+def _tenant_load(device):
+    """K = 4 tenants, one client thread (deterministic), tile backend."""
+    from repro_torch.serve import ServiceConfig, TenantService
+    from repro_torch.serve.loadgen import LoadConfig, build_traces, run_load
+    cfg = LoadConfig(tenants=4, rounds=3, size=400, delta_edges=6,
+                     refresh_every=3, parity_tenants=2, client_threads=1,
+                     seed=5)
+    svc = TenantService(
+        Engine(EngineConfig(device=device, backend="tile", quality="full"),
+               cache=PlanCache()),
+        ServiceConfig(queue_capacity=8, max_batch=4, warm_budget=4000))
+    try:
+        records, summary = run_load(svc, build_traces(cfg), cfg)
+        final = {t: svc.labels(t) for t in svc.tenants()}
+    finally:
+        svc.close()
+    return records, summary, final
+
+
+@pytest.mark.cuda
+def test_cuda_tenant_service_matches_cpu():
+    """The serving tier on the card (B3 / B4 on every batch) gives the CPU
+    run's labels, iteration counts, spills and health samples."""
+    need_card()
+    ops.reset_launches()
+    recs, summary, final = _tenant_load(None)
+    assert ops.LAUNCHES["fused_move"] > 0 and ops.LAUNCHES["fused_split"] > 0
+    crecs, csummary, cfinal = _tenant_load("cpu")
+    assert summary["stranded"] == 0 and summary["failed"] == 0
+    for k in ("requests", "completed", "spills", "warm_bytes_peak"):
+        assert summary[k] == csummary[k], k
+    key = [(r["tenant"], r["kind"], r.get("lpa_iterations"),
+            r.get("warm_started")) for r in recs]
+    assert key == [(r["tenant"], r["kind"], r.get("lpa_iterations"),
+                    r.get("warm_started")) for r in crecs]
+    assert set(final) == set(cfinal)
+    for t in final:
+        assert (final[t] is None) == (cfinal[t] is None), t
+        if final[t] is not None:
+            assert np.array_equal(final[t], cfinal[t]), t
+
+
 def test_port_import_pulls_in_no_jax():
     """Importing the whole port loads neither JAX nor the JAX package."""
     code = ("import sys; import repro_torch.engine, repro_torch.core, "
@@ -559,7 +601,8 @@ def test_port_import_pulls_in_no_jax():
             "repro_torch.models.attention, repro_torch.io, "
             "repro_torch.launch.stream, repro_torch.launch.ingest, "
             "repro_torch.obs, repro_torch.launch.obs, "
-            "repro_torch.partition; "
+            "repro_torch.partition, repro_torch.serve, "
+            "repro_torch.checkpoint, repro_torch.launch.serve; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]; assert not bad, bad")
     subprocess.run([sys.executable, "-c", code], check=True, timeout=120,

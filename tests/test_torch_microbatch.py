@@ -211,3 +211,75 @@ def test_max_batch_checked_and_default_engine_needs_a_card():
         return
     with pytest.raises(RuntimeError, match="device='cpu'"):
         MicroBatcher(Engine(), autostart=False)
+
+
+def _scoped_run(batcher_cls, engine, graphs, registry, scope=None):
+    """A deterministic burst through a batcher; returns its scope label,
+    the metrics under it before and after ``close``."""
+    mb = batcher_cls(engine, max_batch=2, batch_timeout_ms=50,
+                     autostart=False, scope=scope)
+    try:
+        subs = [mb.submit(g) for g in graphs]
+        mb.start()
+        for s in subs:
+            s.result(timeout=WAIT)
+        label = mb._obs.label
+        before = {k[len(label) + 1:]: v for k, v in registry.snapshot().items()
+                  if k.startswith(label + ".")}
+    finally:
+        # the reference's close() takes no timeout: the burst has settled
+        mb.close(**({"timeout": WAIT} if batcher_cls is MicroBatcher else {}))
+    assert not mb._thread.is_alive()
+    after = {k for k in registry.snapshot() if k.startswith(label + ".")}
+    return label, before, after
+
+
+@pytest.mark.parametrize("owned", [True, False], ids=["standalone", "scoped"])
+def test_scope_metrics_match_reference_and_close_releases_owned_only(owned):
+    """A standalone batcher claims a ``batcher`` scope and releases it on
+    close; a batcher given a scope (the serving tier's ``serve.batcher``)
+    writes under it and leaves it to its owner.  The metric names and the
+    deterministic values equal the reference batcher's."""
+    from repro.launch.microbatch import MicroBatcher as JBatcher
+    from repro.obs import REGISTRY as JREGISTRY
+    from repro_torch.obs import REGISTRY
+
+    jgraphs = [jgen.erdos_renyi(n, 4.0, seed=i)
+               for i, n in enumerate((50, 60, 70))]
+    runs = {}
+    for name, cls, eng, graphs, reg in (
+            ("port", MicroBatcher, fresh_engine(backend="segment"),
+             [port_of(g) for g in jgraphs], REGISTRY),
+            ("jax", JBatcher, JEngine(JConfig(backend="segment"),
+                                      cache=CompileCache()), jgraphs,
+             JREGISTRY)):
+        owner = None if owned else reg.scope("serve")
+        try:
+            label, before, after = _scoped_run(
+                cls, eng, graphs, reg,
+                None if owner is None else owner.scope("batcher"))
+        finally:
+            if owner is not None:
+                owner_label = owner.label
+                kept = {k for k in reg.snapshot()
+                        if k.startswith(owner_label + ".")}
+                owner.release()
+                assert not any(k.startswith(owner_label + ".")
+                               for k in reg.snapshot())
+        runs[name] = (label, before, after, None if owner is None else kept)
+
+    (label, before, after, kept), jrun = runs["port"], runs["jax"]
+    assert set(before) == set(jrun[1]) == {
+        "requests", "batches", "batch_size", "latency_ms"}
+    assert before["requests"] == jrun[1]["requests"] == 3
+    assert before["batches"] == jrun[1]["batches"] == 2
+    assert before["batch_size"] == jrun[1]["batch_size"]
+    assert before["latency_ms"]["count"] == jrun[1]["latency_ms"]["count"]
+    if owned:
+        assert label.split("#")[0] == jrun[0].split("#")[0] == "batcher"
+        assert after == set() and jrun[2] == set()
+    else:
+        assert label.startswith("serve") and label.endswith(".batcher")
+        assert label.split(".")[1:] == jrun[0].split(".")[1:]
+        assert len(after) == len(jrun[2]) == 4     # survives close()
+        assert after == kept
