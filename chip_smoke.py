@@ -142,6 +142,26 @@ Phases, one JSON line each:
            repro_torch.launch.serve --mode tenants --metrics-jsonl (a
            subprocess).  Wall, p50 / p99, edges/s, warm peak, spills, the
            batch histogram and the launches of each run.
+  sharded  multi-device detection (needs main): the sharded backend over
+           torch.distributed, its ranks in spawned processes (the parent
+           never joins a group) that read main's graph from .npy files.
+           (a) One NCCL rank, a one-rank CUDA DeviceMesh: Engine.fit of
+           grid2d(3500) with exchange_every=1 equals main's fits (labels,
+           both iteration counts), B1 launched 2 x lpa_iterations times
+           and B2 split_iterations times (counts reset just before, read
+           just after), no fused launch; again warm, and once under
+           torch.profiler (device busy, top ops); exchange_every=2 has no
+           disconnected community; one exchange (the all-gather of the
+           16.8M-label replica) timed; B1 and B2 on the rank's tiles exact
+           against their plain versions, timed beside their bounds.
+           (b) Two gloo ranks, both on cuda:0 (no mesh: the default
+           group): grid2d(3500) at exchange_every=1 equals main's labels
+           on both ranks, with the same launch rule; the exchange timed;
+           B1 and B2 on rank 1's rotated half tiles (8.4M rows) checked
+           and timed; then planted_partition(32, 512, 0.04, 0.0005,
+           seed=1) (D=64) at exchange_every=2 equals the same run on two
+           CPU gloo ranks.  (c) The walls, propagation and split seconds
+           of (a) and (b) beside main's unfused tile fit.
   timing   the four LPA kernels (CUDA events) beside their plain versions
            and bounds, at the main fit's D=4 tiles, the ER graph's D=64
            tiles and planted_partition(128, 1024, 0.3, 0.001)'s D=512
@@ -182,6 +202,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 
@@ -200,12 +221,12 @@ PLANTED_GRAPH = "planted_partition(128, 1024, 0.3, 0.001, seed=0)"
 SKEW_GRAPH = "rmat(20, 16, seed=0)"
 PHASES = ("kernels", "parity", "c1", "main", "wide_fit", "dense",
           "skew_fit", "batch", "obs", "microbatch", "stream", "ingest",
-          "ooc", "serve", "timing", "trace", "flash")
+          "ooc", "serve", "sharded", "timing", "trace", "flash")
 # phase -> the phases whose graphs and fits it reuses
 NEEDS = {"timing": ("main", "wide_fit"), "trace": ("main",),
          "dense": ("wide_fit",), "microbatch": ("batch",),
          "stream": ("main",), "obs": ("main", "batch"),
-         "ooc": ("main", "ingest")}
+         "ooc": ("main", "ingest"), "sharded": ("main",)}
 # The obs phase's traffic-A members held against their solo fits.
 OBS_MEMBERS = (0, 15, 31)
 # The stream phase's road edits of the main graph, grid2d(ROAD_SIDE).
@@ -227,6 +248,11 @@ SERVE_BUDGETS = (16_000_000, 9_600_000)
 SERVE_SPANS = ("engine.fit_many", "engine.prepare", "engine.dispatch",
                "engine.compact", "engine.quality", "serve.launch",
                "serve.settle")
+# The sharded phase's second graph (traffic B's member shape, D=64), its
+# stale cadence, and each spawned run's deadline.
+SHARDED_PLANTED = "planted_partition(32, 512, 0.04, 0.0005, seed=1)"
+SHARDED_STALE_K = 2
+SHARDED_TIMEOUT_S = 300
 # The ingest phase's file: grid2d(INGEST_SIDE) as MatrixMarket.
 INGEST_SIDE = 2000
 GRAPH_FIELDS = ("row_ptr", "src", "dst", "wgt", "edge_mask", "kdeg")
@@ -1848,6 +1874,288 @@ def phase_serve(torch, rt, dev):
 
 # ---------------------------------------------------------------- timing
 
+def _save_graph(g, d: Path) -> None:
+    """``g``'s arrays as .npy files in ``d``, for spawned ranks."""
+    for f in GRAPH_FIELDS:
+        np.save(d / f"{f}.npy", getattr(g, f).cpu().numpy())
+    (d / "graph.json").write_text(json.dumps(
+        {"n": g.n, "num_edges": g.num_edges}))
+
+
+def _load_graph(d: Path, dev):
+    from repro_torch.core.graph import graph_from_arrays
+    meta = json.loads((d / "graph.json").read_text())
+    return graph_from_arrays(meta["n"], meta["num_edges"],
+                             *(np.load(d / f"{f}.npy") for f in GRAPH_FIELDS),
+                             device=dev)
+
+
+def _host_ms(torch, fn, reps=5) -> float:
+    """Host-clock milliseconds per call, the device idle at both ends (a
+    gloo collective stages CUDA tensors through the host)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / reps * 1e3
+
+
+def _sharded_fit(torch, ops, eng, g):
+    """One sharded fit, timed, with the LPA kernels' launches (reset just
+    before, read just after) and the rank's peak device memory in it
+    (``g`` lies on the host: the fit moves only the rank's rows)."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    res, wall = _wall(torch, lambda: eng.fit(g))
+    launches = {k: ops.LAUNCHES[k] for k in LPA_KERNELS}
+    return res, {"device_peak_bytes": torch.cuda.max_memory_allocated()
+                 - base, "propagation_s": res.lpa_seconds,
+                 "split_s": res.split_seconds, "timings_s": res.timings,
+                 "wall_s": wall, "lpa_iterations": res.lpa_iterations,
+                 "split_iterations": res.split_iterations,
+                 "communities": res.num_communities, "launches": launches}
+
+
+def _sharded_kernels(torch, rt, g, bucket, mesh, labels_np, dev):
+    """B1 and B2 on this rank's tiles as the sharded backend prepares them
+    for the timed fit (the rotated replica of ``labels_np``; B2 as a
+    split's first sweep), exact against their plain versions, timed
+    beside their bounds."""
+    from repro_torch.core.distributed import rotate
+    from repro_torch.engine import EngineConfig, get_backend
+    from repro_torch.engine.bucketing import BucketKey, pad_labels
+    sg = get_backend("sharded").prepare(
+        g, BucketKey(*bucket),
+        EngineConfig(backend="sharded", mesh=mesh, device=str(dev)))
+    labels = rotate(torch.from_numpy(pad_labels(
+        labels_np, g.n, sg.n_pad)).to(dev), sg.row0)
+    ids = rotate(torch.arange(sg.n_pad, dtype=torch.int32, device=dev),
+                 sg.row0)
+    t = {"nbr": sg.nbr, "nw": sg.nw, "nmask": sg.nmask, "labels": labels}
+    ops, ref = rt.ops, rt.ref
+    rows = {"label_argmax": _kernel_row(
+        torch, "label_argmax", t,
+        lambda: ops.label_argmax(sg.nbr, sg.nw, sg.nmask, labels, 3),
+        lambda: _plain_rows(torch, ref, "label_argmax", t, 3), 3,
+        _argmax_work(torch, t, "label_argmax"))[1]}
+    rows["min_label"] = _kernel_row(
+        torch, "min_label", t,
+        lambda: ops.min_label(sg.nbr, sg.nmask, ids, labels),
+        lambda: ref.min_label_ref(sg.nbr, sg.nmask, ids, labels), 3,
+        _split_work(t, False))[1]
+    for r in rows.values():
+        r.update(row0=sg.row0, n_pad=sg.n_pad)
+    return rows
+
+
+def _sharded_nccl_rank(rank, world, tmp):
+    """Phase sharded (a): one NCCL rank on a one-rank CUDA mesh."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.core.distributed import exchange, resolve_shards
+    from repro_torch.engine import Engine, EngineConfig, PlanCache
+    from repro_torch.kernels import build, ops, ref
+    from repro_torch.launch.mesh import make_flat_mesh
+    torch.backends.cuda.matmul.allow_tf32 = False   # plain argmax sums
+    build.load_library()
+    dev = torch.device("cuda", torch.cuda.current_device())
+    tmp = Path(tmp)
+    g = _load_graph(tmp, "cpu")
+    want = np.load(tmp / "main_labels.npy")
+    mesh = make_flat_mesh()
+    out = {"mesh": repr(mesh), "backend": dist.get_backend()}
+    fits = {}
+    for k in (1, SHARDED_STALE_K):
+        eng = Engine(EngineConfig(backend="sharded", mesh=mesh,
+                                  exchange_every=k), cache=PlanCache())
+        # cold: the plans and NCCL's communicator are built in this fit
+        res, line = _sharded_fit(torch, ops, eng, g)
+        line["labels_equal_main"] = bool(np.array_equal(res.labels, want))
+        line["bucket"] = list(res.bucket)
+        out[f"k{k}"], fits[k] = line, res
+        if k == 1:
+            res, line = _sharded_fit(torch, ops, eng, g)
+            line["labels_equal_main"] = bool(np.array_equal(res.labels,
+                                                            want))
+            out["k1_warm"] = line
+            res, line = _traced_fit(torch, eng, g)
+            line["labels_equal_main"] = bool(np.array_equal(res.labels,
+                                                            want))
+            out["k1_traced"] = line
+    gd = g.to(dev)   # the whole graph, for the connectivity checks only
+    for k, res in fits.items():
+        out[f"k{k}"]["disconnected_fraction"] = res.check_connected(gd)
+    del gd
+    shards = resolve_shards(mesh)
+    x = torch.arange(out["k1"]["bucket"][0], dtype=torch.int32, device=dev)
+    out["exchange_ms"] = _time_ms(torch, lambda: exchange(shards, x))
+    out["exchange_host_ms"] = _host_ms(torch, lambda: exchange(shards, x))
+    out["exchange_bytes"] = 4 * x.numel()
+    out["kernels"] = _sharded_kernels(
+        torch, SimpleNamespace(ops=ops, ref=ref), g, out["k1"]["bucket"],
+        mesh, want, dev)
+    return out
+
+
+def _sharded_gloo_rank(rank, world, tmp, device):
+    """Phase sharded (b): one of two gloo ranks (no mesh: the default
+    group).  On the card, grid2d(3500) at exchange_every=1 first; then
+    the planted graph at SHARDED_STALE_K, on ``device``."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.core.distributed import exchange, resolve_shards
+    from repro_torch.engine import Engine, EngineConfig, PlanCache
+    from repro_torch.graphgen import planted_partition
+    from repro_torch.kernels import build, ops, ref
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device(device)
+    out = {"rank": rank, "world": world, "device": device}
+    if dev.type == "cuda":
+        build.load_library()
+        tmp = Path(tmp)
+        g = _load_graph(tmp, "cpu")
+        want = np.load(tmp / "main_labels.npy")
+        eng = Engine(EngineConfig(backend="sharded"), cache=PlanCache())
+        res, line = _sharded_fit(torch, ops, eng, g)
+        line["labels_equal_main"] = bool(np.array_equal(res.labels, want))
+        line["bucket"] = list(res.bucket)
+        out["grid"] = line
+        shards = resolve_shards(None)
+        n_loc = res.bucket[0] // shards.count
+        x = torch.arange(n_loc, dtype=torch.int32, device=dev)
+        out["exchange_host_ms"] = _host_ms(torch,
+                                           lambda: exchange(shards, x))
+        out["exchange_bytes"] = 4 * n_loc * shards.count
+        dist.barrier()
+        if rank == 1:   # rank 0 waits: the card is rank 1's alone
+            out["kernels"] = _sharded_kernels(
+                torch, SimpleNamespace(ops=ops, ref=ref), g, res.bucket,
+                None, want, dev)
+        dist.barrier()
+        del g
+    else:   # the host's cores shared between the ranks
+        import os
+        torch.set_num_threads(max(1, (os.cpu_count() or world) // world))
+    gp = planted_partition(32, 512, 0.04, 0.0005, seed=1)[0].to(dev)
+    t0 = time.perf_counter()
+    res = Engine(EngineConfig(backend="sharded", device=device,
+                              exchange_every=SHARDED_STALE_K),
+                 cache=PlanCache()).fit(gp)
+    out["planted"] = {"labels": res.labels, "wall_s": time.perf_counter() - t0,
+                      "lpa_iterations": res.lpa_iterations,
+                      "split_iterations": res.split_iterations,
+                      "bucket": list(res.bucket),
+                      "disconnected_fraction": res.check_connected(gp)}
+    return out
+
+
+def _launch_rule(line, ctx) -> None:
+    n = line["launches"]
+    check(n["label_argmax"] == 2 * line["lpa_iterations"]
+          and n["min_label"] == line["split_iterations"]
+          and n["fused_move"] == n["fused_split"] == 0,
+          f"{ctx}: launches {n} for {line['lpa_iterations']} LPA steps "
+          f"and {line['split_iterations']} split sweeps")
+
+
+def phase_sharded(torch, dev, g, fused, main_res):
+    """Multi-device detection over torch.distributed; returns (a)'s
+    launches and the phase's line."""
+    import shutil
+    import tempfile
+
+    from repro_torch.launch.mesh import spawn_ranks
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_sharded_"))
+    try:
+        t0 = time.perf_counter()
+        _save_graph(g, tmp)
+        np.save(tmp / "main_labels.npy", fused.labels)
+        save_s = time.perf_counter() - t0
+        runs = {}
+        for name, fn, world, backend, args in (
+                ("a", _sharded_nccl_rank, 1, "nccl", (str(tmp),)),
+                ("b", _sharded_gloo_rank, 2, "gloo", (str(tmp), "cuda")),
+                ("b_cpu", _sharded_gloo_rank, 2, "gloo", (str(tmp), "cpu"))):
+            t0 = time.perf_counter()
+            out = spawn_ranks(fn, world, args, backend=backend,
+                              timeout=SHARDED_TIMEOUT_S)
+            runs[name] = (out, time.perf_counter() - t0)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    main_it = (fused.lpa_iterations, fused.split_iterations)
+    (a,), a_s = runs["a"]
+    k1, kst = a["k1"], a[f"k{SHARDED_STALE_K}"]
+    check(k1["labels_equal_main"] and (k1["lpa_iterations"],
+                                       k1["split_iterations"]) == main_it,
+          f"(a) one NCCL rank differs from main's fits: {main_it} vs "
+          f"{(k1['lpa_iterations'], k1['split_iterations'])}")
+    _launch_rule(k1, "(a) exchange_every=1")
+    for name in ("k1_warm", "k1_traced"):
+        check(a[name]["labels_equal_main"], f"(a) {name} differs from main")
+    _launch_rule(a["k1_warm"], "(a) exchange_every=1, warm")
+    _launch_rule({**kst, "lpa_iterations": SHARDED_STALE_K
+                  * kst["lpa_iterations"]}, "(a) stale")
+    check(kst["disconnected_fraction"] == 0.0,
+          f"(a) exchange_every={SHARDED_STALE_K}: disconnected fraction "
+          f"{kst['disconnected_fraction']}")
+    b, b_s = runs["b"]
+    b_cpu, b_cpu_s = runs["b_cpu"]
+    for r in b:
+        line = r["grid"]
+        check(line["labels_equal_main"] and (
+            line["lpa_iterations"], line["split_iterations"]) == main_it,
+            f"(b) gloo rank {r['rank']} differs from main's fits")
+        _launch_rule(line, f"(b) rank {r['rank']}")
+        # a rank holds only its rows: its peak is below the one rank's
+        check(line["device_peak_bytes"] < k1["device_peak_bytes"],
+              f"(b) gloo rank {r['rank']} peaks at "
+              f"{line['device_peak_bytes']} B, one rank at "
+              f"{k1['device_peak_bytes']} B")
+    planted = [r["planted"] for r in b + b_cpu]
+    for p in planted:
+        check(np.array_equal(p["labels"], planted[0]["labels"])
+              and (p["lpa_iterations"], p["split_iterations"])
+              == (planted[0]["lpa_iterations"],
+                  planted[0]["split_iterations"])
+              and p["disconnected_fraction"] == 0.0,
+              f"(b) {SHARDED_PLANTED} at exchange_every={SHARDED_STALE_K}: "
+              "the card's two ranks differ from the CPU's")
+    unfused = main_res["unfused"]
+
+    def brief(p):
+        return {k: v for k, v in p.items() if k != "labels"}
+    return k1["launches"], {
+        "graph": "grid2d(3500)", "graph_save_s": save_s,
+        "a": {"world": 1, "backend": a["backend"], "mesh": a["mesh"],
+              "command_s": a_s, "exchange_every_1": k1,
+              "exchange_every_1_warm": a["k1_warm"],
+              "exchange_every_1_traced": a["k1_traced"],
+              f"exchange_every_{SHARDED_STALE_K}": kst,
+              "exchange_ms": a["exchange_ms"],
+              "exchange_host_ms": a["exchange_host_ms"],
+              "exchange_bytes": a["exchange_bytes"],
+              "kernels": a["kernels"]},
+        "b": {"world": 2, "backend": "gloo", "device": "cuda:0 (both ranks)",
+              "command_s": b_s, "grid": [r["grid"] for r in b],
+              "exchange_host_ms": [r["exchange_host_ms"] for r in b],
+              "exchange_bytes": b[0]["exchange_bytes"],
+              "kernels_rank1": b[1]["kernels"],
+              "planted_graph": SHARDED_PLANTED,
+              "planted": [brief(r["planted"]) for r in b],
+              "planted_cpu": [brief(r["planted"]) for r in b_cpu],
+              "cpu_command_s": b_cpu_s},
+        "main_unfused": {"wall_s": unfused["wall_s"],
+                         "propagation_s": unfused["timings_s"]["propagation"],
+                         "split_s": unfused["timings_s"]["split"]}}
+
+
 def _time_ms(torch, fn, reps=20, warmup=3):
     for _ in range(warmup):
         fn()
@@ -2123,12 +2431,10 @@ def _device_busy(torch, prof) -> tuple[int, float]:
     return len(spans), busy * 1e-6
 
 
-def phase_trace(torch, g):
+def _traced_fit(torch, eng, g):
+    """One ``eng.fit(g)`` under torch.profiler: (result, its wall, stage
+    timings, device busy seconds and idle share, top device ops)."""
     from torch.profiler import ProfilerActivity, profile
-
-    from repro_torch.engine import Engine, EngineConfig, PlanCache
-    eng = Engine(EngineConfig(backend="tile", split="lp"), cache=PlanCache())
-    eng.fit(g)   # plan and allocator warm
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -2141,13 +2447,20 @@ def phase_trace(torch, g):
                   for a in prof.key_averages()
                   if a.self_device_time_total > 0),
                  key=lambda x: -x[1])[:8]
+    return res, {"wall_s": wall, "timings_s": res.timings,
+                 "device_events": n_events, "device_busy_s": busy_s,
+                 "device_idle_share": ((1.0 - busy_s / wall) if n_events
+                                       else None),
+                 "top_device": [{"name": k[:80], "s": s, "count": c}
+                                for k, s, c in top]}
+
+
+def phase_trace(torch, g):
+    from repro_torch.engine import Engine, EngineConfig, PlanCache
+    eng = Engine(EngineConfig(backend="tile", split="lp"), cache=PlanCache())
+    eng.fit(g)   # plan and allocator warm
     return {"fit": "fused tile fit of grid2d(3500), plan warm",
-            "wall_s": wall, "timings_s": res.timings,
-            "device_events": n_events, "device_busy_s": busy_s,
-            "device_idle_share": ((1.0 - busy_s / wall) if n_events
-                                  else None),
-            "top_device": [{"name": k[:80], "s": s, "count": c}
-                           for k, s, c in top]}
+            **_traced_fit(torch, eng, g)[1]}
 
 
 # ----------------------------------------------------------------- flash
@@ -2308,8 +2621,6 @@ def main(argv=None) -> int:
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
         return 2
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
-    from types import SimpleNamespace
-
     from repro_torch.kernels import build, ops, ref
     rt = SimpleNamespace(ops=ops, ref=ref)
     torch.backends.cuda.matmul.allow_tf32 = False   # plain argmax sums
@@ -2400,6 +2711,9 @@ def main(argv=None) -> int:
         res = phase_serve(torch, rt, dev)
         serve_launches = res["a"]["launches"]
         emit({"phase": "serve", **res})
+    if "sharded" in run:
+        sharded_launches, res = phase_sharded(torch, dev, g, fused, main_res)
+        emit({"phase": "sharded", **res})
     if "timing" in run:
         from repro_torch.engine.bucketing import bucket_for
         from repro_torch.graphgen import planted_partition
@@ -2441,6 +2755,7 @@ def main(argv=None) -> int:
          "obs_launches": obs_launches[name],
          "ooc_launches": ooc_launches[name],
          "serve_launches": serve_launches[name],
+         "sharded_launches": sharded_launches[name],
          "launched_by": "launches: tile fits of grid2d(3500), fused and "
                         "unfused; batch_launches: fit_many of traffic A "
                         "(32 grid2d members), tile fused and unfused; "
@@ -2452,7 +2767,9 @@ def main(argv=None) -> int:
                         "and unfused, one launch per partition visit; "
                         "serve_launches: the serve phase's run (a), 32 "
                         "tenants x 4 requests through TenantService "
-                        "(tile, fused)",
+                        "(tile, fused); sharded_launches: the sharded "
+                        "phase's one-NCCL-rank fit of grid2d(3500), "
+                        "exchange_every=1 (B1 and B2, unfused)",
          "max_abs_err": kernel_err[name],
          **{k: timing[name][k] for k in keys}}
         for name in LPA_KERNELS]

@@ -11,7 +11,9 @@ the other bit for bit:
   * writes go to ``tmp-<step>`` and are renamed to ``step-<step>``, so a
     crash mid-write never leaves a visible half checkpoint;
   * ``save(..., blocking=False)`` hands the host copy to a writer thread;
-  * ``keep`` retains the newest k checkpoints.
+  * ``keep`` retains the newest k checkpoints;
+  * ``restore(..., shardings=)`` reshards leaves onto device meshes as
+    ``DTensor`` s (the elastic restart).
 
 Leaves are torch tensors, numpy arrays or scalars.  Types numpy cannot
 store (bfloat16) are saved as their raw unsigned bits and viewed
@@ -30,8 +32,6 @@ from pathlib import Path
 
 import numpy as np
 import torch
-
-from repro_torch.engine.config import unported
 
 # torch dtypes with no numpy dtype -> the integer views that carry their
 # bits (torch's signed one, numpy's unsigned one, as stored).
@@ -114,6 +114,38 @@ def _restore_leaf(name: str, arr: np.ndarray, ref, device) -> torch.Tensor:
             arr = arr.view(ref_np)
         out = torch.from_numpy(np.ascontiguousarray(arr))
     return out.to(ref_t.device if device is None else device)
+
+
+def _is_sharding(node) -> bool:
+    from torch.distributed.device_mesh import DeviceMesh
+    return isinstance(node, (tuple, list)) and len(node) == 2 \
+        and isinstance(node[0], DeviceMesh)
+
+
+def _shardings_by_name(tree, prefix=()) -> dict:
+    """``name -> (mesh, placements)`` of a shardings tree (leaves named as
+    ``_walk`` names them; None leaves are left out)."""
+    if tree is None:
+        return {}
+    if _is_sharding(tree):
+        return {"/".join(prefix): tree}
+    kids = _children(tree)
+    if kids is None:
+        raise ValueError(f"shardings leaf {'/'.join(prefix)!r} must be a "
+                         f"(DeviceMesh, placements) pair or None, got "
+                         f"{type(tree).__name__}")
+    out = {}
+    for key, child in kids:
+        out.update(_shardings_by_name(child, prefix + (str(key),)))
+    return out
+
+
+def _distribute(tensor: torch.Tensor, mesh, placements):
+    """``tensor`` (the same full value on every rank) as a DTensor on
+    ``mesh``: each rank keeps its own part, with no collective."""
+    from torch.distributed.tensor import distribute_tensor
+    return distribute_tensor(tensor.to(mesh.device_type), mesh,
+                             list(placements), src_data_rank=None)
 
 
 class CheckpointManager:
@@ -211,14 +243,21 @@ class CheckpointManager:
 
         Each leaf comes back as a tensor with the stored dtype (raw bits
         viewed back as the target's dtype), on its target leaf's device,
-        or on ``device`` when one is given.  ``shardings`` (the
-        reference's elastic reshard onto a mesh) is not ported.
-        Returns ``(tree, step, extra)``.
+        or on ``device`` when one is given.  ``shardings`` (the elastic
+        restart: same structure as the tree, every leaf a ``(DeviceMesh,
+        placements)`` pair of ``torch.distributed.tensor`` placements, or
+        None) reshards a leaf onto its mesh: it comes back as a
+        ``DTensor`` whose ``full_tensor()`` is the stored array.  Every
+        rank of the mesh reads the file and keeps its own part, with no
+        collective.  Returns ``(tree, step, extra)``.
         """
-        if shardings is not None:
-            raise unported("mesh")
+        placed = _shardings_by_name(shardings)
         step, d, manifest = self._open(step, verify)
+
+        def leaf(name, ref):
+            out = _restore_leaf(name, data[name], ref, device)
+            return out if placed.get(name) is None \
+                else _distribute(out, *placed[name])
         with np.load(d / "arrays.npz") as data:
-            tree = _rebuild(target_tree, lambda name, ref: _restore_leaf(
-                name, data[name], ref, device))
+            tree = _rebuild(target_tree, leaf)
         return tree, step, manifest.get("extra", {})

@@ -14,7 +14,7 @@ from typing import Any
 
 import numpy as np
 
-BACKENDS = ("auto", "segment", "tile")
+BACKENDS = ("auto", "segment", "tile", "sharded")
 SPLIT_METHODS = ("none", "lp", "lpp", "bfs_host")
 BUCKETING = ("pow2", "exact")
 FUSE_SWEEPS = ("auto", "on", "off")
@@ -25,9 +25,6 @@ QUALITY = ("off", "basic", "full")
 
 # Option -> the ROADMAP item (Queue A) that ports it.
 UNPORTED = {
-    "sharded backend": "A12 (multi-device)",
-    "mesh": "A12 (multi-device)",
-    "exchange_every": "A12 (multi-device)",
     "lm serving": "A15 (LM scaffolding)",
 }
 
@@ -44,8 +41,11 @@ class EngineConfig:
 
     backend: ``"segment"`` (edge-list sort + segment reductions, plain
       tensor ops), ``"tile"`` (padded-neighbor tiles over the four LPA
-      kernels) or ``"auto"`` (tile on CUDA for degree-bounded graphs whose
-      tiles fit the cell limit, else segment).
+      kernels), ``"sharded"`` (row-sharded tiles over
+      ``torch.distributed``, one process per rank) or ``"auto"`` (sharded
+      when ``mesh`` is given or the process is one of several ranks; else
+      tile on CUDA for degree-bounded graphs whose tiles fit the cell
+      limit, else segment).
     tau / max_iterations / split / shortcut: the GSL-LPA algorithm knobs
       (paper Algorithm 3 + Section 4), the JAX engine's semantics.
     bucketing: ``"pow2"`` pads vertex / edge / degree counts to powers of
@@ -92,8 +92,12 @@ class EngineConfig:
       partition by partition (``repro_torch.partition``), with labels
       equal to the in-core fit's.  ``Engine.fit(..., memory_budget=)``
       overrides it per call.
-    exchange_every, mesh: accepted only at their defaults (see
-      ``UNPORTED``).
+    exchange_every: sharded backend, the label all-gather cadence: 1
+      equals the single-device fit; k > 1 runs 2k sub-sweeps per step on
+      stale remote labels and exchanges once.
+    mesh: sharded backend, a ``torch.distributed.device_mesh.DeviceMesh``
+      (flattened over all its dimensions); None: the default process group
+      when one is initialised, else one rank.
     """
     backend: str = "auto"
     tau: float = 0.05
@@ -117,12 +121,8 @@ class EngineConfig:
     quality: str = "off"
 
     def __post_init__(self):
-        if self.backend == "sharded":
-            raise unported("sharded backend")
-        if self.mesh is not None:
-            raise unported("mesh")
-        if self.exchange_every != 1:
-            raise unported("exchange_every")
+        if self.exchange_every < 1:
+            raise ValueError("exchange_every must be >= 1")
         if self.memory_budget is not None:
             from repro_torch.partition.plan import parse_bytes
             budget = parse_bytes(self.memory_budget)
@@ -151,7 +151,8 @@ class EngineConfig:
     def algo_key(self) -> tuple:
         """The hashable algorithm statics a plan specialises on."""
         return (self.tau, self.max_iterations, self.split, self.shortcut,
-                self.kernel_mode, self.fuse_sweeps, self.profile)
+                self.exchange_every, self.kernel_mode, self.fuse_sweeps,
+                self.profile)
 
 
 @dataclasses.dataclass

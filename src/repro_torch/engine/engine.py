@@ -273,8 +273,8 @@ class Engine:
         fp = self._auto_fp(graph)
         init_labels, init_active, warm = self._resolve_warm(
             graph.n, init_labels, init_active, fp, "init_labels")
-        result = self._fit_resolved(graph.to(self.device), init_labels,
-                                    init_active, backend, warm)
+        result = self._fit_resolved(graph, init_labels, init_active,
+                                    backend, warm)
         if fp is not None:
             self._warm.put(fp, result.labels)
         return result
@@ -349,7 +349,9 @@ class Engine:
         Batch-level stage times (prepare, propagation, split) are given to
         each member pro rata by its share of the packed work (vertices +
         edges) under ``"prorated_*"`` keys; the host split and the
-        compaction are timed per member.
+        compaction are timed per member.  A backend without a batched
+        path (``sharded``) runs the members as sequential fits, with the
+        same warm-start semantics.
         """
         graphs = [_as_graph(g) for g in graphs]
         if not graphs:
@@ -371,10 +373,15 @@ class Engine:
         if name == "auto":
             name = choose_backend_batch(graphs, self.config, self.device)
         be = get_backend(name)
-        if not getattr(be, "supports_batch", False):
-            raise ValueError(f"backend {name!r} has no batched path")
-        results = self._fit_many_packed(graphs, labels_r, active_r, warm_r,
-                                        name, be)
+        if getattr(be, "supports_batch", False):
+            results = self._fit_many_packed(graphs, labels_r, active_r,
+                                            warm_r, name, be)
+        else:
+            # sequential fits (the sharded backend), warm state resolved
+            # against the cache as it stood before the first
+            results = [self._fit_resolved(g, labels_r[i], active_r[i],
+                                          name, warm_r[i])
+                       for i, g in enumerate(graphs)]
         for fp, res in zip(fps, results):
             if fp is not None:
                 self._warm.put(fp, res.labels)
@@ -468,6 +475,8 @@ class Engine:
         if name == "auto":
             name = choose_backend(graph, cfg, self.device)
         be = get_backend(name)
+        if not getattr(be, "rows_only", False):
+            graph = graph.to(self.device)
 
         bucket = bucket_for(graph, bucketing=cfg.bucketing,
                             min_vertex_bucket=cfg.min_vertex_bucket,
@@ -511,6 +520,8 @@ class Engine:
             bucket=tuple(bucket), cache_hit=cache_hit,
             warm_started=warm_started, device=str(self.device),
             profile=run.profile)
+        if cfg.compute_metrics or cfg.quality == "full":
+            graph = graph.to(self.device)
         if cfg.compute_metrics:
             self._attach_metrics(result, graph)
         if cfg.quality != "off":

@@ -29,6 +29,7 @@ from typing import Any, NamedTuple, Protocol
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.core.graph import Graph
 from repro_torch.engine.bucketing import (
@@ -38,7 +39,7 @@ from repro_torch.engine.bucketing import (
     max_degree,
     next_pow2,
 )
-from repro_torch.engine.config import EngineConfig, unported
+from repro_torch.engine.config import EngineConfig
 
 
 class BackendRun(NamedTuple):
@@ -169,8 +170,6 @@ def register_backend(name: str):
 
 
 def get_backend(name: str) -> Backend:
-    if name == "sharded":
-        raise unported("sharded backend")
     try:
         return _BACKENDS[name]
     except KeyError:
@@ -189,9 +188,19 @@ _TILE_MAX_DEGREE = 1024
 _TILE_MAX_CELLS = 1 << 24
 
 
+def _multi_rank(config: EngineConfig) -> bool:
+    """A mesh was given, or this process is one of several ranks: the
+    JAX engine's ``device_count() > 1 or mesh is not None``."""
+    return config.mesh is not None or (
+        dist.is_available() and dist.is_initialized()
+        and dist.get_world_size() > 1)
+
+
 def choose_backend(graph: Graph, config: EngineConfig,
                    device: torch.device) -> str:
-    """Pick a backend from graph shape and device."""
+    """Pick a backend from graph shape, device and ranks."""
+    if _multi_rank(config):
+        return "sharded"
     return _choose(graph.n, max_degree(graph), device)
 
 
@@ -199,6 +208,8 @@ def choose_backend_batch(graphs, config: EngineConfig,
                          device: torch.device) -> str:
     """Pick a backend for a batched dispatch: ``choose_backend``'s policy
     applied to the packed totals (all rows, the widest member's degree)."""
+    if _multi_rank(config):
+        return "sharded"
     return _choose(sum(g.n for g in graphs),
                    max(max_degree(g) for g in graphs), device)
 

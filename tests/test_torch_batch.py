@@ -275,21 +275,21 @@ def test_fit_many_checks_inputs(tmp_path, monkeypatch):
 
 
 def test_fit_many_needs_a_batched_backend():
-    from repro_torch.engine import register_backend
-    from repro_torch.engine.registry import _BACKENDS
-
-    @register_backend("solo_only")
-    class SoloOnly:
-        name = "solo_only"
-    try:
-        with pytest.raises(ValueError, match="batched"):
-            port_engine("auto", "auto").fit_many(
-                [port_of(jgen.karate_club()[0])], backend="solo_only")
-    finally:
-        del _BACKENDS["solo_only"]
-    with pytest.raises(NotImplementedError, match="A12"):
-        port_engine("segment", "auto").fit_many(
-            [port_of(jgen.karate_club()[0])], backend="sharded")
+    """A backend without a batched path (``sharded``) serves ``fit_many``
+    with sequential solo fits, as the reference's does: each member
+    equals its solo fit and the reference's member, warm ones too."""
+    graphs = [jgen.karate_club()[0],
+              jgen.planted_partition(4, 20, 0.4, 0.02, seed=1)[0]]
+    warm = [None, np.arange(graphs[1].n, dtype=np.int32)[::-1].copy()]
+    eng = port_engine("sharded", "auto")
+    got = eng.fit_many([port_of(g) for g in graphs], init_labels=warm)
+    want = JEngine(JConfig(backend="sharded"),
+                   cache=CompileCache()).fit_many(graphs, init_labels=warm)
+    for i, (w, m, g) in enumerate(zip(want, got, graphs)):
+        assert_same(w, m, i)
+        assert_same(eng.fit(port_of(g), init_labels=warm[i]), m, i)
+        assert (m.backend, m.batch_size, m.warm_started) \
+            == ("sharded", 1, warm[i] is not None)
 
 
 def test_fit_many_default_device_is_cuda():

@@ -206,15 +206,105 @@ def test_shape_mismatch_rejected(tmp_path, pkg):
 
 
 def test_restore_places_leaves_and_refuses_shardings(tmp_path):
-    """Each leaf lands on its target's device (or on ``device``); the
-    reference's elastic ``shardings=`` path belongs to A12."""
+    """Each leaf lands on its target's device (or on ``device``); a None
+    sharding leaf restores as no sharding does, and a shardings leaf that
+    is not a (DeviceMesh, placements) pair is refused."""
     mgr = CheckpointManager(tmp_path)
     tree = {"w": torch.arange(16.0).reshape(4, 4)}
     mgr.save(1, tree)
     got, _, _ = mgr.restore({"w": torch.zeros(4, 4)}, device="cpu")
     assert got["w"].device.type == "cpu"
     assert torch.equal(got["w"], tree["w"])
-    with pytest.raises(NotImplementedError, match="A12"):
-        mgr.restore(tree, shardings={"w": None})
+    plain, _, _ = mgr.restore(tree, shardings={"w": None})
+    assert type(plain["w"]) is torch.Tensor
+    assert torch.equal(plain["w"], tree["w"])
+    with pytest.raises(ValueError, match="DeviceMesh"):
+        mgr.restore(tree, shardings={"w": "data"})
     with pytest.raises(FileNotFoundError):
         CheckpointManager(tmp_path / "empty").restore(tree)
+
+
+@pytest.fixture
+def one_rank_group(tmp_path):
+    """A one-rank gloo group (file store), destroyed afterwards."""
+    import torch.distributed as dist
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/store",
+                            rank=0, world_size=1)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("placement", ["shard0", "shard1", "replicate"])
+def test_restore_onto_one_rank_mesh(tmp_path, one_rank_group, placement):
+    """The elastic restart onto a one-rank CPU mesh: each sharded leaf is a
+    DTensor whose full tensor is the stored array bit for bit, bfloat16
+    included, as the reference restores onto its one-device mesh
+    (tests/test_checkpoint.py's elastic case); an unsharded leaf stays a
+    tensor."""
+    from jax.sharding import NamedSharding, PartitionSpec as P
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    from repro.parallel.compat import make_mesh
+    from repro_torch.launch.mesh import make_flat_mesh
+    tree = _port_tree(2)
+    CheckpointManager(tmp_path).save(4, tree)
+    pl, spec = {"shard0": (Shard(0), P("data", None)),
+                "shard1": (Shard(1), P(None, "data")),
+                "replicate": (Replicate(), P())}[placement]
+    mesh = make_flat_mesh()
+    got, step, _ = CheckpointManager(tmp_path).restore(
+        tree, shardings={"params": {"w": (mesh, [pl]),
+                                    "b": (mesh, [Shard(0)])},
+                         "opt": {"m": (mesh, (pl,)), "count": None}})
+    assert step == 4
+    jmesh = make_mesh((1,), ("data",))
+    rep = NamedSharding(jmesh, P())
+    want, _, _ = JManager(tmp_path).restore(_jax_tree(2), shardings={
+        "params": {"w": NamedSharding(jmesh, spec),
+                   "b": NamedSharding(jmesh, P("data"))},
+        "opt": {"m": NamedSharding(jmesh, spec), "count": rep},
+        "seq": [rep, (rep,)]})
+    for path in ("params/w", "params/b", "opt/m"):
+        a, b = path.split("/")
+        leaf = got[a][b]
+        assert isinstance(leaf, DTensor), path
+        assert leaf.placements[0] == (Shard(0) if b == "b" else pl)
+        assert np.array_equal(_bits(leaf.full_tensor()),
+                              _bits(want[a][b])), path
+        assert np.array_equal(_bits(leaf.full_tensor()),
+                              _bits(tree[a][b])), path
+    assert not isinstance(got["opt"]["count"], DTensor)
+    assert not isinstance(got["seq"][0], DTensor)
+    assert np.array_equal(_bits(got["opt"]["count"]),
+                          _bits(want["opt"]["count"]))
+
+
+def test_restore_with_a_none_sharding_leaf(tmp_path, one_rank_group):
+    """A None leaf in ``shardings`` leaves that leaf unsharded.  The
+    reference pairs its flattened shardings with the target's leaves by
+    position, and ``jax.tree.leaves`` drops the None, so a later leaf's
+    sharding lands on an earlier leaf (here ``b``'s 2-D spec on the 1-D
+    ``a``) and the restore raises; the port matches by name."""
+    from jax.sharding import NamedSharding, PartitionSpec as P
+    from torch.distributed.tensor import DTensor, Shard
+
+    from repro.parallel.compat import make_mesh
+    from repro_torch.launch.mesh import make_flat_mesh
+    JManager(tmp_path).save(1, {"a": jnp.arange(4.0),
+                                "b": jnp.arange(6).reshape(2, 3)})
+    jmesh = make_mesh((1,), ("data",))
+    with pytest.raises(ValueError):
+        JManager(tmp_path).restore(
+            {"a": jnp.zeros(4), "b": jnp.zeros((2, 3), jnp.int32)},
+            shardings={"a": None,
+                       "b": NamedSharding(jmesh, P("data", None))})
+    got, _, _ = CheckpointManager(tmp_path).restore(
+        {"a": torch.zeros(4), "b": torch.zeros(2, 3, dtype=torch.int32)},
+        shardings={"a": None, "b": (make_flat_mesh(), [Shard(0)])})
+    assert not isinstance(got["a"], DTensor)
+    assert torch.equal(got["a"], torch.arange(4.0))
+    assert isinstance(got["b"], DTensor)
+    assert torch.equal(got["b"].full_tensor(),
+                       torch.arange(6, dtype=torch.int32).reshape(2, 3))

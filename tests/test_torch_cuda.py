@@ -594,6 +594,38 @@ def test_cuda_tenant_service_matches_cpu():
             assert np.array_equal(final[t], cfinal[t]), t
 
 
+@pytest.mark.cuda
+def test_cuda_one_rank_nccl_sharded_fit_matches_tile(tmp_path):
+    """A one-rank NCCL group (file store) and a one-rank CUDA DeviceMesh:
+    the sharded fit launches B1 twice per LPA step and B2 once per split
+    sweep, with the tile fit's labels and iteration counts."""
+    need_card()
+    import datetime
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+
+    g = graphgen.planted_partition(8, 200, 0.05, 0.002, seed=4)[0]
+    want = Engine(EngineConfig(backend="tile"), cache=PlanCache()).fit(g)
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/store",
+                            rank=0, world_size=1,
+                            timeout=datetime.timedelta(seconds=120))
+    try:
+        mesh = DeviceMesh("cuda", [0])
+        ops.reset_launches()
+        got = Engine(EngineConfig(backend="sharded", mesh=mesh),
+                     cache=PlanCache()).fit(g)
+        launches = dict(ops.LAUNCHES)
+    finally:
+        dist.destroy_process_group()
+    assert np.array_equal(got.labels, want.labels)
+    assert (got.lpa_iterations, got.split_iterations) \
+        == (want.lpa_iterations, want.split_iterations)
+    assert launches["label_argmax"] == 2 * got.lpa_iterations
+    assert launches["min_label"] == got.split_iterations
+    assert launches["fused_move"] == launches["fused_split"] == 0
+
+
 def test_port_import_pulls_in_no_jax():
     """Importing the whole port loads neither JAX nor the JAX package."""
     code = ("import sys; import repro_torch.engine, repro_torch.core, "
@@ -602,7 +634,9 @@ def test_port_import_pulls_in_no_jax():
             "repro_torch.launch.stream, repro_torch.launch.ingest, "
             "repro_torch.obs, repro_torch.launch.obs, "
             "repro_torch.partition, repro_torch.serve, "
-            "repro_torch.checkpoint, repro_torch.launch.serve; "
+            "repro_torch.checkpoint, repro_torch.launch.serve, "
+            "repro_torch.launch.mesh, repro_torch.core.distributed, "
+            "repro_torch.core.baselines, repro_torch.core.metrics; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]; assert not bad, bad")
     subprocess.run([sys.executable, "-c", code], check=True, timeout=120,

@@ -183,7 +183,8 @@ def test_choose_backend():
     star = tgraph.build_graph(np.stack([np.zeros(1500, np.int64),
                                         np.arange(1, 1501)], 1))
     assert choose_backend(star, cfg, torch.device("cuda")) == "segment"
-    assert backend_names() == ("segment", "tile")
+    # the reference's three, sharded included (A12)
+    assert backend_names() == ("segment", "sharded", "tile")
 
 
 def test_auto_runs_segment_on_cpu():
@@ -219,6 +220,12 @@ def test_unported_options_raise(kw, item):
         with pytest.raises(ValueError, match=option):
             EngineConfig(device="cpu", memory_budget=0)
         return
+    if item == "A12":
+        # ported: the sharded options construct, as the reference's do
+        (option, value), = kw.items()
+        assert getattr(EngineConfig(device="cpu", **kw), option) \
+            is getattr(JConfig(**kw), option) is value
+        return
     if item == "A10":
         # ported: every mode the reference takes is valid, others raise
         (option, bad), = kw.items()
@@ -244,8 +251,13 @@ def test_unported_calls_raise(tmp_path, monkeypatch):
     big, small = (eng.fit(g, memory_budget=b) for b in ("64MB", "3KB"))
     assert big.partitions == 1 and small.partitions > 1
     assert np.array_equal(big.labels, small.labels)
-    with pytest.raises(NotImplementedError, match="A12"):
-        eng.fit(g, backend="sharded")
+    # A12 is ported: with no process group the sharded backend runs one
+    # rank and equals the in-core fit
+    sharded = eng.fit(g, backend="sharded")
+    assert sharded.backend == "sharded"
+    assert np.array_equal(sharded.labels, big.labels)
+    assert (sharded.lpa_iterations, sharded.split_iterations) \
+        == (big.lpa_iterations, big.split_iterations)
     # A8 is ported: a graph-file path fits as its graph does
     path = tmp_path / "karate.mtx"
     write_mtx(path, undirected_edges(g)[0], n=g.n, symmetric=True)

@@ -180,7 +180,9 @@ def test_port_imports_neither_jax_nor_reference():
     rel = {str(f.relative_to(REPO)) for f in files}
     for must in ("serve/service.py", "serve/admission.py", "serve/health.py",
                  "serve/loadgen.py", "checkpoint/manager.py",
-                 "launch/serve.py"):
+                 "launch/serve.py", "launch/mesh.py", "core/distributed.py",
+                 "engine/backends/sharded.py", "core/baselines.py",
+                 "core/metrics.py"):
         assert f"src/repro_torch/{must}" in rel, must
     for f in files:
         for mod in _imports(f):

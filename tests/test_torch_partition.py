@@ -541,7 +541,7 @@ def test_ooc_guards():
     with pytest.raises(ValueError, match="compute_metrics"):
         cpu_engine(backend="segment", compute_metrics=True).fit(
             pg, memory_budget=budget)
-    with pytest.raises(NotImplementedError, match="A12"):
+    with pytest.raises(ValueError, match="partition"):
         cpu_engine().fit(pg, backend="sharded", memory_budget=budget)
     with pytest.raises(ValueError, match="memory_budget"):
         EngineConfig(device="cpu", memory_budget=0)
