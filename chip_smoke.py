@@ -185,6 +185,21 @@ Phases, one JSON line each:
            it and beside scaled_dot_product_attention (yardstick only);
            and two more timed calls at that width, S=4096 non-causal and
            S=16384 causal, beside SDPA.
+  audit    static analysis and the plan audit (repro_torch.analysis;
+           needs main).  python -m repro_torch.launch.lint --strict in a
+           subprocess (exit 0 with the committed baseline); the audit
+           workload (25 fits of erdos_renyi(200 | 230 | 400, ...): segment
+           and tile cold, same-bucket, warm and fit_many twice, fused tile,
+           one sharded rank, out of core on segment and tile, unfused
+           segment and fused tile out of core) on the card under one
+           TraceAudit: zero excess plan builds, B1-B4 each launched (counts
+           reset just before, read just after), the kernel library built
+           and loaded at most once in the process, and every fit's labels
+           equal to the same legs run on the CPU with the plain versions;
+           then a cold and a same-bucket fused tile fit of main's
+           grid2d(3500) under one TraceAudit: zero excess, the second a
+           plan-cache hit, both equal to main's labels.  Plan builds per
+           bin, the excess count and the walls in one line.
 
 The build fails the run if ptxas reports a spill in the flash kernel or
 in any instance of min_label or fused_split, or serialised wgmma in the
@@ -221,12 +236,13 @@ PLANTED_GRAPH = "planted_partition(128, 1024, 0.3, 0.001, seed=0)"
 SKEW_GRAPH = "rmat(20, 16, seed=0)"
 PHASES = ("kernels", "parity", "c1", "main", "wide_fit", "dense",
           "skew_fit", "batch", "obs", "microbatch", "stream", "ingest",
-          "ooc", "serve", "sharded", "timing", "trace", "flash")
+          "ooc", "serve", "sharded", "timing", "trace", "flash", "audit")
 # phase -> the phases whose graphs and fits it reuses
 NEEDS = {"timing": ("main", "wide_fit"), "trace": ("main",),
          "dense": ("wide_fit",), "microbatch": ("batch",),
          "stream": ("main",), "obs": ("main", "batch"),
-         "ooc": ("main", "ingest"), "sharded": ("main",)}
+         "ooc": ("main", "ingest"), "sharded": ("main",),
+         "audit": ("main",)}
 # The obs phase's traffic-A members held against their solo fits.
 OBS_MEMBERS = (0, 15, 31)
 # The stream phase's road edits of the main graph, grid2d(ROAD_SIDE).
@@ -2593,6 +2609,82 @@ def _flash_timed(torch, ops, q, kk, v, causal, want=None):
     return row
 
 
+# ----------------------------------------------------------------- audit
+
+def _audit_rows(report) -> list:
+    return [[r["stage"], r["backend"], r["bucket"], r["cache"], r["traces"]]
+            for r in report["contexts"]]
+
+
+def phase_audit(torch, rt, dev, g, fused):
+    """The static-analysis gate and the plan audit on the card."""
+    import os
+    from repro_torch.analysis import TraceAudit, audit_workload, run_workload
+    from repro_torch.engine import Engine, EngineConfig, PlanCache
+    from repro_torch.kernels import build
+    root = Path(__file__).resolve().parent
+
+    t0 = time.perf_counter()
+    lint = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.lint", "--strict"],
+        cwd=root, capture_output=True, text=True, timeout=300,
+        env={**os.environ, "PYTHONPATH": str(root / "src")})
+    lint_s = time.perf_counter() - t0
+    check(lint.returncode == 0, f"lint --strict exited {lint.returncode}:"
+          f"\n{lint.stdout[-3000:]}{lint.stderr[-3000:]}")
+
+    card, host = {}, {}
+    rt.ops.reset_launches()
+    audit, wall = _wall(torch, lambda: audit_workload(device=dev.type,
+                                                      labels=card))
+    launches = {k: rt.ops.LAUNCHES[k] for k in LPA_KERNELS}
+    audit.assert_no_excess()
+    report = audit.report()
+    for name, n in launches.items():
+        check(n > 0, f"{name} was not launched by the audit workload")
+    lib = dict(build.LIBRARY_EVENTS)
+    check(lib["loads"] == 1 and lib["builds"] <= 1,
+          f"the kernel library was built / loaded more than once: {lib}")
+    t0 = time.perf_counter()
+    cpu_coverage = run_workload(device="cpu", labels=host)
+    cpu_wall = time.perf_counter() - t0
+    check(cpu_coverage == audit.coverage, f"coverage {audit.coverage} on "
+          f"the card, {cpu_coverage} on the CPU")
+    check(list(card) == list(host), "the card and the CPU ran other legs")
+    for leg in card:
+        check(np.array_equal(card[leg], host[leg]),
+              f"{leg}: the card's labels differ from the CPU's")
+
+    eng = Engine(EngineConfig(split="lp"), cache=PlanCache())
+    with TraceAudit() as road:
+        cold, cold_wall = _wall(torch, lambda: eng.fit(g, backend="tile"))
+        again, again_wall = _wall(torch, lambda: eng.fit(g, backend="tile"))
+    road.assert_no_excess()
+    road_report = road.report()
+    check(not cold.cache_hit and again.cache_hit,
+          "the same-bucket road fit was not a plan-cache hit")
+    for res in (cold, again):
+        check(np.array_equal(res.labels, fused.labels),
+              "an audited road fit differs from main's labels")
+    check(any(r["stage"] == "tile:propagate_fused"
+              for r in road_report["contexts"]),
+          "the road fits did not build the fused tile plan")
+
+    return launches, {
+        "lint_s": lint_s, "lint_tail": lint.stdout.strip().splitlines()[-1],
+        "workload": {"coverage": audit.coverage, "fits": len(card),
+                     "wall_s": wall, "cpu_wall_s": cpu_wall,
+                     "plan_builds": _audit_rows(report),
+                     "total_plan_builds": report["total_traces"],
+                     "excess": report["excess_contexts"],
+                     "library": report["library"], "launches": launches},
+        "road": {"graph": "grid2d(3500)", "cold_wall_s": cold_wall,
+                 "same_bucket_wall_s": again_wall,
+                 "cache_hit": again.cache_hit,
+                 "plan_builds": _audit_rows(road_report),
+                 "excess": road_report["excess_contexts"]}}
+
+
 # ------------------------------------------------------------------ main
 
 def _parse_args(argv):
@@ -2741,6 +2833,9 @@ def main(argv=None) -> int:
     if "flash" in run:
         flash = phase_flash(torch, rt, dev)
         emit({"phase": "flash", **flash})
+    if "audit" in run:
+        audit_launches, res = phase_audit(torch, rt, dev, g, fused)
+        emit({"phase": "audit", "nvidia_smi": smi, **res})
     if run != set(PHASES):
         print("chip_smoke: a subset of the phases ran; no kernels summary "
               "and no result line", file=sys.stderr)
@@ -2756,6 +2851,7 @@ def main(argv=None) -> int:
          "ooc_launches": ooc_launches[name],
          "serve_launches": serve_launches[name],
          "sharded_launches": sharded_launches[name],
+         "audit_launches": audit_launches[name],
          "launched_by": "launches: tile fits of grid2d(3500), fused and "
                         "unfused; batch_launches: fit_many of traffic A "
                         "(32 grid2d members), tile fused and unfused; "
@@ -2769,7 +2865,10 @@ def main(argv=None) -> int:
                         "tenants x 4 requests through TenantService "
                         "(tile, fused); sharded_launches: the sharded "
                         "phase's one-NCCL-rank fit of grid2d(3500), "
-                        "exchange_every=1 (B1 and B2, unfused)",
+                        "exchange_every=1 (B1 and B2, unfused); "
+                        "audit_launches: the audit phase's workload "
+                        "(repro_torch.analysis), B3 / B4 on its tile "
+                        "legs, B1 / B2 on its sharded leg",
          "max_abs_err": kernel_err[name],
          **{k: timing[name][k] for k in keys}}
         for name in LPA_KERNELS]

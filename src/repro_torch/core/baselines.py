@@ -98,6 +98,7 @@ def networkit_plp(graph: Graph, theta: float | None = None,
     active = torch.ones(n, dtype=torch.bool, device=dev)
     for it in range(max_iterations):
         labels, _changed, dn = lpa_move(graph, labels, active, it)
+        # lint: host-sync-ok — PLP's stop test, one count per sweep
         if int(dn) <= theta:
             break
     return labels.cpu().numpy()

@@ -255,6 +255,7 @@ def lpa_run_batched(graph: Graph, sizes: np.ndarray, graph_id: torch.Tensor,
                     cand, graph_id, k1, sorted_ids=True), sc, 2 * it + sweep)
         iters += ~done_h
         done = done | (dn <= thr)
+        # lint: host-sync-ok — one per-slot done vector per iteration
         done_h = done.cpu().numpy()
         it += 1
     return (labels, iters, buf) if profile else (labels, iters)
@@ -298,6 +299,7 @@ def split_lp_batched(graph: Graph, sizes: np.ndarray, graph_id: torch.Tensor,
                 prev_active, graph_id, k1, sorted_ids=True), dn, it)
         iters += ~done_h
         done = done | (dn == 0)
+        # lint: host-sync-ok — one per-slot done vector per sweep
         done_h = done.cpu().numpy()
         it += 1
     return (labels, iters, buf) if profile_rows else (labels, iters)

@@ -89,6 +89,7 @@ def lpa_run_dense(pg: PaddedGraph, tau: float = 0.05,
                                          & real)
             dn_t += d
         it += 1
+        # lint: host-sync-ok — one convergence scalar per iteration
         dn = int(dn_t)
     return labels[:n], it
 
@@ -109,6 +110,7 @@ def split_lp_dense(pg: PaddedGraph,
     it, dn = 0, 1
     while dn > 0:
         new = ops.min_label(pg.nbr, pg.nmask, labels, comm_pad)
+        # lint: host-sync-ok — one changed count per sweep: the fixpoint test
         dn = int((new != labels).sum())
         labels = new
         it += 1

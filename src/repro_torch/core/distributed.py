@@ -327,6 +327,7 @@ def distributed_gsl_lpa(graph: Graph, mesh=None, tau: float = 0.05,
         it += 1
         if checkpoint_cb is not None:
             checkpoint_cb("lpa", it, unrotate(labels, row0))
+        # lint: host-sync-ok — one scalar per exchange round: the stop test
         if int(dn) <= tau * sg.n:
             break
 
@@ -339,6 +340,7 @@ def distributed_gsl_lpa(graph: Graph, mesh=None, tau: float = 0.05,
         sit += 1
         if checkpoint_cb is not None:
             checkpoint_cb("split", sit, unrotate(labels, row0))
+        # lint: host-sync-ok — split fixed point, one scalar a round
         if int(dn) == 0:
             break
     out = unrotate(labels, row0)[: sg.n].cpu().numpy()

@@ -220,6 +220,7 @@ def lpa_run(graph: Graph, tau: float = 0.05, max_iterations: int = 20,
                 row = 2 * it + sweep
                 record_row(buf, row, count_true(cand & real), d, row)
         it += 1
+        # lint: host-sync-ok — one convergence scalar per iteration
         dn = int(dn_t)
     state = LpaState(labels=labels, active=active, iteration=it, delta_n=dn)
     return (state, buf) if profile else state

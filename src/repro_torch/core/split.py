@@ -112,6 +112,7 @@ def split_lp(graph: Graph, comm: torch.Tensor, prune: bool = False,
             record_row(buf, min(it, profile_rows - 1),
                        count_true(prev_active & real), d, it)
         it += 1
+        # lint: host-sync-ok — one changed count per sweep: the fixpoint test
         dn = int(d)
     state = SplitState(labels=labels, active=active, iterations=it,
                        delta_n=dn)

@@ -233,48 +233,52 @@ class SegmentBackend:
                                    device=device))
         return g, self.partition_prepare_nbytes(shapes)
 
-    def partition_move(self, sweeps, g: Graph, labels_loc, cand_owned,
+    def partition_move(self, sweeps, inputs: Graph, labels_loc, cand_owned,
                        seed: int, bound: int) -> torch.Tensor:
-        cand = pad_to_device(cand_owned, g.n, sweeps.device)
-        new, _, _ = lpa_move(g, labels_loc, cand, seed, label_bound=bound)
+        cand = pad_to_device(cand_owned, inputs.n, sweeps.device)
+        new, _, _ = lpa_move(inputs, labels_loc, cand, seed,
+                             label_bound=bound)
         return new
 
-    def partition_wake(self, sweeps, g: Graph, changed_loc) -> torch.Tensor:
-        return neighbors_of(g, changed_loc)
+    def partition_wake(self, sweeps, inputs: Graph,
+                       changed_loc) -> torch.Tensor:
+        return neighbors_of(inputs, changed_loc)
 
-    def partition_split(self, sweeps, g: Graph, comm_loc, labels_loc,
+    def partition_split(self, sweeps, inputs: Graph, comm_loc, labels_loc,
                         active_owned, bound: int) -> torch.Tensor:
-        active = pad_to_device(active_owned, g.n, sweeps.device)
-        return min_label_sweep(g, comm_loc, labels_loc, active, bound,
+        active = pad_to_device(active_owned, inputs.n, sweeps.device)
+        return min_label_sweep(inputs, comm_loc, labels_loc, active, bound,
                                prune=sweeps.prune)
 
-    def partition_split_wake(self, sweeps, g: Graph, comm_loc,
+    def partition_split_wake(self, sweeps, inputs: Graph, comm_loc,
                              changed_loc) -> torch.Tensor:
-        return min_label_wake(g, comm_loc, changed_loc)
+        return min_label_wake(inputs, comm_loc, changed_loc)
 
     # Fused partition sweeps: the out-of-core lazy-wake loop lets wake +
     # active refresh + move (and split-wake + min-label) run as one call
     # per visit, with no host round trip of the intermediate wake mask.
 
-    def partition_move_fused(self, sweeps, g: Graph, labels_loc,
+    def partition_move_fused(self, sweeps, inputs: Graph, labels_loc,
                              changed_loc, active_owned, cand_prev_owned,
                              klass_owned, seed: int, bound: int):
         dev = sweeps.device
-        wake = neighbors_of(g, changed_loc)
-        act = ((pad_to_device(active_owned, g.n, dev)
-                & ~pad_to_device(cand_prev_owned, g.n, dev)) | wake)
-        new, _, _ = lpa_move(g, labels_loc,
-                             act & pad_to_device(klass_owned, g.n, dev),
+        wake = neighbors_of(inputs, changed_loc)
+        act = ((pad_to_device(active_owned, inputs.n, dev)
+                & ~pad_to_device(cand_prev_owned, inputs.n, dev)) | wake)
+        new, _, _ = lpa_move(inputs, labels_loc,
+                             act & pad_to_device(klass_owned, inputs.n, dev),
                              seed, label_bound=bound)
         return new, act
 
-    def partition_split_fused(self, sweeps, g: Graph, comm_loc, labels_loc,
-                              changed_loc, bound: int) -> torch.Tensor:
+    def partition_split_fused(self, sweeps, inputs: Graph, comm_loc,
+                              labels_loc, changed_loc,
+                              bound: int) -> torch.Tensor:
         if sweeps.prune:
-            sact = min_label_wake(g, comm_loc, changed_loc)
+            sact = min_label_wake(inputs, comm_loc, changed_loc)
         else:
             # no-prune sweeps every row; a row with no same-community
             # neighbor reduces to its own label, so all-ones is exact
-            sact = torch.ones(g.n, dtype=torch.bool, device=sweeps.device)
-        return min_label_sweep(g, comm_loc, labels_loc, sact, bound,
+            sact = torch.ones(inputs.n, dtype=torch.bool,
+                              device=sweeps.device)
+        return min_label_sweep(inputs, comm_loc, labels_loc, sact, bound,
                                prune=sweeps.prune)

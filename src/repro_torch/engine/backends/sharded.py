@@ -120,7 +120,7 @@ class ShardedBackend:
             labels, active, dn = plan.step(sg.nbr, sg.nw, sg.nmask, labels,
                                            active, it, n_real)
             it += 1
-            # one scalar read per step: the convergence test
+            # lint: host-sync-ok — one scalar per step: the convergence test
             if int(dn) <= threshold:
                 break
         device_sync(dev)
@@ -134,6 +134,7 @@ class ShardedBackend:
             while True:
                 labels, dn = plan.split(sg.nbr, sg.nmask, comm, labels)
                 sit += 1
+                # lint: host-sync-ok — split fixed point, one scalar a round
                 if int(dn) == 0:
                     break
         device_sync(dev)

@@ -95,6 +95,7 @@ def _propagate(plan, nbr, nw, nmask, n_real: int, labels, active,
             if buf is not None:
                 record_row(buf, seed, count_true(cand), sc, seed)
         it += 1
+        # lint: host-sync-ok — one convergence scalar per iteration
         dn = int(dn_t)
     return labels, it
 
@@ -124,6 +125,7 @@ def _propagate_fused(plan, nbr, nw, nmask, n_real: int, labels, active,
             if buf is not None:
                 record_row(buf, seed, count_true(candp), sc, seed)
         it += 1
+        # lint: host-sync-ok — one convergence scalar per iteration
         dn = int(dn_t)
     return labels, it
 
@@ -149,6 +151,7 @@ def _split(plan, nbr, nmask, comm, n_real: int, buf=None):
             active = (changed[nbr] & same).any(dim=1)
         labels = new
         it += 1
+        # lint: host-sync-ok — one changed count per sweep: the fixpoint test
         dn = int(sc)
     return labels, it
 
@@ -173,6 +176,7 @@ def _split_fused(plan, nbr, nmask, comm, n_real: int, buf=None):
         chg = changed
         labels = new
         it += 1
+        # lint: host-sync-ok — one changed count per sweep: the fixpoint test
         dn = int(sc)
     return labels, it
 
@@ -229,6 +233,7 @@ def _propagate_batch(plan, nbr, nw, nmask, b: BatchIndex, labels, active,
                                                   sorted_ids=True), sc, seed)
         iters += ~done_h
         done = done | (dn <= thr)
+        # lint: host-sync-ok — one per-slot done vector per iteration
         done_h = done.cpu().numpy()
         it += 1
     return labels, iters
@@ -270,6 +275,7 @@ def _split_batch(plan, nbr, nmask, b: BatchIndex, comm, buf=None):
         labels = new
         iters += ~done_h
         done = done | (dn == 0)
+        # lint: host-sync-ok — one per-slot done vector per sweep
         done_h = done.cpu().numpy()
         it += 1
     return labels, iters

@@ -52,7 +52,12 @@ from repro_torch.core.batch import GraphBatch
 from repro_torch.core.graph import Graph, graph_fingerprint
 from repro_torch.core.split import split_bfs_host
 from repro_torch.engine.bucketing import batch_bucket_for, bucket_for
-from repro_torch.engine.cache import GLOBAL_CACHE, PLAN_LOG, PlanCache
+from repro_torch.engine.cache import (
+    GLOBAL_CACHE,
+    PLAN_LOG,
+    PlanCache,
+    plan_context,
+)
 from repro_torch.engine.config import DetectionResult, EngineConfig
 from repro_torch.engine.registry import (
     choose_backend,
@@ -409,9 +414,10 @@ class Engine:
                     min_vertex_bucket=cfg.min_vertex_bucket,
                     min_edge_bucket=cfg.min_edge_bucket)
                 key = (name, "batch", bucket, cfg.bucketing, cfg.algo_key(),
-                       be.plan_key(cfg), str(self.device))
-                plan, cache_hit = self.cache.get_or_build(
-                    key, lambda: be.build_batch(bucket, cfg, self.device))
+                       be.plan_key(cfg), self.device)
+                with plan_context(name, ("batch", *bucket)):
+                    plan, cache_hit = self.cache.get_or_build(
+                        key, lambda: be.build_batch(bucket, cfg, self.device))
                 inputs = be.prepare_batch(batch, bucket, cfg)
                 # a solo graph's vertex ids are its local ids, so
                 # per-member warm labels pack as they are
@@ -482,10 +488,11 @@ class Engine:
                             min_vertex_bucket=cfg.min_vertex_bucket,
                             min_edge_bucket=cfg.min_edge_bucket)
         key = (name, bucket, cfg.bucketing, cfg.algo_key(),
-               be.plan_key(cfg), str(self.device))
+               be.plan_key(cfg), self.device)
         with span("engine.fit", backend=name, n=graph.n):
-            plan, cache_hit = self.cache.get_or_build(
-                key, lambda: be.build(bucket, cfg, self.device))
+            with plan_context(name, bucket):
+                plan, cache_hit = self.cache.get_or_build(
+                    key, lambda: be.build(bucket, cfg, self.device))
 
             t0 = time.perf_counter()
             with span("engine.prepare"):

@@ -46,6 +46,10 @@ SIGNATURES = {
 
 _LIB: ctypes.CDLL | None = None
 BUILD_INFO: dict = {}
+# This process's nvcc builds and ctypes loads of the library: the port's
+# counterpart of an XLA compile, one each at most (the plan auditor,
+# ``repro_torch.analysis.trace_audit``, reads them).
+LIBRARY_EVENTS = {"builds": 0, "loads": 0}
 
 
 def source_hash() -> str:
@@ -137,6 +141,7 @@ def build() -> tuple[Path, dict]:
         return lib, {**info, "cached": True}
     final.parent.mkdir(parents=True, exist_ok=True)
     nvcc = nvcc_path()
+    LIBRARY_EVENTS["builds"] += 1
     t0 = time.perf_counter()
     tmp = Path(tempfile.mkdtemp(dir=final.parent, prefix=".build-"))
     try:
@@ -181,6 +186,7 @@ def load_library() -> ctypes.CDLL:
     if _LIB is None:
         path, info = build()
         lib = ctypes.CDLL(str(path))
+        LIBRARY_EVENTS["loads"] += 1
         for name, argtypes in SIGNATURES.items():
             fn = getattr(lib, name)
             fn.argtypes = list(argtypes)

@@ -17,8 +17,9 @@ loads into ``chrome://tracing`` or Perfetto; the registry dump is the
 polls a :class:`repro_torch.obs.MetricsServer`'s ``/metrics.json`` (or
 the in-process registry) and renders the busiest metrics sorted by
 activity — histograms by observation count, counters/gauges by value.
-``--workload audit`` (the JAX package's every-dispatch-family sweep)
-needs the static-analysis layer, which is not ported (ROADMAP A14).
+``--workload audit`` (the JAX package's every-dispatch-family sweep) is
+not wired to this CLI yet: the workload itself is
+``repro_torch.analysis.run_workload`` (ROADMAP A14).
 """
 from __future__ import annotations
 
@@ -66,9 +67,9 @@ def _fit_workload(a) -> dict:
 
 def _audit_workload(a) -> dict:
     raise NotImplementedError(
-        "--workload audit runs analysis/workload.py, which is not ported "
-        "to the PyTorch package yet (ROADMAP Queue A, A14 (static "
-        "analysis))")
+        "--workload audit is not wired to this CLI yet; run "
+        "repro_torch.analysis.audit_workload(device=...) instead (ROADMAP "
+        "Queue A, A14 (static analysis), CLI follow-up)")
 
 
 def _activity(value) -> float:
@@ -136,8 +137,8 @@ def main(argv=None) -> int:
         description=__doc__.splitlines()[0])
     ap.add_argument("--workload", choices=("fit", "audit", "top"),
                     default="fit",
-                    help="fit: one profiled detection; audit: not ported "
-                         "(A14); top: live metric snapshots from --endpoint "
+                    help="fit: one profiled detection; audit: not wired "
+                         "yet (A14); top: live metric snapshots from --endpoint "
                          "(or the in-process registry)")
     ap.add_argument("--graph", default=None, metavar="PATH",
                     help="fit workload: real graph file (.mtx / SNAP edge "

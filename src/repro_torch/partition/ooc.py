@@ -48,6 +48,7 @@ import torch
 import repro_torch.engine.backends  # noqa: F401  (registers the backends)
 from repro_torch.core.graph import _EDGE_ALIGN, _round_up
 from repro_torch.engine.bucketing import next_pow2
+from repro_torch.engine.cache import plan_context
 from repro_torch.engine.config import EngineConfig
 from repro_torch.engine.engine import resolve_device
 from repro_torch.engine.registry import (
@@ -261,13 +262,18 @@ def fit_out_of_core(source, config: EngineConfig | None = None, *,
                             lambda lo, hi: source.window("dst", lo, hi))
         shapes = _shapes_for(plan, cfg.bucketing)
 
-        if cache is not None:
-            key = ("partition", name, cfg.algo_key(), be.plan_key(cfg),
-                   str(dev))
-            sweeps, cache_hit = cache.get_or_build(
-                key, lambda: be.build_partition(cfg, dev))
-        else:
-            sweeps, cache_hit = be.build_partition(cfg, dev), False
+        # plan builds are attributed to the run's partition shapes, as the
+        # JAX package's out-of-core loop attributes its traces
+        part_ctx = ("partition", shapes.n_loc, shapes.m, shapes.rows,
+                    shapes.d)
+        with plan_context(name, part_ctx):
+            if cache is not None:
+                key = ("partition", name, cfg.algo_key(), be.plan_key(cfg),
+                       dev)
+                sweeps, cache_hit = cache.get_or_build(
+                    key, lambda: be.build_partition(cfg, dev))
+            else:
+                sweeps, cache_hit = be.build_partition(cfg, dev), False
         sp_plan.set(partitions=plan.num_partitions,
                     halo_vertices=plan.halo_vertices, cache_hit=cache_hit)
 
