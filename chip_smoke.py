@@ -185,6 +185,29 @@ Phases, one JSON line each:
            it and beside scaled_dot_product_attention (yardstick only);
            and two more timed calls at that width, S=4096 non-causal and
            S=16384 causal, beside SDPA.
+  lm       LM serving of Yi-9B (src/repro_torch/configs/yi_9b.py: 48 layers,
+           d_model 4096, 32 heads, 4 KV heads, hd 128, vocab 64000), random
+           weights from seed 0.  (b) The model cut to 2 layers, one weight
+           set made on the CPU: the card's prefill (2 x 64 tokens) and 8
+           decode steps against the CPU's plain path, logits within 0.02
+           relative.  Then the full model on the card: (a) layer 0's q / k
+           / v of a prompt through B5, the prefill call (B=4, S=512,
+           causal) and decode calls over a 1024-row cache with junk past
+           the visible keys (kv_len 513 at B=4, 300 at B=2, float32 too),
+           each against its plain version (8e-3; 1e-5 in float32) and the
+           copied-out keys alone, the prefill and decode calls timed beside
+           their bounds and SDPA; (c) serve("yi-9b", reduced=False,
+           batch=4, prompt_len=512, max_new=32, s_max=1024) with launch
+           counts reset just before and read just after (48 x 32 B5
+           launches): prefill and decode seconds, tok/s, peak device
+           memory; 4 decode steps under torch.profiler (device busy and
+           idle share, top ops); then the served tokens fed back:
+           forward_train over prompt + generated against the prefill's and
+           each decode step's logits, every logit finite, B5 launched 48
+           times per forward, prefill and decode step, in float32 (the
+           weights upcast; within 1e-3) and in bf16 (within 0.02, or 1.5x
+           the bf16 forward's own distance from the float32 forward if
+           larger: bf16 rounding noise grows with depth).
   audit    static analysis and the plan audit (repro_torch.analysis;
            needs main).  python -m repro_torch.launch.lint --strict in a
            subprocess (exit 0 with the committed baseline); the audit
@@ -230,13 +253,30 @@ FLASH_MAIN = {"b": 1, "s": 4096, "h": 32, "k": 4, "hd": 128}
 # More timed calls at that width: (S, causal).
 FLASH_TIMED = ((4096, False), (16384, True))
 FLASH_KERNELS = ("flash_wgmma<64>", "flash_wgmma<128>")
+# The lm phase: Yi-9B served at full width and depth from random weights
+# (seed LM_SEED); (b) runs LM_CPU's cut on the card and on the CPU.
+LM_ARCH = "yi-9b"
+LM_SEED = 0
+LM_SERVE = {"batch": 4, "prompt_len": 512, "max_new": 32, "s_max": 1024}
+LM_CPU = {"layers": 2, "batch": 2, "prompt_len": 64, "steps": 8,
+          "s_max": 128}
+LM_TOL = 0.02          # logits, relative max-abs: tests/test_serving.py TOL
+# Teacher forcing at 48 layers: float32 (the weights upcast) to 1e-3; bf16
+# to LM_NOISE_FACTOR x the bf16 forward's own distance from the float32
+# forward, as LM_TOL is the reference's bound at 2 layers and the bf16
+# model's rounding noise grows with depth (PERF.md, PR 27).
+LM_F32_TOL = 1e-3
+LM_NOISE_FACTOR = 1.5
+LM_KERNEL_TOL = 8e-3   # B5 against its plain version in bf16 (flash's)
+LM_RAGGED_KEYS = 300   # the B=2 decode call's keys: not a multiple of 128
 # Graphs of the timing phase beyond the main fit: (name, generator call).
 ER_GRAPH = "erdos_renyi(1 << 21, 16.0, seed=0)"
 PLANTED_GRAPH = "planted_partition(128, 1024, 0.3, 0.001, seed=0)"
 SKEW_GRAPH = "rmat(20, 16, seed=0)"
 PHASES = ("kernels", "parity", "c1", "main", "wide_fit", "dense",
           "skew_fit", "batch", "obs", "microbatch", "stream", "ingest",
-          "ooc", "serve", "sharded", "timing", "trace", "flash", "audit")
+          "ooc", "serve", "sharded", "timing", "trace", "flash", "lm",
+          "audit")
 # phase -> the phases whose graphs and fits it reuses
 NEEDS = {"timing": ("main", "wide_fit"), "trace": ("main",),
          "dense": ("wide_fit",), "microbatch": ("batch",),
@@ -2577,15 +2617,18 @@ def phase_flash(torch, rt, dev):
             "main": main, "timed": timed}
 
 
-def _flash_timed(torch, ops, q, kk, v, causal, want=None):
+def _flash_timed(torch, ops, q, kk, v, causal, want=None, kv_len=None):
     """Time one flash call beside SDPA (yardstick only, on the (B, H, S,
-    hd) layout), with its work and bound; SDPA's error if `want` given."""
+    hd) layout, over the visible keys), with its work and bound; SDPA's
+    error if `want` given.  `kv_len`: the call's visible keys of a longer
+    K / V buffer (a decode step's cache)."""
     b, sq, h, hd = q.shape
-    skv = kk.shape[1]
-    ms = _time_ms(torch, lambda: ops.flash_attention(q, kk, v,
-                                                     causal=causal))
+    skv = kk.shape[1] if kv_len is None else kv_len
+    ms = _time_ms(torch, lambda: ops.flash_attention(q, kk, v, causal=causal,
+                                                     kv_len=kv_len))
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, kk, v))
+    qt = q.transpose(1, 2).contiguous()
+    kt, vt = (x[:, :skv].transpose(1, 2).contiguous() for x in (kk, v))
     row = {"ms": ms}
     if want is not None:
         lib_out = sdpa(qt, kt, vt, is_causal=causal, enable_gqa=True)
@@ -2599,7 +2642,7 @@ def _flash_timed(torch, ops, q, kk, v, causal, want=None):
     rows = np.arange(1, sq + 1)
     pairs = int(np.minimum(rows, skv).sum()) if causal else sq * skv
     operations = 4 * b * h * hd * pairs
-    bytes_ = (2 * q.numel() + kk.numel() + v.numel()) * 2
+    bytes_ = (2 * q.numel() + 2 * b * skv * kk.shape[2] * hd) * 2
     ops_ms = operations / BF16_OPS_PER_S * 1e3
     bytes_ms = bytes_ / HBM_BYTES_PER_S * 1e3
     row.update({"operations": operations, "bytes": bytes_,
@@ -2607,6 +2650,318 @@ def _flash_timed(torch, ops, q, kk, v, causal, want=None):
                 "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
                 "achieved_TFLOPs": operations / (ms * 1e-3) / 1e12})
     return row
+
+
+# -------------------------------------------------------------------- lm
+
+def _lm_rel(want, got, vocab) -> float:
+    """Max abs difference over max abs of `want`, over the real vocab."""
+    a, b = want[..., :vocab].float(), got[..., :vocab].float()
+    return float((a - b).abs().max() / a.abs().max())
+
+
+def _lm_model(torch, T, cfg, seed, dev):
+    from repro_torch.models.common import init_from_specs
+    t0 = time.perf_counter()
+    params = init_from_specs(T.model_specs(cfg), seed, device=dev)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    return params, time.perf_counter() - t0
+
+
+def _lm_calls(torch, rt, cfg, params, dev):
+    """(a) B5 on layer 0's q / k / v of a prompt at full width: the
+    prefill call and decode calls over a cache, against the plain
+    version, timed beside their bounds and SDPA."""
+    from repro_torch.models import attention as A
+    from repro_torch.models import layers as L
+    ops, ref = rt.ops, rt.ref
+    b, s, s_max = (LM_SERVE[k] for k in ("batch", "prompt_len", "s_max"))
+    gen = torch.Generator(device=dev).manual_seed(LM_SEED + 1)
+    toks = torch.randint(0, cfg.vocab, (b, s + 1), generator=gen,
+                         device=dev)
+    p0 = {k: v[0] for k, v in params["groups"]["0"]["attn"].items()}
+    scale0 = params["groups"]["0"]["norm1"]["scale"][0]
+    with torch.inference_mode():
+        h = L.rms_norm({"scale": scale0}, L.embed(params["embed"], toks))
+        pos = torch.arange(s + 1, dtype=torch.int32, device=dev)
+        q, k, v = (x.contiguous() for x in A._project_qkv(
+            p0, h, pos, cfg.rope_theta))
+    calls = []
+
+    def one(name, q_, k_, v_, causal, kv_len):
+        got = ops.flash_attention(q_, k_, v_, causal=causal, kv_len=kv_len)
+        want = ref.flash_attention_ref(q_, k_, v_, causal, kv_len)
+        abs_err, rel = _rel(got, want)
+        check(got.shape == q_.shape and bool(torch.isfinite(got).all()),
+              f"lm {name}: malformed output")
+        check(rel < LM_KERNEL_TOL, f"lm {name}: B5 disagrees with its plain "
+              f"version, rel {rel}")
+        row = {"call": name, "q": list(q_.shape), "kv": list(k_.shape),
+               "kv_len": kv_len, "causal": causal, "max_abs_err": abs_err,
+               "rel_err": rel}
+        if name in ("prefill", "decode"):
+            row["plain_ms"] = _time_ms(torch, lambda: ref.flash_attention_ref(
+                q_, k_, v_, causal, kv_len), reps=3, warmup=1)
+            row.update(_flash_timed(torch, ops, q_, k_, v_, causal, want,
+                                    kv_len=kv_len))
+        calls.append(row)
+        return got
+
+    # the prefill call: the prompt's first s positions, causal
+    pre = [x[:, :s].contiguous() for x in (q, k, v)]
+    one("prefill", *pre, True, None)
+    # decode: the query at position s over a cache of s_max rows holding
+    # s + 1 keys; the rows past them hold large junk that must not be read
+    r = LM_RAGGED_KEYS
+    for name, nb, n_keys in (("decode", b, s + 1), ("decode_b2", 2, r)):
+        kc, vc = (torch.randn((nb, s_max) + k.shape[2:], generator=gen,
+                              device=dev).mul_(1e4).to(k.dtype)
+                  for _ in range(2))
+        kc[:, :n_keys], vc[:, :n_keys] = k[:nb, :n_keys], v[:nb, :n_keys]
+        q1 = q[:nb, n_keys - 1:n_keys].contiguous()
+        got = one(name, q1, kc, vc, False, n_keys)
+        # the same function as the keys alone, copied out
+        alone = ref.flash_attention_ref(q1, kc[:, :n_keys].contiguous(),
+                                        vc[:, :n_keys].contiguous(), False)
+        check(_rel(got, alone)[1] < LM_KERNEL_TOL,
+              f"lm {name}: kv_len differs from the keys alone")
+    # the float32 path's buffer stride
+    qf = q[:2, r - 1:r].float().contiguous()
+    kf, vf = (torch.zeros((2, s_max) + k.shape[2:], device=dev)
+              for _ in range(2))
+    kf[:, :r], vf[:, :r] = k[:2, :r].float(), v[:2, :r].float()
+    kf[:, r:], vf[:, r:] = 1e4, 1e4
+    got = ops.flash_attention(qf, kf, vf, causal=False, kv_len=r)
+    rel = _rel(got, ref.flash_attention_ref(qf, kf, vf, False, r))[1]
+    check(rel < 1e-5, f"lm decode float32: rel {rel}")
+    calls.append({"call": "decode_f32", "q": list(qf.shape),
+                  "kv": list(kf.shape), "kv_len": r, "causal": False,
+                  "rel_err": rel})
+    return calls
+
+
+def _lm_card_vs_cpu(torch, T, cfg, dev):
+    """(b) The whole path at full width and LM_CPU layers: the card's
+    prefill and decode logits against the CPU's plain path, one weight
+    set made on the CPU."""
+    import dataclasses
+    c = LM_CPU
+    small = dataclasses.replace(cfg, n_layers=c["layers"])
+    cpu = torch.device("cpu")
+    params_cpu, init_s = _lm_model(torch, T, small, LM_SEED, cpu)
+    params_dev = _tree_map(params_cpu, lambda x: x.to(dev))
+    rng = np.random.default_rng(LM_SEED)
+    toks = torch.from_numpy(rng.integers(
+        0, cfg.vocab, (c["batch"], c["prompt_len"] + c["steps"])
+    ).astype(np.int32))
+    errs, t0 = [], time.perf_counter()
+    with torch.inference_mode():
+        runs = []
+        for params, where in ((params_cpu, cpu), (params_dev, dev)):
+            t = toks.to(where)
+            lg, caches = T.prefill(small, params, {
+                "tokens": t[:, :c["prompt_len"]]}, c["s_max"])
+            out = [lg]
+            for i in range(c["steps"]):
+                p = c["prompt_len"] + i
+                lg, caches = T.decode_step(small, params, caches,
+                                           {"tokens": t[:, p:p + 1]})
+                out.append(lg[:, 0])
+            runs.append([x.cpu() for x in out])
+    for want, got in zip(*runs):
+        check(bool(torch.isfinite(got).all()), "lm card logits not finite")
+        errs.append(_lm_rel(want, got, cfg.vocab))
+    check(max(errs) <= LM_TOL, f"lm card vs CPU: rel {max(errs)}")
+    del params_dev
+    return {"layers": c["layers"], "batch": c["batch"],
+            "prompt_len": c["prompt_len"], "decode_steps": c["steps"],
+            "cpu_init_s": init_s, "wall_s": time.perf_counter() - t0,
+            "rel_err_prefill": errs[0], "rel_err_decode_max": max(errs[1:]),
+            "tolerance_rel": LM_TOL}
+
+
+def _lm_replay(torch, rt, T, cfg, params, toks, s):
+    """forward_train over toks, then prefill of its first s tokens and a
+    decode step per later token: (forward logits, [prefill and each
+    step's logits], [B5 launches of the forward, prefill, each step])."""
+    ops = rt.ops
+    launches = []
+    with torch.inference_mode():
+        ops.reset_launches()
+        full = T.forward_train(cfg, params, {"tokens": toks})
+        launches.append(ops.LAUNCHES["flash_attention"])
+        ops.reset_launches()
+        lg, caches = T.prefill(cfg, params, {"tokens": toks[:, :s]},
+                               LM_SERVE["s_max"])
+        launches.append(ops.LAUNCHES["flash_attention"])
+        steps = [lg]
+        for t in range(s, toks.shape[1]):
+            ops.reset_launches()
+            lg, caches = T.decode_step(cfg, params, caches,
+                                       {"tokens": toks[:, t:t + 1]})
+            launches.append(ops.LAUNCHES["flash_attention"])
+            steps.append(lg[:, 0])
+        torch.cuda.synchronize()
+    return full, steps, launches
+
+
+def _lm_teacher_forced(torch, rt, T, cfg, params, prompts, generated, dev):
+    """(c) The served tokens fed back: forward_train over prompt +
+    generated against prefill and each decode step's logits, in bf16 and
+    in float32 (the same weights, upcast); B5 launched n_layers times per
+    call.  The float32 replay is held to LM_F32_TOL; the bf16 replay to
+    LM_TOL or, at this depth, LM_NOISE_FACTOR times the bf16 forward's own
+    distance from the float32 forward, whichever is larger."""
+    s, new = prompts.shape[1], generated.shape[1]
+    toks = torch.from_numpy(np.concatenate(
+        [prompts, generated[:, :new - 1]], axis=1)).to(dev)
+    n, v = cfg.n_layers, cfg.vocab
+    full, steps, launches = _lm_replay(torch, rt, T, cfg, params, toks, s)
+    errs, same = [], 0
+    for t, lg in enumerate(steps):
+        check(bool(torch.isfinite(lg).all()),
+              f"lm logits not finite at step {t}")
+        errs.append(_lm_rel(full[:, s - 1 + t], lg, v))
+        same += int((lg[:, :v].argmax(-1).cpu().numpy()
+                     == generated[:, t]).sum())
+    params32 = _tree_map(params, lambda x: x.float())
+    full32, steps32, launches32 = _lm_replay(torch, rt, T, cfg, params32,
+                                             toks, s)
+    del params32
+    errs32 = [_lm_rel(full32[:, s - 1 + t], lg, v)
+              for t, lg in enumerate(steps32)]
+    # the bf16 model's own rounding noise at this depth: its forward
+    # against the float32 forward, at the compared positions
+    noise = _lm_rel(full32[:, s - 1:], full[:, s - 1:], v)
+    # and the bf16 serving path's own distance from the float32 forward
+    serve_vs32 = max(_lm_rel(full32[:, s - 1 + t], lg, v)
+                     for t, lg in enumerate(steps))
+    del full, full32, steps, steps32
+    for name, got in (("bfloat16", launches), ("float32", launches32)):
+        check(all(x == n for x in got), f"B5 launches per call ({name}): "
+              f"forward, prefill, decode steps {got}, want {n} each")
+    check(max(errs32) <= LM_F32_TOL,
+          f"lm teacher forcing in float32: rel {max(errs32)}")
+    bound = max(LM_TOL, LM_NOISE_FACTOR * noise)
+    check(max(errs) <= bound, f"lm teacher forcing in bf16: rel "
+          f"{max(errs)} over {bound} (noise {noise})")
+    return {"forward_launches": launches[0], "prefill_launches": launches[1],
+            "decode_launches_per_step": sorted(set(launches[2:])),
+            "float32_launches_per_call": sorted(set(launches32)),
+            "rel_err_prefill": errs[0], "rel_err_decode_max": max(errs[1:]),
+            "rel_err_decode": errs[1:],
+            "bf16_forward_vs_float32_forward": noise,
+            "bf16_prefill_decode_vs_float32_forward_max": serve_vs32,
+            "tolerance_rel_bf16": bound,
+            "float32_rel_err_prefill": errs32[0],
+            "float32_rel_err_decode_max": max(errs32[1:]),
+            "tolerance_rel_float32": LM_F32_TOL,
+            "replayed_greedy_tokens_equal": same,
+            "generated_tokens": int(generated.size)}
+
+
+def _tree_map(tree, fn):
+    if isinstance(tree, dict):
+        return {k: _tree_map(v, fn) for k, v in tree.items()}
+    return fn(tree)
+
+
+def _lm_traced_steps(torch, T, cfg, params, prompts, dev, steps=4):
+    """Decode steps after a prefill of the served prompts, 2 warm, then
+    `steps` under torch.profiler (device activity): the wall, the device's
+    busy time (union of its events), their count and the top ops."""
+    from torch.profiler import ProfilerActivity, profile
+    toks = torch.from_numpy(prompts).to(dev)
+    with torch.inference_mode():
+        lg, caches = T.prefill(cfg, params, {"tokens": toks},
+                               LM_SERVE["s_max"])
+        tok = lg.argmax(-1)[:, None].int()
+        for _ in range(2):
+            lg, caches = T.decode_step(cfg, params, caches, {"tokens": tok})
+            tok = lg[:, -1].argmax(-1)[:, None].int()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                lg, caches = T.decode_step(cfg, params, caches,
+                                           {"tokens": tok})
+                tok = lg[:, -1].argmax(-1)[:, None].int()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    events, busy = _device_busy(torch, prof)
+    top = sorted((e for e in prof.key_averages()
+                  if e.self_device_time_total > 0),
+                 key=lambda e: -e.self_device_time_total)[:6]
+    return {"steps": steps, "wall_s": wall, "device_events": events,
+            "device_events_per_step": events / steps,
+            "device_busy_s": busy, "device_idle_share": 1 - busy / wall,
+            "top_device_ops_ms": [[e.key[:60], e.self_device_time_total
+                                   / 1e3, e.count] for e in top]}
+
+
+def phase_lm(torch, rt, dev):
+    """LM serving of Yi-9B: (b) card against CPU at 2 layers, then the
+    full model: (a) B5 per call, (c) serve() and teacher forcing."""
+    import gc
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import transformer as T
+    ops = rt.ops
+    cfg = get_config(LM_ARCH)
+    out = {"arch": LM_ARCH, "card_vs_cpu": _lm_card_vs_cpu(torch, T, cfg,
+                                                           dev)}
+    gc.collect()
+    params, init_s = _lm_model(torch, T, cfg, LM_SEED, dev)
+    n_params = sum(x.numel() for x in _leaves(params))
+    out["model"] = {"layers": cfg.n_layers, "d_model": cfg.d_model,
+                    "params": n_params, "param_count": cfg.param_count(),
+                    "weight_bytes": 2 * n_params, "init_s": init_s}
+    out["calls"] = _lm_calls(torch, rt, cfg, params, dev)
+
+    sv = LM_SERVE
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    res = serve(LM_ARCH, reduced=False, batch=sv["batch"],
+                prompt_len=sv["prompt_len"], max_new=sv["max_new"],
+                s_max=sv["s_max"], seed=LM_SEED, params=params, device=dev)
+    launches = ops.LAUNCHES["flash_attention"]
+    peak = torch.cuda.max_memory_allocated()
+    gen = res["generated"]
+    check(gen.shape == (sv["batch"], sv["max_new"])
+          and int(gen.min()) >= 0 and int(gen.max()) < cfg.vocab,
+          f"lm generated tokens malformed: {gen.shape}")
+    check(launches == cfg.n_layers * sv["max_new"],
+          f"lm serve made {launches} B5 launches, want "
+          f"{cfg.n_layers * sv['max_new']}")
+    steps = sv["max_new"] - 1
+    out["serve"] = {
+        **sv, "prefill_s": res["prefill_s"], "decode_s": res["decode_s"],
+        "decode_steps": steps, "decode_step_ms": res["decode_s"] / steps * 1e3,
+        "tok_per_s": sv["batch"] * sv["max_new"] / res["decode_s"],
+        "prefill_tok_per_s": sv["batch"] * sv["prompt_len"]
+        / res["prefill_s"],
+        "weight_read_bound_step_ms": 2 * n_params / HBM_BYTES_PER_S * 1e3,
+        "peak_device_bytes": peak, "launches": launches}
+    prompts = np.random.default_rng(LM_SEED).integers(
+        0, cfg.vocab, size=(sv["batch"], sv["prompt_len"])).astype(np.int32)
+    out["traced_decode"] = _lm_traced_steps(torch, T, cfg, params, prompts,
+                                            dev)
+    out["teacher_forcing"] = _lm_teacher_forced(torch, rt, T, cfg, params,
+                                                prompts, gen, dev)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
 
 
 # ----------------------------------------------------------------- audit
@@ -2833,6 +3188,9 @@ def main(argv=None) -> int:
     if "flash" in run:
         flash = phase_flash(torch, rt, dev)
         emit({"phase": "flash", **flash})
+    if "lm" in run:
+        lm = phase_lm(torch, rt, dev)
+        emit({"phase": "lm", "nvidia_smi": smi, **lm})
     if "audit" in run:
         audit_launches, res = phase_audit(torch, rt, dev, g, fused)
         emit({"phase": "audit", "nvidia_smi": smi, **res})
@@ -2879,8 +3237,12 @@ def main(argv=None) -> int:
         "replaces": KERNELS["flash_attention"][1],
         "launches": fm["launches"],
         "serve_launches": serve_launches["flash_attention"],
-        "launched_by": "flash phase: ops.flash_attention at Yi-9B width "
-                       "(B=1, S=4096, H=32, K=4, hd=128, bf16, causal)",
+        "lm_launches": lm["serve"]["launches"],
+        "launched_by": "launches: flash phase, ops.flash_attention at Yi-9B "
+                       "width (B=1, S=4096, H=32, K=4, hd=128, bf16, "
+                       "causal); lm_launches: the lm phase's serve() of "
+                       "Yi-9B, 48 layers, a prefill of 4 x 512 tokens and "
+                       "31 decode steps, one launch per layer and call",
         "max_abs_err": fm["max_abs_err"], **{k: fm[k] for k in keys}})
     emit({"kernels": rows})
     print(smi, flush=True)

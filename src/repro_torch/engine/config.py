@@ -3,9 +3,9 @@
 ``EngineConfig`` is the knob surface of :class:`repro_torch.engine.Engine`;
 ``DetectionResult`` is the backend-independent return type of ``fit`` and
 of each member of ``fit_many``.
-Options of the JAX engine that this package does not carry yet raise
-``NotImplementedError`` naming the ROADMAP item that ports them; none is
-silently ignored.
+Options of the JAX package that this package does not carry yet raise
+``NotImplementedError`` (``unported``) naming the ROADMAP item that ports
+them; none is silently ignored.
 """
 from __future__ import annotations
 
@@ -23,16 +23,29 @@ WARM_START = ("off", "auto")
 PROFILE = ("off", "convergence", "full")
 QUALITY = ("off", "basic", "full")
 
-# Option -> the ROADMAP item (Queue A) that ports it.
+# Option -> the ROADMAP item that ports it.  The model families wait for
+# their modules (Queue A, A15.3: they raise on the CPU too); the attention
+# cases wait for B5 to cover them (Queue B) and raise on CUDA only, where
+# nothing falls back to the plain attention.
+_FAMILIES = "Queue A, A15.3 (models/{moe,mamba,rwkv}.py and the rest)"
+_B5_LATER = "Queue B, later kernel work: B5 with a window and an int8 cache"
 UNPORTED = {
-    "lm serving": "A15 (LM scaffolding)",
+    "moe models": _FAMILIES,
+    "hybrid (mamba) models": _FAMILIES,
+    "rwkv models": _FAMILIES,
+    "encoder-decoder models": _FAMILIES,
+    "vlm models": _FAMILIES,
+    "sliding-window attention on CUDA": _B5_LATER,
+    "int8 KV cache on CUDA": _B5_LATER,
+    "attention head dims other than 64 and 128 on CUDA":
+        "Queue B, later kernel work: B5 at other head dims",
 }
 
 
 def unported(option: str) -> NotImplementedError:
     return NotImplementedError(
-        f"{option} is not ported to the PyTorch engine yet "
-        f"(ROADMAP Queue A, {UNPORTED[option]})")
+        f"{option} is not in the PyTorch port yet "
+        f"(ROADMAP {UNPORTED[option]})")
 
 
 @dataclasses.dataclass(frozen=True)

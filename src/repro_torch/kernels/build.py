@@ -39,9 +39,10 @@ SIGNATURES = {
     "lpa_fused_move": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _LL, _I, _I, _P,
                        _P, _P),
     "lpa_fused_split": (_P, _P, _P, _P, _P, _I, _LL, _I, _P, _P),
-    # q, k, v, out; B, H, K, Sq, Skv, hd, causal, dtype code; stream
+    # q, k, v, out; B, H, K, Sq, Skv (visible keys), KV rows, hd, causal,
+    # dtype code; stream
     "attn_flash_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
-                             _P),
+                             _I, _P),
 }
 
 _LIB: ctypes.CDLL | None = None

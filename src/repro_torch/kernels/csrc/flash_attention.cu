@@ -9,12 +9,20 @@
 // (H=32, K=4, hd=128) and S=4096 that is 1.37e11 operations against 75.5 MB,
 // 0.139 ms at 989 TFLOP/s against 0.023 ms at 3.35 TB/s.
 //
+// Decode (one query over a cache) is bound by bytes: B * Skv * K * hd * 2 * 2
+// of K and V, ~4.4 MB at B=4, Skv=540, K=4, hd=128, 1.3 us at 3.35 TB/s; the
+// 128-row query tile holds one real row, so the call is bound by its launch
+// and its serial KV loop, not by the bound.
+//
 // Semantics: one block per (query tile, head, batch); a loop over KV tiles
 // takes the place of the TPU's sequential grid dimension.  Under causal it
 // stops at the last tile that meets the diagonal; the diagonal and the
 // ragged tail k_pos >= Skv are masked in the kernel, so the wrapper pads
 // nothing.  q, k, v and the output are read and written in place in the
 // models' (B, S, heads, hd) layout; query head h reads KV head h / (H / K).
+// K and V may hold more rows than the Skv keys that are visible (a decode
+// step reads the first L + 1 rows of a (B, S_max, K, hd) cache): batch b
+// starts at row b * kv_rows, and no row at or past Skv is read.
 // Masked logits are -1e30, m / l / acc stay float32, the output is
 // acc / max(l, 1e-30), as in the TPU kernel and its oracle.
 //  * bf16: a Hopper kernel (sm_90a).  A block owns 128 query rows of one
@@ -31,8 +39,10 @@
 //    128-byte swizzle is the layout the wgmma descriptors read, so a
 //    128-wide head loads as two 64-column boxes.  The 4-D tensor maps
 //    (hd, heads, S, B) zero-fill rows past Sq or Skv and never read into
-//    the next batch.  Blocks start with the query tiles that have the most
-//    KV tiles, which shortens the causal tail.
+//    the next batch: K and V's maps have Skv rows and the buffer's batch
+//    stride, so the rows of a cache past Skv are never loaded.  Blocks
+//    start with the query tiles that have the most KV tiles, which
+//    shortens the causal tail.
 //  * f32: FMA on the CUDA cores (the tensor cores' TF32 would miss the
 //    oracle's float32 by more than 1e-5).  A 16 x 16 thread grid owns a
 //    64 x 64 score tile, 4 x 4 each; P goes through shared memory.
@@ -50,7 +60,8 @@ constexpr int kDtypeBF16 = 1;
 constexpr unsigned kFull = 0xffffffffu;
 
 struct Shape {
-  int B, Sq, Skv, H, K, group;  // group = H / K
+  int B, Sq, Skv, H, K, group;  // group = H / K; Skv = the visible keys
+  int kv_rows;                  // rows of K / V per batch (>= Skv)
   int causal;
   float scale;               // 1 / sqrt(hd)
 };
@@ -438,8 +449,8 @@ __global__ void __launch_bounds__(kFmaThreads) flash_fma_kernel(
   const long long q_stride = (long long)s.H * HD;
   const long long kv_stride = (long long)s.K * HD;
   const float* qb = q + (long long)b * s.Sq * q_stride + (long long)h * HD;
-  const float* kb = k + (long long)b * s.Skv * kv_stride + (long long)kh * HD;
-  const float* vb = v + (long long)b * s.Skv * kv_stride + (long long)kh * HD;
+  const float* kb = k + (long long)b * s.kv_rows * kv_stride + (long long)kh * HD;
+  const float* vb = v + (long long)b * s.kv_rows * kv_stride + (long long)kh * HD;
   float* ob = o + (long long)b * s.Sq * q_stride + (long long)h * HD;
 
   for (int i = threadIdx.x; i < kFmaBQ * HD; i += kFmaThreads) {
@@ -573,16 +584,17 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// The (B, S, heads, hd) tensor as a 4-D map (hd, heads, S, B) whose box is
-// 64 head dims x 1 head x 128 positions, swizzled by 128 bytes; positions
-// past S read as zeros.
+// A (B, rows, heads, hd) tensor as a 4-D map (hd, heads, S, B) whose box
+// is 64 head dims x 1 head x 128 positions, swizzled by 128 bytes; batches
+// lie `rows` positions apart, and positions at or past S (<= rows) read as
+// zeros and are never loaded.
 CUresult encode_map(EncodeTiled encode, CUtensorMap* map, const void* ptr,
-                    int B, int S, int heads, int hd) {
+                    int B, int S, int rows, int heads, int hd) {
   const cuuint64_t dim[4] = {(cuuint64_t)hd, (cuuint64_t)heads,
                              (cuuint64_t)S, (cuuint64_t)B};
   const cuuint64_t stride[3] = {(cuuint64_t)hd * 2,
                                 (cuuint64_t)heads * hd * 2,
-                                (cuuint64_t)S * heads * hd * 2};
+                                (cuuint64_t)rows * heads * hd * 2};
   const cuuint32_t box[4] = {kBoxCols, 1, kBK, 1};
   const cuuint32_t elem[4] = {1, 1, 1, 1};
   return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
@@ -602,9 +614,11 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o, int B,
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return (int)cudaErrorSymbolNotFound;
   CUtensorMap qm, km, vm;
-  CUresult res = encode_map(encode, &qm, q, B, s.Sq, s.H, HD);
-  if (res == CUDA_SUCCESS) res = encode_map(encode, &km, k, B, s.Skv, s.K, HD);
-  if (res == CUDA_SUCCESS) res = encode_map(encode, &vm, v, B, s.Skv, s.K, HD);
+  CUresult res = encode_map(encode, &qm, q, B, s.Sq, s.Sq, s.H, HD);
+  if (res == CUDA_SUCCESS)
+    res = encode_map(encode, &km, k, B, s.Skv, s.kv_rows, s.K, HD);
+  if (res == CUDA_SUCCESS)
+    res = encode_map(encode, &vm, v, B, s.Skv, s.kv_rows, s.K, HD);
   if (res != CUDA_SUCCESS) return -(int)res;
   constexpr size_t smem = wgmma_smem_bytes<HD>();
   const cudaError_t err = cudaFuncSetAttribute(
@@ -618,18 +632,20 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o, int B,
 
 }  // namespace
 
-// q, o: (B, Sq, H, hd); k, v: (B, Skv, K, hd); all contiguous, 16-byte
-// aligned.  dtype 0 = float32, 1 = bfloat16; hd 64 or 128.  Returns 0, a
-// cudaError_t, or minus the CUresult of a failed tensor-map encode.
+// q, o: (B, Sq, H, hd); k, v: (B, kv_rows, K, hd), of which the first Skv
+// rows of each batch are the keys; all contiguous, 16-byte aligned.  dtype
+// 0 = float32, 1 = bfloat16; hd 64 or 128.  Returns 0, a cudaError_t, or
+// minus the CUresult of a failed tensor-map encode.
 extern "C" int attn_flash_attention(const void* q, const void* k,
                                     const void* v, void* o, int B, int H,
-                                    int K, int Sq, int Skv, int hd,
-                                    int causal, int dtype, void* stream) {
+                                    int K, int Sq, int Skv, int kv_rows,
+                                    int hd, int causal, int dtype,
+                                    void* stream) {
   if (B < 1 || B > 65535 || K < 1 || H < K || H % K != 0 || H > 65535 ||
-      Sq < 0 || Skv < 1)
+      Sq < 0 || Skv < 1 || kv_rows < Skv)
     return (int)cudaErrorInvalidValue;
   if (Sq == 0) return (int)cudaSuccess;
-  const Shape s{B, Sq, Skv, H, K, H / K, causal ? 1 : 0,
+  const Shape s{B, Sq, Skv, H, K, H / K, kv_rows, causal ? 1 : 0,
                 (float)(1.0 / sqrt((double)hd))};
   const cudaStream_t st = (cudaStream_t)stream;
   int err = (int)cudaErrorInvalidValue;

@@ -206,13 +206,16 @@ def fused_split(nbr, nmask, labels, comm, chg, prune: bool):
     return out
 
 
-def flash_attention(q, k, v, causal: bool = True):
+def flash_attention(q, k, v, causal: bool = True, kv_len: int | None = None):
     """GQA attention of q (B, Sq, H, hd) over k/v (B, Skv, K, hd), the
     models' layout in and out (see ``ref.flash_attention_ref``).
 
     Query head h reads KV head ``h // (H // K)``; under ``causal`` query i
-    sees keys 0..i, both counted from 0.  bfloat16 or float32, hd 64 or
-    128, contiguous.  Returns (B, Sq, H, hd) in q's dtype.
+    sees keys 0..i, both counted from 0.  ``kv_len`` (a host int, default
+    Skv) is the count of visible keys: keys at and past it are masked and,
+    on the card, never read, while batches stay Skv rows apart (a decode
+    step over the first L + 1 rows of a cache).  bfloat16 or float32, hd
+    64 or 128, contiguous.  Returns (B, Sq, H, hd) in q's dtype.
     """
     if q.dim() != 4 or k.dim() != 4:
         raise ValueError(f"q and k must be 4-D, got {tuple(q.shape)} and "
@@ -232,6 +235,14 @@ def flash_attention(q, k, v, causal: bool = True):
     if kk < 1 or h % kk or skv < 1:
         raise ValueError(f"need H % K == 0 and Skv >= 1, got H={h}, K={kk}, "
                          f"Skv={skv}")
+    kv_len = skv if kv_len is None else kv_len
+    # a host int: a device scalar here would cost a sync per launch
+    if (isinstance(kv_len, (bool, torch.Tensor))
+            or not hasattr(kv_len, "__index__")
+            or not 1 <= kv_len.__index__() <= skv):
+        raise ValueError(f"kv_len must be a host int in [1, Skv={skv}], got "
+                         f"{kv_len!r}")
+    kv_len = kv_len.__index__()
     if not (k.device == v.device == dev) or dev.type not in ("cpu", "cuda"):
         raise ValueError(f"q, k, v must lie on one CPU or CUDA device, got "
                          f"{q.device}, {k.device}, {v.device}")
@@ -239,14 +250,14 @@ def flash_attention(q, k, v, causal: bool = True):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
     if dev.type == "cpu":
-        return ref.flash_attention_ref(q, k, v, causal)
+        return ref.flash_attention_ref(q, k, v, causal, kv_len)
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned")
     out = torch.empty_like(q)
     if sq and b:
         _launch("flash_attention", dev, q.data_ptr(), k.data_ptr(),
-                v.data_ptr(), out.data_ptr(), b, h, kk, sq, skv, hd,
+                v.data_ptr(), out.data_ptr(), b, h, kk, sq, kv_len, skv, hd,
                 int(bool(causal)), _ATTN_DTYPE_CODE[q.dtype],
                 symbol="attn_flash_attention")
     return out

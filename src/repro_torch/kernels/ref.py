@@ -16,7 +16,9 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.models.attention import chunked_attention
+# the module, not the name: models.attention launches B5 through ops.py,
+# which imports this module
+from repro_torch.models import attention as _attention
 
 SENTINEL = 2147483647  # INT32_MAX: "no label"
 _M32 = 0xFFFFFFFF
@@ -134,11 +136,14 @@ def fused_split_ref(nbr, nmask, labels, comm, chg, prune: bool):
     return torch.where(wake, mres, labels[:rows])
 
 
-def flash_attention_ref(q, k, v, causal: bool):
+def flash_attention_ref(q, k, v, causal: bool, kv_len: int | None = None):
     """Attention of q (B, Sq, H, hd) over k/v (B, Skv, K, hd), positions
     counted from 0 on both sides: ``chunked_attention`` in chunks of
-    ``min(512, Skv)``, returned in q's dtype."""
+    ``min(512, Skv)``, returned in q's dtype.  ``kv_len`` masks the keys at
+    and past it (``chunked_attention``'s ``kv_valid_len``)."""
     pos_q = torch.arange(q.shape[1], dtype=torch.int32, device=q.device)
     pos_k = torch.arange(k.shape[1], dtype=torch.int32, device=q.device)
-    return chunked_attention(q, k, v, pos_q, pos_k, causal=causal,
-                             chunk=min(512, k.shape[1]))
+    return _attention.chunked_attention(q, k, v, pos_q, pos_k,
+                                        causal=causal,
+                                        chunk=min(512, k.shape[1]),
+                                        kv_valid_len=kv_len)

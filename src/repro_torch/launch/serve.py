@@ -12,8 +12,10 @@ Four workloads share this entry point (``--mode``):
     warm batched re-detection against a cold re-detection per update.
   * ``serve_tenants`` (``tenants``): K tenants through the multi-tenant
     tier (:mod:`repro_torch.serve`).
-  * ``serve`` (``lm``): LM serving needs the transformer models, which are
-    not ported yet; it raises.
+  * ``serve`` (``lm``): LM serving of one of ``configs.ARCHS``: prefill a
+    batch of prompts, then decode greedily, every attention call in the
+    flash-attention kernel on the card (the dense decoder families; the
+    others raise ``unported``).
 
 Every engine runs on CUDA unless ``device`` (``--device``) says
 otherwise; ``--device cpu`` runs the kernels' plain versions.
@@ -29,13 +31,64 @@ import time
 
 import numpy as np
 
-from repro_torch.engine.config import unported
 
+def serve(arch: str, reduced: bool = True, batch: int = 4,
+          prompt_len: int = 16, max_new: int = 16, s_max: int = 128,
+          seed: int = 0, params=None, greedy: bool = True, device=None):
+    """LM serving of ``arch``: prefill ``batch`` random prompts of
+    ``prompt_len`` tokens (``np.random.default_rng(seed)``, as the
+    reference draws them), then ``max_new - 1`` greedy decode steps over a
+    cache of ``s_max`` rows.  ``params`` (else ``init_from_specs`` from
+    ``seed``) lie on ``device`` (``None``: CUDA).
 
-def serve(arch: str, **kwargs):
-    """LM serving (prefill, then greedy decode) of ``arch``: needs the
-    port of the transformer models."""
-    raise unported("lm serving")
+    Returns the reference's ``{"generated": (batch, max_new) int32 numpy,
+    "prefill_s", "decode_s"}``.  The tokens stay on the device until one
+    copy at the end; both times end in a ``torch.cuda.synchronize()`` on
+    the card.  ``greedy`` is the reference's flag: decoding is greedy
+    either way.
+    """
+    import torch
+
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.models import transformer as T
+    from repro_torch.models.common import init_from_specs
+
+    dev = torch.device("cuda" if device is None else device)
+    cfg = reduced_config(arch) if reduced else get_config(arch)
+    if params is None:
+        params = init_from_specs(T.model_specs(cfg), seed, device=dev)
+    rng = np.random.default_rng(seed)
+    prompts = rng.integers(0, cfg.vocab, size=(batch, prompt_len)
+                           ).astype(np.int32)
+    tokens = torch.from_numpy(prompts).to(dev)
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    out = torch.empty((batch, max_new), dtype=torch.int32, device=dev)
+    with torch.inference_mode():
+        sync()
+        t0 = time.perf_counter()
+        logits, caches = T.prefill(cfg, params, {"tokens": tokens}, s_max)
+        out[:, 0] = logits.argmax(-1)
+        sync()
+        t_prefill = time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        for i in range(1, max_new):
+            logits, caches = T.decode_step(cfg, params, caches,
+                                           {"tokens": out[:, i - 1:i]})
+            out[:, i] = logits[:, -1].argmax(-1)
+        sync()
+        t_decode = time.perf_counter() - t0
+    gen = out.cpu().numpy()
+
+    tput = batch * max_new / max(t_decode, 1e-9)
+    print(f"[serve] {arch}: batch={batch} prefill {t_prefill:.2f}s, "
+          f"{max_new} tokens in {t_decode:.2f}s ({tput:.1f} tok/s)",
+          flush=True)
+    return {"generated": gen, "prefill_s": t_prefill, "decode_s": t_decode}
 
 
 def serve_communities(num_requests: int = 24, backend: str = "auto",
@@ -409,7 +462,10 @@ def main(argv=None) -> None:
                             batch_timeout_ms=a.batch_timeout_ms,
                             device=a.device)
         else:
-            serve(a.arch, batch=a.batch, max_new=a.max_new)
+            if not a.arch:
+                ap.error("--arch is required for --mode lm")
+            serve(a.arch, batch=a.batch, max_new=a.max_new,
+                  device=a.device)
     if sink is not None:
         # guaranteed final flush, with or without --stats-every-s:
         # everything the run recorded, quality gauges included

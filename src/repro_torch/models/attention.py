@@ -1,21 +1,70 @@
-"""GQA attention: the chunked online-softmax oracle and int8 KV quantisation.
+"""GQA attention: projections, RoPE, the KV cache, prefill, decode and
+cross attention, over the flash-attention kernel on the card.
 
-The counterpart of ``repro.models.attention``'s ``chunked_attention`` and
-``quantize_kv``, held to them on the same inputs.  ``chunked_attention`` is
-the plain version of the flash-attention kernel (``kernels/ops.py``): an
-online softmax over KV chunks, so the (Sq, Skv) score matrix never
-materialises beyond one chunk.  The projections, rotary embedding, KV cache
-and decode path are not ported yet.
+The counterpart of ``repro.models.attention``, function for function.
+``chunked_attention`` is the plain version of the flash-attention kernel
+(``kernels/ops.py``, B5): an online softmax over KV chunks, so the
+(Sq, Skv) score matrix never materialises beyond one chunk.
+
+Where the attention runs:
+  * a CUDA tensor goes through B5 (``ops.flash_attention``): training and
+    prefill causal over positions 0..S-1 (the kernel counts positions from
+    0, as the models' callers do), decode with ``kv_len = L + 1`` over the
+    cache in place, cross attention non-causal.  What B5 does not cover (a
+    sliding window, an int8 cache, head dims other than 64 and 128) raises
+    ``unported``: nothing falls back to the plain attention on the card;
+  * a CPU tensor goes through ``chunked_attention`` with the reference's
+    arguments (``chunk``; decode and cross ``min(2048, Skv)``), so its
+    float32 sums fold in the reference's order, every case included.
+
+``KVCache.length`` is a host ``int``: the serving loop knows it, and a
+device scalar would cost a host read per step.  Decode writes the new K/V
+into the cache in place and returns it (the reference returns a new one).
 """
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
 
-__all__ = ["NEG_INF", "chunked_attention", "quantize_kv"]
+from repro_torch.kernels import ops
+from repro_torch.models.common import ParamSpec, beinsum
+from repro_torch.models.layers import apply_rope, rope_frequencies
+
+__all__ = ["KVCache", "NEG_INF", "attention_decode", "attention_prefill",
+           "attention_specs", "attention_train", "chunked_attention",
+           "cross_attention", "cross_attention_specs", "mask_padded_heads",
+           "new_cache", "project_memory", "quantize_kv"]
 
 NEG_INF = -1e30
 _PAD_POS = 2**30   # position of the zero keys that pad the last chunk
+_KERNEL_HEAD_DIMS = (64, 128)
+
+
+class KVCache(NamedTuple):
+    """KV cache; optionally int8-quantised (k/v int8 + per-(token, head)
+    bf16 scales).  ``length`` is a host int: the tokens in the cache."""
+    k: torch.Tensor          # (B, S_max, K, hd)  bf16 or int8
+    v: torch.Tensor          # (B, S_max, K, hd)
+    length: int
+    k_scale: torch.Tensor | None = None   # (B, S_max, K, 1) bf16 (int8)
+    v_scale: torch.Tensor | None = None
+
+
+def _on_card(q: torch.Tensor, window=None, quantized: bool = False) -> bool:
+    """True when the attention of ``q`` runs in B5 (q on CUDA); raises
+    there for a case B5 does not cover.  False on the CPU."""
+    if q.device.type != "cuda":
+        return False
+    from repro_torch.engine.config import unported   # the engine imports us
+    if window is not None:
+        raise unported("sliding-window attention on CUDA")
+    if quantized:
+        raise unported("int8 KV cache on CUDA")
+    if q.shape[-1] not in _KERNEL_HEAD_DIMS:
+        raise unported("attention head dims other than 64 and 128 on CUDA")
+    return True
 
 
 def quantize_kv(x: torch.Tensor):
@@ -87,3 +136,192 @@ def chunked_attention(q, k, v, q_positions, kv_positions, *, causal: bool,
         m = m_new
     out = acc / l.clamp_min(1e-30)[..., None]
     return out.reshape(b, sq, h, hd).to(q.dtype)
+
+
+def attention_specs(d: int, n_heads: int, n_kv: int, head_dim: int,
+                    qkv_bias: bool = False) -> dict:
+    s = {
+        "wq": ParamSpec((d, n_heads, head_dim), ("embed", "heads", "head_dim")),
+        "wk": ParamSpec((d, n_kv, head_dim), ("embed", "kv_heads", "head_dim")),
+        "wv": ParamSpec((d, n_kv, head_dim), ("embed", "kv_heads", "head_dim")),
+        "wo": ParamSpec((n_heads, head_dim, d), ("heads", "head_dim", "embed")),
+    }
+    if qkv_bias:
+        s["bq"] = ParamSpec((n_heads, head_dim), ("heads", "head_dim"),
+                            init="zeros")
+        s["bk"] = ParamSpec((n_kv, head_dim), ("kv_heads", "head_dim"),
+                            init="zeros")
+        s["bv"] = ParamSpec((n_kv, head_dim), ("kv_heads", "head_dim"),
+                            init="zeros")
+    return s
+
+
+def mask_padded_heads(params: dict, real_h: int | None,
+                      real_k: int | None) -> dict:
+    """Zero-mask padding heads (configs/base.py ``n_heads_padded``): with
+    zero wq/wk/wv/wo slices they add nothing, so the model is exactly the
+    logical architecture.  A no-op when nothing is padded."""
+    p = dict(params)
+    h = p["wq"].shape[1]
+    if real_h is not None and real_h < h:
+        mh = (torch.arange(h, device=p["wq"].device) < real_h).to(
+            p["wq"].dtype)
+        p["wq"] = p["wq"] * mh[None, :, None]
+        p["wo"] = p["wo"] * mh[:, None, None]
+        if "bq" in p:
+            p["bq"] = p["bq"] * mh[:, None]
+    k = p["wk"].shape[1]
+    if real_k is not None and real_k < k:
+        mk = (torch.arange(k, device=p["wk"].device) < real_k).to(
+            p["wk"].dtype)
+        p["wk"] = p["wk"] * mk[None, :, None]
+        p["wv"] = p["wv"] * mk[None, :, None]
+        if "bk" in p:
+            p["bk"] = p["bk"] * mk[:, None]
+            p["bv"] = p["bv"] * mk[:, None]
+    return p
+
+
+def _project_qkv(params, x, positions, rope_theta):
+    """x: (B, S, d) -> q (B,S,H,hd), k/v (B,S,K,hd), RoPE applied."""
+    q = beinsum("bsd,dhk->bshk", x, params["wq"])
+    k = beinsum("bsd,dhk->bshk", x, params["wk"])
+    v = beinsum("bsd,dhk->bshk", x, params["wv"])
+    if "bq" in params:
+        q, k, v = q + params["bq"], k + params["bk"], v + params["bv"]
+    if rope_theta is not None:
+        cos, sin = rope_frequencies(q.shape[-1], positions, rope_theta)
+        q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
+    return q, k, v
+
+
+def _self_attention(q, k, v, positions, *, causal, chunk, window,
+                    quantized=False):
+    if _on_card(q, window, quantized):
+        return ops.flash_attention(q.contiguous(), k.contiguous(),
+                                   v.contiguous(), causal=causal)
+    return chunked_attention(q, k, v, positions, positions, causal=causal,
+                             chunk=chunk, window=window)
+
+
+def attention_train(params, x, positions, *, n_heads, n_kv, head_dim,
+                    rope_theta=10000.0, causal=True, chunk=512,
+                    window=None):
+    """Full-sequence attention (training / encoder)."""
+    q, k, v = _project_qkv(params, x, positions, rope_theta)
+    out = _self_attention(q, k, v, positions, causal=causal, chunk=chunk,
+                          window=window)
+    return beinsum("bshk,hkd->bsd", out, params["wo"])
+
+
+def new_cache(lead: tuple, s_max: int, n_kv: int, head_dim: int, dtype,
+              device, quantize: bool = False) -> KVCache:
+    """An empty (length 0) cache of zeros, (*lead, S_max, K, hd): ``lead``
+    is (B,), or (n_groups, B) for a stacked one; int8 with bf16 scales when
+    ``quantize``."""
+    shape = (*lead, s_max, n_kv, head_dim)
+    if not quantize:
+        return KVCache(k=torch.zeros(shape, dtype=dtype, device=device),
+                       v=torch.zeros(shape, dtype=dtype, device=device),
+                       length=0)
+    sshape = (*lead, s_max, n_kv, 1)
+    return KVCache(
+        k=torch.zeros(shape, dtype=torch.int8, device=device),
+        v=torch.zeros(shape, dtype=torch.int8, device=device), length=0,
+        k_scale=torch.zeros(sshape, dtype=torch.bfloat16, device=device),
+        v_scale=torch.zeros(sshape, dtype=torch.bfloat16, device=device))
+
+
+def attention_prefill(params, x, positions, s_max, *, rope_theta=10000.0,
+                      chunk=512, window=None, quantize: bool = False,
+                      cache: KVCache | None = None):
+    """Causal prefill: returns (output, populated KVCache of size s_max).
+
+    ``cache`` (optional, of size s_max, int8 iff ``quantize``) is filled in
+    place instead of a new one; rows past the prompt keep what they hold
+    (the reference's are zeros; no read ever reaches them).
+    """
+    b, s, _ = x.shape
+    if s > s_max:
+        raise ValueError(f"prompt of {s} tokens over a cache of {s_max}")
+    q, k, v = _project_qkv(params, x, positions, rope_theta)
+    out = _self_attention(q, k, v, positions, causal=True, chunk=chunk,
+                          window=window, quantized=quantize)
+    if cache is None:
+        cache = new_cache((b,), s_max, k.shape[2], k.shape[3], k.dtype,
+                          x.device, quantize)
+    if quantize:
+        kq, ks = quantize_kv(k)
+        vq, vs = quantize_kv(v)
+        cache.k[:, :s], cache.v[:, :s] = kq, vq
+        cache.k_scale[:, :s], cache.v_scale[:, :s] = ks, vs
+    else:
+        cache.k[:, :s], cache.v[:, :s] = k, v
+    return beinsum("bshk,hkd->bsd", out, params["wo"]), \
+        cache._replace(length=s)
+
+
+def attention_decode(params, x, cache: KVCache, *, rope_theta=10000.0,
+                     window=None):
+    """One-token decode against the (optionally int8) cache.  x: (B, 1, d).
+
+    Writes the token's K/V at row ``cache.length`` in place and returns
+    (output, the cache with length + 1).
+    """
+    pos_l = cache.length
+    s_max = cache.k.shape[1]
+    if not 0 <= pos_l < s_max:
+        raise ValueError(f"cache of {s_max} rows is full at {pos_l}")
+    quant = cache.k_scale is not None
+    pos = torch.full((1,), pos_l, dtype=torch.int32, device=x.device)
+    q, k, v = _project_qkv(params, x, pos, rope_theta)
+    card = _on_card(q, window, quant)
+    if quant:
+        k, ks = quantize_kv(k)
+        v, vs = quantize_kv(v)
+        cache.k_scale[:, pos_l:pos_l + 1] = ks
+        cache.v_scale[:, pos_l:pos_l + 1] = vs
+    cache.k[:, pos_l:pos_l + 1] = k
+    cache.v[:, pos_l:pos_l + 1] = v
+    if card:
+        out = ops.flash_attention(q.contiguous(), cache.k, cache.v,
+                                  causal=False, kv_len=pos_l + 1)
+    else:
+        kv_pos = torch.arange(s_max, dtype=torch.int32, device=x.device)
+        out = chunked_attention(
+            q, cache.k, cache.v, pos, kv_pos, causal=True,
+            chunk=min(2048, s_max), window=window, kv_valid_len=pos_l + 1,
+            k_scale=cache.k_scale, v_scale=cache.v_scale)
+    y = beinsum("bshk,hkd->bsd", out, params["wo"])
+    return y, cache._replace(length=pos_l + 1)
+
+
+# ------------------------------------------------------ cross-attention ----
+def cross_attention_specs(d: int, n_heads: int, n_kv: int, head_dim: int):
+    return attention_specs(d, n_heads, n_kv, head_dim)
+
+
+def cross_attention(params, x, memory_k, memory_v,
+                    memory_valid_len: int | None = None):
+    """Decoder->encoder attention; memory_k/v: (B, Sm, K, hd) precomputed.
+    ``memory_valid_len`` (a host int) masks memory rows at and past it."""
+    q = beinsum("bsd,dhk->bshk", x, params["wq"])
+    sm = memory_k.shape[1]
+    if _on_card(q):
+        out = ops.flash_attention(q.contiguous(), memory_k.contiguous(),
+                                  memory_v.contiguous(), causal=False,
+                                  kv_len=memory_valid_len)
+    else:
+        out = chunked_attention(
+            q, memory_k, memory_v,
+            torch.zeros((x.shape[1],), dtype=torch.int32, device=x.device),
+            torch.arange(sm, dtype=torch.int32, device=x.device),
+            causal=False, chunk=min(2048, sm), kv_valid_len=memory_valid_len)
+    return beinsum("bshk,hkd->bsd", out, params["wo"])
+
+
+def project_memory(params, memory):
+    """Precompute cross-attention K/V from encoder output (B, Sm, d)."""
+    k = beinsum("bsd,dhk->bshk", memory, params["wk"])
+    v = beinsum("bsd,dhk->bshk", memory, params["wv"])
+    return k, v

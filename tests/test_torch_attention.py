@@ -1,5 +1,7 @@
-"""PyTorch port, attention: the chunked online-softmax oracle and
-``ops.flash_attention`` (its CPU path) against the JAX package on the same
+"""PyTorch port, attention: the chunked online-softmax oracle,
+``ops.flash_attention`` (its CPU path, ``kv_len`` included) and the rest of
+``models/attention.py`` (projections, RoPE, prefill, decode over the KV
+cache, cross attention, padded heads) against the JAX package on the same
 numpy-seeded inputs.
 
 ``ops.flash_attention`` is held to JAX's ``mode="interpret"``, which runs
@@ -237,3 +239,219 @@ def test_flash_attention_keeps_empty_queries():
     q, k, v = T(qkv(2, 8, 4, 2, 64, dtype="float32"), "float32")
     out = ops.flash_attention(q[:, :0], k, v, causal=True)
     assert out.shape == (2, 0, 4, 64)
+
+
+# --- flash_attention's kv_len against chunked_attention(kv_valid_len=) --
+
+KV_LEN_CASES = {
+    # name: (b, sq, h, k, hd, rows, kv_len, causal, dtype)
+    "decode_b4": (4, 1, 8, 2, 128, 96, 51, False, "bfloat16"),
+    "decode_ragged_b2": (2, 1, 4, 1, 64, 200, 77, False, "float32"),
+    "decode_full": (2, 1, 4, 2, 64, 40, 40, False, "bfloat16"),
+    "decode_one_key": (3, 1, 4, 4, 64, 32, 1, False, "float32"),
+    "prefill_in_cache": (1, 24, 4, 2, 64, 64, 24, True, "bfloat16"),
+    "cross_masked": (2, 12, 4, 2, 128, 48, 30, False, "float32"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(KV_LEN_CASES))
+def test_flash_attention_kv_len_matches_reference(case):
+    """Keys at and past kv_len are masked; rows past it hold junk that
+    must not reach the output.  Held to the reference's oracle with
+    kv_valid_len, both the op's CPU path and ``flash_attention_ref``."""
+    b, sq, h, k, hd, rows, kv_len, causal, dtype = KV_LEN_CASES[case]
+    q, kk, v = qkv(b, sq, h, k, hd, rows, seed=len(case), dtype=dtype)
+    kk[:, kv_len:] = 1e4
+    v[:, kv_len:] = -1e4
+    pos_q = np.arange(sq, dtype=np.int32)
+    pos_k = np.arange(rows, dtype=np.int32)
+    jq, jk, jv = J((q, kk, v), dtype)
+    want = jattn.chunked_attention(jq, jk, jv, jnp.asarray(pos_q),
+                                   jnp.asarray(pos_k), causal=causal,
+                                   chunk=min(512, rows),
+                                   kv_valid_len=jnp.int32(kv_len))
+    tq, tk, tv = T((q, kk, v), dtype)
+    got = ops.flash_attention(tq, tk, tv, causal=causal, kv_len=kv_len)
+    assert got.dtype == TDT[dtype] and got.shape == tq.shape
+    assert rel_err(want, got) < TOL[dtype]
+    assert torch.equal(got, ref.flash_attention_ref(tq, tk, tv, causal,
+                                                    kv_len))
+    # the same function as the visible keys alone
+    alone = ops.flash_attention(tq, tk[:, :kv_len].contiguous(),
+                                tv[:, :kv_len].contiguous(), causal=causal)
+    assert rel_err(alone.float().numpy(), got) < TOL[dtype]
+
+
+@pytest.mark.parametrize("bad", [0, 41, -1, 2.0, True, "tensor"])
+def test_flash_attention_rejects_bad_kv_len(bad):
+    q, k, v = T(qkv(1, 1, 4, 2, 64, skv=40, dtype="float32"), "float32")
+    if bad == "tensor":
+        bad = torch.tensor(5)
+    with pytest.raises(ValueError, match="kv_len"):
+        ops.flash_attention(q, k, v, causal=False, kv_len=bad)
+    assert ops.flash_attention(q, k, v, causal=False,
+                               kv_len=np.int64(40)).shape == q.shape
+
+
+# --- the rest of models/attention.py against the reference ---------------
+
+def attn_params(d, h, kv, hd, bias, dtype, seed):
+    """float32 numpy attention weights rounded to ``dtype``; biases
+    non-zero so that they count."""
+    rng = np.random.default_rng(seed)
+    p = {"wq": rng.standard_normal((d, h, hd)) * 0.05,
+         "wk": rng.standard_normal((d, kv, hd)) * 0.05,
+         "wv": rng.standard_normal((d, kv, hd)) * 0.05,
+         "wo": rng.standard_normal((h, hd, d)) * 0.05}
+    if bias:
+        p.update(bq=rng.standard_normal((h, hd)) * 0.1,
+                 bk=rng.standard_normal((kv, hd)) * 0.1,
+                 bv=rng.standard_normal((kv, hd)) * 0.1)
+    out = {}
+    for name, a in p.items():
+        a = np.asarray(a, np.float32)
+        out[name] = np.array(jnp.asarray(a, JDT[dtype]).astype(jnp.float32))
+    return out
+
+
+def both_params(p, dtype):
+    return ({k: jnp.asarray(v, JDT[dtype]) for k, v in p.items()},
+            {k: torch.from_numpy(v).to(TDT[dtype]) for k, v in p.items()})
+
+
+def act(shape, dtype, seed):
+    """float32 numpy activations rounded to ``dtype``."""
+    x = np.random.default_rng(seed).standard_normal(shape).astype(np.float32)
+    return np.array(jnp.asarray(x, JDT[dtype]).astype(jnp.float32))
+
+
+ATTN_CASES = {
+    # name: (h, kv, hd, bias, window, quantize, chunk)
+    "gqa": (4, 2, 64, False, None, False, 16),
+    "mha_bias": (4, 4, 32, True, None, False, 8),
+    "window": (4, 2, 64, True, 6, False, 16),
+    "int8": (4, 2, 64, True, None, True, 16),
+}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", sorted(ATTN_CASES))
+def test_attention_train_and_prefill_match_reference(case, dtype):
+    h, kv, hd, bias, window, quant, chunk = ATTN_CASES[case]
+    d, b, s, s_max = 48, 2, 20, 32
+    jp, tp = both_params(attn_params(d, h, kv, hd, bias, dtype, 1), dtype)
+    x = act((b, s, d), dtype, 2)
+    jx, tx = jnp.asarray(x, JDT[dtype]), torch.from_numpy(x).to(TDT[dtype])
+    pos = np.arange(s, dtype=np.int32)
+    jpos, tpos = jnp.asarray(pos), torch.from_numpy(pos)
+    want = jattn.attention_train(jp, jx, jpos, n_heads=h, n_kv=kv,
+                                 head_dim=hd, rope_theta=1e4, chunk=chunk,
+                                 window=window)
+    got = tattn.attention_train(tp, tx, tpos, n_heads=h, n_kv=kv,
+                                head_dim=hd, rope_theta=1e4, chunk=chunk,
+                                window=window)
+    assert rel_err(want, got) < TOL[dtype]
+    jy, jc = jattn.attention_prefill(jp, jx, jpos, s_max, rope_theta=1e4,
+                                     chunk=chunk, window=window,
+                                     quantize=quant)
+    ty, tc = tattn.attention_prefill(tp, tx, tpos, s_max, rope_theta=1e4,
+                                     chunk=chunk, window=window,
+                                     quantize=quant)
+    assert rel_err(jy, ty) < TOL[dtype]
+    assert tc.length == s and int(jc.length) == s
+    assert tc.k.shape == jc.k.shape and tc.k.dtype == (
+        torch.int8 if quant else TDT[dtype])
+    assert not torch.any(tc.k[:, s:]) and not torch.any(tc.v[:, s:])
+    if quant:
+        # int8 codes may differ by one where bf16 k rounds differently
+        assert np.abs(np.asarray(jc.k, np.int32)
+                      - tc.k.numpy().astype(np.int32)).max() <= 1
+        assert rel_err(jc.k_scale.astype(jnp.float32), tc.k_scale) < 8e-3
+    else:
+        assert rel_err(jc.k.astype(jnp.float32), tc.k) < TOL[dtype]
+        assert rel_err(jc.v.astype(jnp.float32), tc.v) < TOL[dtype]
+    # a given cache is filled in place
+    buf = tattn.new_cache((b,), s_max, kv, hd, TDT[dtype], "cpu", quant)
+    ty2, tc2 = tattn.attention_prefill(tp, tx, tpos, s_max, rope_theta=1e4,
+                                       chunk=chunk, window=window,
+                                       quantize=quant, cache=buf)
+    assert tc2.k is buf.k and torch.equal(ty2, ty)
+    assert torch.equal(buf.k, tc.k) and torch.equal(buf.v, tc.v)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", sorted(ATTN_CASES))
+def test_attention_decode_matches_reference(case, dtype):
+    """Three decode steps after a prefill: outputs, the cache rows written
+    in place, and the length."""
+    h, kv, hd, bias, window, quant, chunk = ATTN_CASES[case]
+    d, b, s, s_max = 48, 2, 9, 24
+    jp, tp = both_params(attn_params(d, h, kv, hd, bias, dtype, 3), dtype)
+    x = act((b, s + 3, d), dtype, 4)
+    jx, tx = jnp.asarray(x, JDT[dtype]), torch.from_numpy(x).to(TDT[dtype])
+    pos = np.arange(s, dtype=np.int32)
+    _, jc = jattn.attention_prefill(jp, jx[:, :s], jnp.asarray(pos), s_max,
+                                    rope_theta=1e4, chunk=chunk,
+                                    window=window, quantize=quant)
+    _, tc = tattn.attention_prefill(tp, tx[:, :s], torch.from_numpy(pos),
+                                    s_max, rope_theta=1e4, chunk=chunk,
+                                    window=window, quantize=quant)
+    for t in range(s, s + 3):
+        jy, jc = jattn.attention_decode(jp, jx[:, t:t + 1], jc,
+                                        rope_theta=1e4, window=window)
+        k_before = tc.k
+        ty, tc = tattn.attention_decode(tp, tx[:, t:t + 1], tc,
+                                        rope_theta=1e4, window=window)
+        assert tc.k is k_before and tc.length == t + 1
+        assert rel_err(jy, ty) < TOL[dtype], t
+        if not quant:
+            assert rel_err(jc.k[:, t].astype(jnp.float32), tc.k[:, t]) \
+                < TOL[dtype]
+    assert int(jc.length) == tc.length == s + 3
+
+
+def test_attention_decode_rejects_a_full_cache():
+    jp, tp = both_params(attn_params(16, 2, 2, 32, False, "float32", 5),
+                         "float32")
+    cache = tattn.new_cache((1,), 4, 2, 32, torch.float32, "cpu")
+    x = torch.zeros((1, 1, 16))
+    with pytest.raises(ValueError, match="full"):
+        tattn.attention_decode(tp, x, cache._replace(length=4))
+
+
+@pytest.mark.parametrize("valid", [None, 11])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cross_attention_and_project_memory_match_reference(valid, dtype):
+    h, kv, hd, d, b, sq, sm = 4, 2, 64, 48, 2, 5, 17
+    jp, tp = both_params(attn_params(d, h, kv, hd, False, dtype, 6), dtype)
+    x, mem = act((b, sq, d), dtype, 7), act((b, sm, d), dtype, 8)
+    jmk, jmv = jattn.project_memory(jp, jnp.asarray(mem, JDT[dtype]))
+    tmk, tmv = tattn.project_memory(tp, torch.from_numpy(mem).to(TDT[dtype]))
+    assert rel_err(jmk, tmk) < TOL[dtype] and rel_err(jmv, tmv) < TOL[dtype]
+    want = jattn.cross_attention(jp, jnp.asarray(x, JDT[dtype]), jmk, jmv,
+                                 None if valid is None else jnp.int32(valid))
+    got = tattn.cross_attention(tp, torch.from_numpy(x).to(TDT[dtype]), tmk,
+                                tmv, valid)
+    assert rel_err(want, got) < TOL[dtype]
+
+
+@pytest.mark.parametrize("pad", ["none", "heads", "heads_and_kv"])
+def test_mask_padded_heads_and_specs_match_reference(pad):
+    h, kv = 8, 4
+    real_h = 6 if pad != "none" else None
+    real_k = 3 if pad == "heads_and_kv" else None
+    jp, tp = both_params(attn_params(16, h, kv, 32, True, "float32", 9),
+                         "float32")
+    want = jattn.mask_padded_heads(jp, real_h, real_k)
+    got = tattn.mask_padded_heads(tp, real_h, real_k)
+    assert sorted(want) == sorted(got)
+    for k in want:
+        assert np.array_equal(np.asarray(want[k]), got[k].numpy()), k
+    js = jattn.attention_specs(16, h, kv, 32, qkv_bias=True)
+    ts = tattn.attention_specs(16, h, kv, 32, qkv_bias=True)
+    assert sorted(js) == sorted(ts)
+    for k in js:
+        assert (ts[k].shape, ts[k].axes, ts[k].init) \
+            == (js[k].shape, js[k].axes, js[k].init)
+    assert sorted(tattn.cross_attention_specs(16, h, kv, 32)) \
+        == sorted(jattn.cross_attention_specs(16, h, kv, 32))

@@ -272,6 +272,92 @@ def test_cuda_flash_attention_matches_plain_version(shape, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,kv_len,rows,hd", [(4, 513, 1024, 128),
+                                              (2, 300, 1024, 128),
+                                              (1, 77, 200, 64),
+                                              (2, 1, 128, 128)])
+def test_cuda_flash_attention_kv_len_reads_only_the_visible_keys(
+        b, kv_len, rows, hd, dtype):
+    """A decode step's call: one query over the first ``kv_len`` rows of a
+    cache whose other rows hold junk; equal to the plain version with
+    ``kv_len`` and to the copied-out keys alone."""
+    need_card()
+    gen = torch.Generator(device="cuda").manual_seed(kv_len)
+    q = torch.randn((b, 1, 8, hd), device="cuda", generator=gen).to(dtype)
+    kc, vc = (torch.randn((b, rows, 2, hd), device="cuda", generator=gen)
+              .to(dtype) for _ in range(2))
+    kc[:, kv_len:], vc[:, kv_len:] = 1e4, -1e4
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        want = ref.flash_attention_ref(q, kc, vc, False, kv_len).float()
+        alone = ref.flash_attention_ref(
+            q, kc[:, :kv_len].contiguous(), vc[:, :kv_len].contiguous(),
+            False).float()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    before = ops.LAUNCHES["flash_attention"]
+    got = ops.flash_attention(q, kc, vc, causal=False, kv_len=kv_len)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["flash_attention"] == before + 1
+    tol = 8e-3 if dtype == torch.bfloat16 else 1e-5
+    for w in (want, alone):
+        err = float((got.float() - w).abs().max() / w.abs().max())
+        assert err < tol, err
+    with pytest.raises(ValueError):
+        ops.flash_attention(q, kc, vc, causal=False, kv_len=rows + 1)
+
+
+def _tree_to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, dev) for k, v in tree.items()}
+    return tree.to(dev)
+
+
+@pytest.mark.cuda
+def test_cuda_lm_serve_matches_cpu():
+    """serve() of reduced Yi-9B on the card: every attention call in B5
+    (2 layers x (1 prefill + 7 decode steps)); its prefill and decode
+    logits against the CPU's plain path on the same weights, and the
+    window / int8-cache cases raise on the card."""
+    need_card()
+    from repro_torch.configs import reduced_config
+    from repro_torch.engine.config import UNPORTED
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import transformer as T
+    from repro_torch.models.common import init_from_specs
+    cfg = reduced_config("yi-9b")
+    cpu = init_from_specs(T.model_specs(cfg), 3, device="cpu")
+    card = _tree_to(cpu, "cuda")
+    ops.reset_launches()
+    out = serve("yi-9b", batch=2, prompt_len=24, max_new=8, s_max=64,
+                seed=3, params=card, device="cuda")
+    assert ops.LAUNCHES["flash_attention"] == cfg.n_layers * 8
+    assert out["generated"].shape == (2, 8)
+    toks = torch.from_numpy(np.random.default_rng(5).integers(
+        0, cfg.vocab, (2, 28)).astype(np.int32))
+    logits = []
+    for params, dev in ((cpu, "cpu"), (card, "cuda")):
+        t = toks.to(dev)
+        with torch.inference_mode():
+            lg, caches = T.prefill(cfg, params, {"tokens": t[:, :24]}, 64)
+            seq = [lg]
+            for i in range(24, 28):
+                lg, caches = T.decode_step(cfg, params, caches,
+                                           {"tokens": t[:, i:i + 1]})
+                seq.append(lg[:, 0])
+        logits.append([x.float().cpu()[..., :cfg.vocab] for x in seq])
+    for want, got in zip(*logits):
+        assert float((want - got).abs().max() / want.abs().max()) < 0.02
+    for arch in ("starcoder2-15b", "qwen1.5-32b"):
+        with pytest.raises(NotImplementedError, match="B5 with a window"):
+            serve(arch, batch=1, prompt_len=8, max_new=2, s_max=16,
+                  device="cuda")
+    assert "int8 KV cache on CUDA" in UNPORTED
+
+
+@pytest.mark.cuda
 def test_cuda_flash_attention_rejects_unaligned_rows():
     need_card()
     x = torch.zeros((1, 16 * 2 * 64 + 1), device="cuda",
@@ -636,7 +722,9 @@ def test_port_import_pulls_in_no_jax():
             "repro_torch.partition, repro_torch.serve, "
             "repro_torch.checkpoint, repro_torch.launch.serve, "
             "repro_torch.launch.mesh, repro_torch.core.distributed, "
-            "repro_torch.core.baselines, repro_torch.core.metrics; "
+            "repro_torch.core.baselines, repro_torch.core.metrics, "
+            "repro_torch.configs, repro_torch.models.transformer, "
+            "repro_torch.models.convert, repro_torch.data.clustering; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]; assert not bad, bad")
     subprocess.run([sys.executable, "-c", code], check=True, timeout=120,
