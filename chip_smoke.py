@@ -208,6 +208,32 @@ Phases, one JSON line each:
            weights upcast; within 1e-3) and in bf16 (within 0.02, or 1.5x
            the bf16 forward's own distance from the float32 forward if
            larger: bf16 rounding noise grows with depth).
+  lm_families  LM serving of the other families, one arch each at full
+           width with random bf16 weights from seed 0, freed before the
+           next: qwen2-moe-a2.7b (24 layers, MoE 60 of 64 experts top-4 +
+           shared expert), jamba-v0.1-52b cut to one group (8 of 32
+           layers: Mamba, attention at offset 4, MoE on odd offsets),
+           rwkv6-7b (32), seamless-m4t-large-v2 (24 + 24 encoder layers,
+           hd 64, 32 frames), internvl2-26b (48, a 1,024-row vision
+           prefix, 48 / 8 heads) and arctic-480b cut to one of its 35
+           layers (128 experts top-2 + dense residual).  Per arch: (b)
+           card against the CPU's plain path, logits within 0.02 (full
+           width at 2 layers, the VLM's prefix cut to 64 rows; jamba and
+           arctic at reduced_config); (a) serve(arch, reduced=False,
+           batch=4, prompt_len=512, max_new=32, s_max=1024 + prefix) with
+           launch counts reset just before and read just after (B5
+           launched once per attention, encoder and cross-attention layer
+           and call): prefill and decode seconds, tok/s, peak memory, the
+           weight-read bound; a synchronised prefill and 2 decode steps
+           with the Mamba mixer and scan, the RWKV time mix and the MoE
+           layer (expert products apart) timed; (c) the served tokens fed
+           back through forward_train, prefill and each decode step, MoE
+           at capacity factor E / k (no drop), in bf16 and in float32
+           (models.common.float32_replay: the same weights, float32
+           activations, full depth), with launches per call checked; B5
+           on the prefill's and first decode step's recorded calls
+           (self, encoder, cross, decode) against its plain version
+           (8e-3), timed beside its bound, the plain version and SDPA.
   audit    static analysis and the plan audit (repro_torch.analysis;
            needs main).  python -m repro_torch.launch.lint --strict in a
            subprocess (exit 0 with the committed baseline); the audit
@@ -269,6 +295,19 @@ LM_F32_TOL = 1e-3
 LM_NOISE_FACTOR = 1.5
 LM_KERNEL_TOL = 8e-3   # B5 against its plain version in bf16 (flash's)
 LM_RAGGED_KEYS = 300   # the B=2 decode call's keys: not a multiple of 128
+# The lm_families phase: one arch of each other family at full width,
+# random bf16 weights from LM_SEED, cut in depth (layers kept) where the
+# whole model would not fit one card: Jamba to one 8-layer group (103 GB
+# at 32), Arctic to one of its 35 layers (954 GB).  (b) runs full width
+# at LM_CPU's 2 layers, but reduced_config for those two (one group or
+# layer is 13-14 B parameters), and cuts the VLM's prefix to
+# LM_FAMILY_PREFIX rows on the CPU.
+LM_FAMILIES = (("qwen2-moe-a2.7b", None), ("jamba-v0.1-52b", 8),
+               ("rwkv6-7b", None), ("seamless-m4t-large-v2", None),
+               ("internvl2-26b", None), ("arctic-480b", 1))
+LM_FAMILY_REDUCED_CPU = ("jamba-v0.1-52b", "arctic-480b")
+LM_FAMILY_PREFIX = 64
+LM_FRAMES = 32         # the encoder frames serve() makes
 # Graphs of the timing phase beyond the main fit: (name, generator call).
 ER_GRAPH = "erdos_renyi(1 << 21, 16.0, seed=0)"
 PLANTED_GRAPH = "planted_partition(128, 1024, 0.3, 0.001, seed=0)"
@@ -276,7 +315,7 @@ SKEW_GRAPH = "rmat(20, 16, seed=0)"
 PHASES = ("kernels", "parity", "c1", "main", "wide_fit", "dense",
           "skew_fit", "batch", "obs", "microbatch", "stream", "ingest",
           "ooc", "serve", "sharded", "timing", "trace", "flash", "lm",
-          "audit")
+          "lm_families", "audit")
 # phase -> the phases whose graphs and fits it reuses
 NEEDS = {"timing": ("main", "wide_fit"), "trace": ("main",),
          "dense": ("wide_fit",), "microbatch": ("batch",),
@@ -2741,16 +2780,26 @@ def _lm_calls(torch, rt, cfg, params, dev):
     return calls
 
 
-def _lm_card_vs_cpu(torch, T, cfg, dev):
-    """(b) The whole path at full width and LM_CPU layers: the card's
-    prefill and decode logits against the CPU's plain path, one weight
-    set made on the CPU."""
+def _lm_card_vs_cpu(torch, T, cfg, dev, small=None, extras=None,
+                    s_max=None, init_on_card=False):
+    """(b) The whole path at full width and LM_CPU layers (or the config
+    `small`): the card's prefill and decode logits against the CPU's
+    plain path, one weight set made on the CPU (or on the card, and
+    copied).  `extras`: numpy inputs beside the tokens (a VLM's vision
+    prefix, an encoder's frames), cast to bf16 on each device; `s_max`
+    defaults to LM_CPU's."""
     import dataclasses
     c = LM_CPU
-    small = dataclasses.replace(cfg, n_layers=c["layers"])
+    if small is None:
+        small = dataclasses.replace(cfg, n_layers=c["layers"])
+    extras = extras or {}
     cpu = torch.device("cpu")
-    params_cpu, init_s = _lm_model(torch, T, small, LM_SEED, cpu)
-    params_dev = _tree_map(params_cpu, lambda x: x.to(dev))
+    if init_on_card:
+        params_dev, init_s = _lm_model(torch, T, small, LM_SEED, dev)
+        params_cpu = _tree_map(params_dev, lambda x: x.cpu())
+    else:
+        params_cpu, init_s = _lm_model(torch, T, small, LM_SEED, cpu)
+        params_dev = _tree_map(params_cpu, lambda x: x.to(dev))
     rng = np.random.default_rng(LM_SEED)
     toks = torch.from_numpy(rng.integers(
         0, cfg.vocab, (c["batch"], c["prompt_len"] + c["steps"])
@@ -2760,8 +2809,11 @@ def _lm_card_vs_cpu(torch, T, cfg, dev):
         runs = []
         for params, where in ((params_cpu, cpu), (params_dev, dev)):
             t = toks.to(where)
+            more = {k: torch.from_numpy(a).to(where, torch.bfloat16)
+                    for k, a in extras.items()}
             lg, caches = T.prefill(small, params, {
-                "tokens": t[:, :c["prompt_len"]]}, c["s_max"])
+                "tokens": t[:, :c["prompt_len"]], **more},
+                s_max or c["s_max"])
             out = [lg]
             for i in range(c["steps"]):
                 p = c["prompt_len"] + i
@@ -2772,34 +2824,43 @@ def _lm_card_vs_cpu(torch, T, cfg, dev):
     for want, got in zip(*runs):
         check(bool(torch.isfinite(got).all()), "lm card logits not finite")
         errs.append(_lm_rel(want, got, cfg.vocab))
-    check(max(errs) <= LM_TOL, f"lm card vs CPU: rel {max(errs)}")
+    check(max(errs) <= LM_TOL, f"lm card vs CPU: rel {max(errs)} (prefill, "
+          f"then each step: {errs})")
     del params_dev
-    return {"layers": c["layers"], "batch": c["batch"],
+    return {"layers": small.n_layers, "batch": c["batch"],
             "prompt_len": c["prompt_len"], "decode_steps": c["steps"],
-            "cpu_init_s": init_s, "wall_s": time.perf_counter() - t0,
+            ("card" if init_on_card else "cpu") + "_init_s": init_s,
+            "wall_s": time.perf_counter() - t0,
             "rel_err_prefill": errs[0], "rel_err_decode_max": max(errs[1:]),
             "tolerance_rel": LM_TOL}
 
 
-def _lm_replay(torch, rt, T, cfg, params, toks, s):
+def _lm_replay(torch, rt, T, cfg, params, toks, s, extras=None,
+               s_max=None, record=None):
     """forward_train over toks, then prefill of its first s tokens and a
     decode step per later token: (forward logits, [prefill and each
-    step's logits], [B5 launches of the forward, prefill, each step])."""
+    step's logits], [B5 launches of the forward, prefill, each step]).
+    `extras` go with the forward and the prefill; `record` (a dict)
+    takes the B5 calls of the prefill and the first decode step."""
     ops = rt.ops
+    extras = extras or {}
     launches = []
     with torch.inference_mode():
         ops.reset_launches()
-        full = T.forward_train(cfg, params, {"tokens": toks})
+        full = T.forward_train(cfg, params, {"tokens": toks, **extras})
         launches.append(ops.LAUNCHES["flash_attention"])
         ops.reset_launches()
-        lg, caches = T.prefill(cfg, params, {"tokens": toks[:, :s]},
-                               LM_SERVE["s_max"])
+        with _b5_recorder(ops, record, "prefill"):
+            lg, caches = T.prefill(cfg, params, {"tokens": toks[:, :s],
+                                                 **extras},
+                                   s_max or LM_SERVE["s_max"])
         launches.append(ops.LAUNCHES["flash_attention"])
         steps = [lg]
         for t in range(s, toks.shape[1]):
             ops.reset_launches()
-            lg, caches = T.decode_step(cfg, params, caches,
-                                       {"tokens": toks[:, t:t + 1]})
+            with _b5_recorder(ops, record if t == s else None, "decode"):
+                lg, caches = T.decode_step(cfg, params, caches,
+                                           {"tokens": toks[:, t:t + 1]})
             launches.append(ops.LAUNCHES["flash_attention"])
             steps.append(lg[:, 0])
         torch.cuda.synchronize()
@@ -2953,6 +3014,424 @@ def phase_lm(torch, rt, dev):
     del params
     gc.collect()
     torch.cuda.empty_cache()
+    return out
+
+
+# ----------------------------------------------------------- lm_families
+
+class _b5_recorder:
+    """While active, keeps a copy of the inputs of the first B5 call of
+    each shape in `record` (name -> (q, k, v, causal, kv_len)), named by
+    its role in `stage` ("prefill" or "decode"); launches still count."""
+
+    def __init__(self, ops, record, stage):
+        self.ops, self.record, self.stage = ops, record, stage
+
+    def __enter__(self):
+        if self.record is None:
+            return self
+        self.orig = self.ops.flash_attention
+
+        def wrapped(q, k, v, causal=True, kv_len=None):
+            if self.stage == "decode":
+                name = "decode" if kv_len is not None else "cross_decode"
+            elif causal:
+                name = "prefill"
+            else:      # the encoder attends over its own frames
+                name = "encoder" if q.shape[1] == k.shape[1] else "cross"
+            key = (name, tuple(q.shape), tuple(k.shape))
+            if name not in self.record and key not in self.record:
+                self.record[name] = tuple(x.clone() for x in (q, k, v)) \
+                    + (causal, kv_len)
+                self.record[key] = True
+            return self.orig(q, k, v, causal=causal, kv_len=kv_len)
+        self.ops.flash_attention = wrapped
+        return self
+
+    def __exit__(self, *exc):
+        if self.record is not None:
+            self.ops.flash_attention = self.orig
+        return False
+
+
+def _b5_per_call(cfg, prefill: bool) -> int:
+    """B5 launches of one forward / prefill (True) or one decode step:
+    every self-attention layer, plus the encoder's layers (forward and
+    prefill) and every decoder layer's cross attention (encoder-decoder)."""
+    n = sum(1 for mix, _ in cfg.layer_kinds() if mix == "attn")
+    if cfg.kind != "encdec":
+        return n
+    return 2 * n + (cfg.enc_layers if prefill else 0)
+
+
+def _family_inputs(torch, cfg, batch, dev):
+    """serve()'s prompts and extra inputs, drawn as it draws them: the
+    prompts (numpy) and the extras on `dev` (a VLM's zero prefix, an
+    encoder's frames from the same generator after the prompts)."""
+    rng = np.random.default_rng(LM_SEED)
+    prompts = rng.integers(0, cfg.vocab, size=(batch, LM_SERVE[
+        "prompt_len"])).astype(np.int32)
+    extras = {}
+    if cfg.family == "vlm":
+        extras["vision_embeds"] = torch.zeros(
+            (batch, cfg.frontend_len, cfg.d_model), dtype=torch.bfloat16,
+            device=dev)
+    if cfg.kind == "encdec":
+        extras["frames"] = torch.from_numpy(rng.normal(
+            size=(batch, LM_FRAMES, cfg.d_model))).to(dev, torch.bfloat16)
+    return prompts, extras
+
+
+class _route_recorder:
+    """While active, keeps each MoE layer call's expert choice (the
+    sorted top-k ids per token, on the host) with its device type, in
+    call order."""
+
+    def __init__(self):
+        from repro_torch.models import moe
+        self.moe, self.calls = moe, []
+
+    def __enter__(self):
+        self.orig = self.moe.moe_route
+
+        def wrapped(params, xt, **kw):
+            gates, idx = self.orig(params, xt, **kw)
+            self.calls.append((xt.device.type, idx.sort(-1).values.cpu()))
+            return gates, idx
+        self.moe.moe_route = wrapped
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.moe_route = self.orig
+        return False
+
+    def card_vs_cpu(self) -> list:
+        """Tokens whose top-k set differs between the CPU's and the
+        card's calls, call by call."""
+        cpu = [i for d, i in self.calls if d == "cpu"]
+        card = [i for d, i in self.calls if d == "cuda"]
+        return [int((a != b).any(-1).sum()) for a, b in zip(cpu, card)]
+
+    def decode_vs_forward(self, n_moe: int, batch: int, s_fwd: int,
+                          first: int) -> int:
+        """Over a `_lm_replay` (forward, prefill, decode steps; n_moe MoE
+        layers each): the decode steps' tokens whose top-k set differs
+        from the forward's at the same position (step j at forward
+        position first + j, of s_fwd per sequence)."""
+        fwd = [i for _, i in self.calls[:n_moe]]
+        steps = [i for _, i in self.calls[2 * n_moe:]]
+        rows = np.arange(batch) * s_fwd
+        return sum(int((steps[k][:batch] != fwd[k % n_moe][
+            rows + first + k // n_moe]).any(-1).sum())
+            for k in range(len(steps)))
+
+
+def _family_card_vs_cpu(torch, T, arch, cfg, dev):
+    """(b) for one family: full width at LM_CPU's 2 layers (2 + 2 for the
+    encoder-decoder; the VLM's prefix cut to LM_FAMILY_PREFIX rows), or
+    reduced_config where one group or layer is 13-14 B parameters.  The
+    weights are made on the card and copied to the CPU.  MoE configs run
+    at capacity factor E / k: the two sides route independently, and a
+    token routed otherwise near a tie (bf16 noise in the router's input)
+    would at 1.25 also move the capacity cut of every later token of its
+    experts; the tokens routed otherwise are counted per MoE call."""
+    import dataclasses
+    from repro_torch.configs import reduced_config
+    if arch in LM_FAMILY_REDUCED_CPU:
+        small, cut = reduced_config(arch), "reduced_config"
+    else:
+        kw = {"n_layers": LM_CPU["layers"]}
+        if cfg.kind == "encdec":
+            kw["enc_layers"] = LM_CPU["layers"]
+        if cfg.family == "vlm":
+            kw["frontend_len"] = LM_FAMILY_PREFIX
+        small = dataclasses.replace(cfg, **kw)
+        cut = (f"full width, {small.n_layers} layers"
+               + (f" + {small.enc_layers} encoder layers"
+                  if cfg.kind == "encdec" else "")
+               + (f", prefix {small.frontend_len}"
+                  if cfg.family == "vlm" else ""))
+    rng = np.random.default_rng(LM_SEED + 2)
+    extras = {}
+    if small.family == "vlm":
+        extras["vision_embeds"] = rng.normal(
+            size=(LM_CPU["batch"], small.frontend_len, small.d_model))
+    if small.kind == "encdec":
+        extras["frames"] = rng.normal(
+            size=(LM_CPU["batch"], LM_FRAMES, small.d_model))
+    if small.moe_experts:
+        small = dataclasses.replace(
+            small, capacity_factor=small.moe_experts_padded / small.moe_top_k)
+        cut += f", capacity factor {small.capacity_factor}"
+    print(f"[lm_families] {arch} card vs CPU: {cut}", flush=True)
+    with _route_recorder() as routes:
+        out = _lm_card_vs_cpu(torch, T, small, dev, small=small,
+                              extras=extras, init_on_card=True,
+                              s_max=LM_CPU["s_max"] + small.frontend_len)
+    out["cut"] = cut
+    if small.moe_experts:
+        out["moe_tokens_routed_otherwise_per_call"] = routes.card_vs_cpu()
+    return out
+
+
+def _family_breakdown(torch, T, cfg, params, prompts, extras, dev):
+    """One prefill of the served prompts and 2 decode steps, each module
+    call below timed on the host between two synchronisations: the Mamba
+    mixer (its chunk scan apart), the RWKV time mix (its token loop), and
+    the MoE layer (the three expert products apart; the rest is routing,
+    the sort-based dispatch and the combine).  Seconds and shares of the
+    synchronised prefill and of a decode step."""
+    from repro_torch.models import mamba as mb
+    from repro_torch.models import moe as mo
+    from repro_torch.models import rwkv as rk
+    acc, inside = {}, []
+
+    def timed(mod, name, label, only_inside=None):
+        orig = getattr(mod, name)
+
+        def fn(*a, **k):
+            if only_inside is not None and only_inside not in inside:
+                return orig(*a, **k)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            inside.append(label)
+            try:
+                return orig(*a, **k)
+            finally:
+                inside.pop()
+                torch.cuda.synchronize()
+                acc[label] = acc.get(label, 0.0) + time.perf_counter() - t0
+        setattr(mod, name, fn)
+        return mod, name, orig
+
+    patches = [timed(mb, "mamba_train", "mamba"),
+               timed(mb, "mamba_decode", "mamba"),
+               timed(mb, "_scan_chunk", "mamba_scan"),
+               timed(rk, "rwkv_time_mix", "rwkv_time_mix"),
+               timed(mo, "moe_apply", "moe"),
+               timed(mo, "beinsum", "moe_expert_products",
+                     only_inside="moe")]
+    out = {}
+    try:
+        toks = torch.from_numpy(prompts).to(dev)
+        with torch.inference_mode():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            lg, caches = T.prefill(cfg, params, {"tokens": toks, **extras},
+                                   LM_SERVE["s_max"] + cfg.frontend_len)
+            torch.cuda.synchronize()
+            out["prefill"] = {"wall_s": time.perf_counter() - t0, **acc}
+            acc.clear()
+            tok = lg.argmax(-1)[:, None].int()
+            t0 = time.perf_counter()
+            for _ in range(2):
+                lg, caches = T.decode_step(cfg, params, caches,
+                                           {"tokens": tok})
+                tok = lg[:, -1].argmax(-1)[:, None].int()
+            torch.cuda.synchronize()
+            out["decode_step"] = {k: v / 2 for k, v in
+                                  {"wall_s": time.perf_counter() - t0,
+                                   **acc}.items()}
+    finally:
+        for mod, name, orig in patches:
+            setattr(mod, name, orig)
+    for part in out.values():
+        for k in [k for k in part if k != "wall_s"]:
+            part[k + "_share"] = part[k] / part["wall_s"]
+        if "moe" in part:
+            part["moe_dispatch_s"] = part["moe"] - part.get(
+                "moe_expert_products", 0.0)
+            part["moe_dispatch_share"] = (part["moe_dispatch_s"]
+                                          / part["wall_s"])
+    return out
+
+
+def _family_teacher_forced(torch, rt, T, cfg, params, prompts, generated,
+                           extras, record):
+    """(c) for one family: the served tokens fed back through
+    forward_train, prefill and each decode step, in bf16 (recording B5's
+    prefill and first-step calls) and in float32 (`float32_replay`: the
+    same weights, every activation float32).  MoE configs run with the
+    capacity factor E / k, so that cap >= T and no entry drops in the
+    forward (B*S tokens) or a step (B).  Bounds: float32 LM_F32_TOL (the
+    hybrid: its own bf16 noise if larger, since decode reads the conv
+    tail in bf16); bf16 LM_TOL, or LM_NOISE_FACTOR x the bf16 forward's
+    distance from the float32 forward if larger."""
+    import dataclasses
+    from repro_torch.models.common import float32_replay
+    tf_cfg = cfg
+    if cfg.moe_experts:
+        tf_cfg = dataclasses.replace(
+            cfg, capacity_factor=cfg.moe_experts_padded / cfg.moe_top_k)
+    s, new = prompts.shape[1], generated.shape[1]
+    off = cfg.frontend_len if cfg.family == "vlm" else 0
+    s_max = LM_SERVE["s_max"] + cfg.frontend_len
+    dev = params["embed"]["table"].device
+    toks = torch.from_numpy(np.concatenate(
+        [prompts, generated[:, :new - 1]], axis=1)).to(dev)
+    v = cfg.vocab
+    n_moe = sum(1 for _, mlp in cfg.layer_kinds() if mlp == "moe")
+    s_fwd = off + toks.shape[1]
+    with _route_recorder() as routes:
+        full, steps, launches = _lm_replay(torch, rt, T, tf_cfg, params,
+                                           toks, s, extras, s_max, record)
+    errs, same = [], 0
+    for t, lg in enumerate(steps):
+        check(bool(torch.isfinite(lg).all()),
+              f"{cfg.name} logits not finite at step {t}")
+        errs.append(_lm_rel(full[:, off + s - 1 + t], lg, v))
+        same += int((lg[:, :v].argmax(-1).cpu().numpy()
+                     == generated[:, t]).sum())
+    torch.cuda.empty_cache()   # the bf16 replay's blocks, for float32's
+    with _route_recorder() as routes32:
+        full32, steps32, launches32 = _lm_replay(
+            torch, rt, T, tf_cfg, float32_replay(params), toks, s, extras,
+            s_max)
+    errs32 = [_lm_rel(full32[:, off + s - 1 + t], lg, v)
+              for t, lg in enumerate(steps32)]
+    noise = _lm_rel(full32[:, off + s - 1:], full[:, off + s - 1:], v)
+    del full, full32, steps, steps32
+    want = [_b5_per_call(cfg, True)] * 2 \
+        + [_b5_per_call(cfg, False)] * (len(launches) - 2)
+    for name, got in (("bfloat16", launches), ("float32", launches32)):
+        check(got == want, f"{cfg.name} B5 launches per call ({name}): "
+              f"forward, prefill, decode steps {got}, want {want}")
+    bound32 = LM_F32_TOL
+    if cfg.attn_period:                  # the hybrid: a bf16 conv tail
+        bound32 = max(LM_F32_TOL, noise)
+    check(max(errs32) <= bound32, f"{cfg.name} teacher forcing in float32: "
+          f"rel {max(errs32)} over {bound32}")
+    bound = max(LM_TOL, LM_NOISE_FACTOR * noise)
+    check(max(errs) <= bound, f"{cfg.name} teacher forcing in bf16: rel "
+          f"{max(errs)} over {bound} (noise {noise})")
+    moe = {}
+    if n_moe:
+        moe = {"moe_decode_tokens_routed_otherwise": {
+            name: r.decode_vs_forward(n_moe, toks.shape[0], s_fwd,
+                                      off + s)
+            for name, r in (("bfloat16", routes), ("float32", routes32))},
+            "moe_decode_tokens_routed": n_moe * toks.shape[0]
+            * (len(launches) - 2)}
+    return {"capacity_factor": tf_cfg.capacity_factor,
+            "float32_replay_layers": cfg.n_layers, **moe,
+            "forward_launches": launches[0], "prefill_launches": launches[1],
+            "decode_launches_per_step": sorted(set(launches[2:])),
+            "rel_err_prefill": errs[0], "rel_err_decode_max": max(errs[1:]),
+            "bf16_forward_vs_float32_forward": noise,
+            "tolerance_rel_bf16": bound,
+            "float32_rel_err_prefill": errs32[0],
+            "float32_rel_err_decode_max": max(errs32[1:]),
+            "tolerance_rel_float32": bound32,
+            "replayed_greedy_tokens_equal": same,
+            "generated_tokens": int(generated.size)}
+
+
+def _family_b5_rows(torch, rt, record):
+    """B5 on each recorded call of the served shapes: against its plain
+    version (LM_KERNEL_TOL), timed beside its bound, the plain version
+    and SDPA."""
+    ops, ref = rt.ops, rt.ref
+    rows = []
+    for name in ("prefill", "decode", "encoder", "cross", "cross_decode"):
+        if name not in record:
+            continue
+        q, k, v, causal, kv_len = record[name]
+        got = ops.flash_attention(q, k, v, causal=causal, kv_len=kv_len)
+        want = ref.flash_attention_ref(q, k, v, causal, kv_len)
+        abs_err, rel = _rel(got, want)
+        check(got.shape == q.shape and bool(torch.isfinite(got).all()),
+              f"lm_families {name}: malformed B5 output")
+        check(rel < LM_KERNEL_TOL, f"lm_families {name}: B5 disagrees with "
+              f"its plain version, rel {rel}")
+        row = {"call": name, "q": list(q.shape), "kv": list(k.shape),
+               "kv_len": kv_len, "causal": causal, "max_abs_err": abs_err,
+               "rel_err": rel,
+               "plain_ms": _time_ms(torch, lambda: ref.flash_attention_ref(
+                   q, k, v, causal, kv_len), reps=3, warmup=1)}
+        row.update(_flash_timed(torch, ops, q, k, v, causal, want,
+                                kv_len=kv_len))
+        rows.append(row)
+    return rows
+
+
+def _one_family(torch, rt, T, arch, layers, dev):
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import serve
+    ops = rt.ops
+    cfg = get_config(arch)
+    out = {"arch": arch,
+           "card_vs_cpu": _family_card_vs_cpu(torch, T, arch, cfg, dev)}
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    print(f"[lm_families] {arch}: {cfg.n_layers} of "
+          f"{get_config(arch).n_layers} layers"
+          + (f" + {cfg.enc_layers} encoder layers"
+             if cfg.kind == "encdec" else ""), flush=True)
+    params, init_s = _lm_model(torch, T, cfg, LM_SEED, dev)
+    n_params = sum(x.numel() for x in _leaves(params))
+    out["model"] = {"layers": cfg.n_layers,
+                    "full_depth_layers": get_config(arch).n_layers,
+                    "d_model": cfg.d_model, "params": n_params,
+                    "weight_bytes": 2 * n_params, "init_s": init_s}
+
+    sv = LM_SERVE
+    s_max = sv["s_max"] + cfg.frontend_len
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    res = serve(arch, reduced=False, batch=sv["batch"],
+                prompt_len=sv["prompt_len"], max_new=sv["max_new"],
+                s_max=s_max, seed=LM_SEED, params=params, device=dev,
+                layers=layers)
+    launches = ops.LAUNCHES["flash_attention"]
+    peak = torch.cuda.max_memory_allocated()
+    gen = res["generated"]
+    check(gen.shape == (sv["batch"], sv["max_new"])
+          and int(gen.min()) >= 0 and int(gen.max()) < cfg.vocab,
+          f"{arch} generated tokens malformed: {gen.shape}")
+    want = (_b5_per_call(cfg, True)
+            + (sv["max_new"] - 1) * _b5_per_call(cfg, False))
+    check(launches == want, f"{arch} serve made {launches} B5 launches, "
+          f"want {want}")
+    steps = sv["max_new"] - 1
+    out["serve"] = {
+        **sv, "s_max": s_max, "prefill_s": res["prefill_s"],
+        "decode_s": res["decode_s"], "decode_steps": steps,
+        "decode_step_ms": res["decode_s"] / steps * 1e3,
+        "tok_per_s": sv["batch"] * sv["max_new"] / res["decode_s"],
+        "prefill_tok_per_s": sv["batch"] * sv["prompt_len"]
+        / res["prefill_s"],
+        "weight_read_bound_step_ms": 2 * n_params / HBM_BYTES_PER_S * 1e3,
+        "peak_device_bytes": peak, "launches": launches,
+        "launches_want": want}
+    prompts, extras = _family_inputs(torch, cfg, sv["batch"], dev)
+    out["breakdown"] = _family_breakdown(torch, T, cfg, params, prompts,
+                                         extras, dev)
+    record = {}
+    out["teacher_forcing"] = _family_teacher_forced(
+        torch, rt, T, cfg, params, prompts, gen, extras, record)
+    out["b5_calls"] = _family_b5_rows(torch, rt, record)
+    del params, record
+    return out
+
+
+def phase_lm_families(torch, rt, dev):
+    """LM serving of the MoE, hybrid, RWKV, encoder-decoder and VLM
+    families: one arch each (LM_FAMILIES), (b), (a) and (c) per arch, the
+    model freed before the next."""
+    import gc
+    from repro_torch.models import transformer as T
+    out = []
+    for arch, layers in LM_FAMILIES:
+        t0 = time.perf_counter()
+        row = _one_family(torch, rt, T, arch, layers, dev)
+        row["wall_s"] = time.perf_counter() - t0
+        emit({"phase": "lm_families", "arch": arch, **row})
+        out.append({"arch": arch, "launches": row["serve"]["launches"],
+                    "wall_s": row["wall_s"]})
+        gc.collect()
+        torch.cuda.empty_cache()
     return out
 
 
@@ -3191,6 +3670,10 @@ def main(argv=None) -> int:
     if "lm" in run:
         lm = phase_lm(torch, rt, dev)
         emit({"phase": "lm", "nvidia_smi": smi, **lm})
+    if "lm_families" in run:
+        families = phase_lm_families(torch, rt, dev)
+        emit({"phase": "lm_families", "nvidia_smi": smi,
+              "archs": families})
     if "audit" in run:
         audit_launches, res = phase_audit(torch, rt, dev, g, fused)
         emit({"phase": "audit", "nvidia_smi": smi, **res})
@@ -3238,11 +3721,17 @@ def main(argv=None) -> int:
         "launches": fm["launches"],
         "serve_launches": serve_launches["flash_attention"],
         "lm_launches": lm["serve"]["launches"],
+        "lm_families_launches": {f["arch"]: f["launches"]
+                                 for f in families},
         "launched_by": "launches: flash phase, ops.flash_attention at Yi-9B "
                        "width (B=1, S=4096, H=32, K=4, hd=128, bf16, "
                        "causal); lm_launches: the lm phase's serve() of "
                        "Yi-9B, 48 layers, a prefill of 4 x 512 tokens and "
-                       "31 decode steps, one launch per layer and call",
+                       "31 decode steps, one launch per layer and call; "
+                       "lm_families_launches: the lm_families phase's "
+                       "serve() of each arch, the same prompts, one "
+                       "launch per attention, encoder and cross-attention "
+                       "layer and call",
         "max_abs_err": fm["max_abs_err"], **{k: fm[k] for k in keys}})
     emit({"kernels": rows})
     print(smi, flush=True)

@@ -23,18 +23,11 @@ WARM_START = ("off", "auto")
 PROFILE = ("off", "convergence", "full")
 QUALITY = ("off", "basic", "full")
 
-# Option -> the ROADMAP item that ports it.  The model families wait for
-# their modules (Queue A, A15.3: they raise on the CPU too); the attention
-# cases wait for B5 to cover them (Queue B) and raise on CUDA only, where
-# nothing falls back to the plain attention.
-_FAMILIES = "Queue A, A15.3 (models/{moe,mamba,rwkv}.py and the rest)"
+# Option -> the ROADMAP item that ports it.  The attention cases wait for
+# B5 to cover them (Queue B) and raise on CUDA only, where nothing falls
+# back to the plain attention.
 _B5_LATER = "Queue B, later kernel work: B5 with a window and an int8 cache"
 UNPORTED = {
-    "moe models": _FAMILIES,
-    "hybrid (mamba) models": _FAMILIES,
-    "rwkv models": _FAMILIES,
-    "encoder-decoder models": _FAMILIES,
-    "vlm models": _FAMILIES,
     "sliding-window attention on CUDA": _B5_LATER,
     "int8 KV cache on CUDA": _B5_LATER,
     "attention head dims other than 64 and 128 on CUDA":

@@ -14,8 +14,9 @@ Four workloads share this entry point (``--mode``):
     tier (:mod:`repro_torch.serve`).
   * ``serve`` (``lm``): LM serving of one of ``configs.ARCHS``: prefill a
     batch of prompts, then decode greedily, every attention call in the
-    flash-attention kernel on the card (the dense decoder families; the
-    others raise ``unported``).
+    flash-attention kernel on the card (every family: the VLM's vision
+    prefix and the encoder-decoder's frames are made as the reference
+    makes them).
 
 Every engine runs on CUDA unless ``device`` (``--device``) says
 otherwise; ``--device cpu`` runs the kernels' plain versions.
@@ -26,6 +27,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import threading
 import time
 
@@ -34,12 +36,18 @@ import numpy as np
 
 def serve(arch: str, reduced: bool = True, batch: int = 4,
           prompt_len: int = 16, max_new: int = 16, s_max: int = 128,
-          seed: int = 0, params=None, greedy: bool = True, device=None):
+          seed: int = 0, params=None, greedy: bool = True, device=None,
+          layers: int | None = None):
     """LM serving of ``arch``: prefill ``batch`` random prompts of
     ``prompt_len`` tokens (``np.random.default_rng(seed)``, as the
     reference draws them), then ``max_new - 1`` greedy decode steps over a
-    cache of ``s_max`` rows.  ``params`` (else ``init_from_specs`` from
-    ``seed``) lie on ``device`` (``None``: CUDA).
+    cache of ``s_max`` rows (which must hold a VLM's ``frontend_len``
+    prefix too).  A VLM's prefix is zeros (B, frontend_len, d) in bf16; an
+    encoder-decoder's frames are normal (B, 32, d) draws of the same
+    generator, after the prompts, in bf16.  ``layers`` cuts the config's
+    depth (a model whose every layer would not fit one card).  ``params``
+    (else ``init_from_specs`` from ``seed``) lie on ``device`` (``None``:
+    CUDA).
 
     Returns the reference's ``{"generated": (batch, max_new) int32 numpy,
     "prefill_s", "decode_s"}``.  The tokens stay on the device until one
@@ -55,12 +63,22 @@ def serve(arch: str, reduced: bool = True, batch: int = 4,
 
     dev = torch.device("cuda" if device is None else device)
     cfg = reduced_config(arch) if reduced else get_config(arch)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
     if params is None:
         params = init_from_specs(T.model_specs(cfg), seed, device=dev)
     rng = np.random.default_rng(seed)
     prompts = rng.integers(0, cfg.vocab, size=(batch, prompt_len)
                            ).astype(np.int32)
-    tokens = torch.from_numpy(prompts).to(dev)
+    inputs = {"tokens": torch.from_numpy(prompts).to(dev)}
+    if cfg.family == "vlm":
+        inputs["vision_embeds"] = torch.zeros(
+            (batch, cfg.frontend_len, cfg.d_model), dtype=torch.bfloat16,
+            device=dev)
+    if cfg.kind == "encdec":
+        # drawn after the prompts, from the same generator
+        inputs["frames"] = torch.from_numpy(rng.normal(
+            size=(batch, 32, cfg.d_model))).to(dev, torch.bfloat16)
 
     def sync():
         if dev.type == "cuda":
@@ -70,7 +88,7 @@ def serve(arch: str, reduced: bool = True, batch: int = 4,
     with torch.inference_mode():
         sync()
         t0 = time.perf_counter()
-        logits, caches = T.prefill(cfg, params, {"tokens": tokens}, s_max)
+        logits, caches = T.prefill(cfg, params, inputs, s_max)
         out[:, 0] = logits.argmax(-1)
         sync()
         t_prefill = time.perf_counter() - t0

@@ -17,9 +17,9 @@ from typing import Any, Callable
 
 import torch
 
-__all__ = ["ParamSpec", "abstract_from_specs", "beinsum", "init_from_specs",
-           "leaf_paths", "logical_axes", "map_specs", "round_up",
-           "set_leaf", "stack_specs"]
+__all__ = ["ParamSpec", "abstract_from_specs", "beinsum", "float32_replay",
+           "init_from_specs", "leaf_paths", "logical_axes", "map_specs",
+           "round_up", "set_leaf", "stack_specs"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -124,3 +124,30 @@ def beinsum(expr: str, *ops):
     for o in ops[1:]:
         dt = torch.promote_types(dt, o.dtype)
     return torch.einsum(expr, *(o.to(dt) for o in ops))
+
+
+# The decoder groups' sub-trees that only products read (``beinsum``, the
+# bias adds, the zero-masking of padded heads)
+PRODUCT_SUBTREES = ("attn", "cross", "mlp", "moe", "shared", "dense2")
+
+
+def float32_replay(params: dict) -> dict:
+    """The model in float32 over the same weights, in a fraction of the
+    memory of a float32 copy: every leaf upcast except the decoder groups'
+    attention, cross-attention, MLP and MoE sub-trees, which stay as they
+    are.  Activations then start in float32 (the embeddings are), and each
+    product upcasts those weights where it reads them (``beinsum``
+    promotes, as ``jnp.einsum`` does), so the replay computes what the
+    fully upcast tree computes, bit for bit; only the largest matrices
+    never exist in float32 all at once.  Everything that meets a bf16
+    activation by design (the encoder's input, Mamba's conv over its bf16
+    tail) is upcast."""
+    def up(tree):
+        if isinstance(tree, torch.Tensor):
+            return tree.float()
+        return {k: up(v) for k, v in tree.items()}
+    out = {k: up(v) for k, v in params.items() if k != "groups"}
+    out["groups"] = {pos: {name: sub if name in PRODUCT_SUBTREES else up(sub)
+                           for name, sub in layer.items()}
+                     for pos, layer in params["groups"].items()}
+    return out

@@ -1,19 +1,23 @@
-"""Model assembler: the decoder-only path, as plain functions over the
-parameter dict.
+"""Model assembler: decoder-only / hybrid / RWKV / encoder-decoder / VLM,
+as plain functions over the parameter dict.
 
-The counterpart of ``repro.models.transformer`` for the dense decoder-only
-families (``cfg.family == "dense"``, ``cfg.kind == "decoder"``): specs,
+The counterpart of ``repro.models.transformer`` for every family: specs,
 the training forward (logits only; the loss and the backward pass wait for
-ROADMAP A15.3), prefill and one-token decode.  The parameter tree keeps the
-reference's layout, layers stacked into ``groups`` with a leading
-``n_groups`` dimension; a Python loop over the groups takes the place of
+ROADMAP A15.3), the encoder, prefill and one-token decode.  The parameter
+tree keeps the reference's layout, layers stacked into ``groups`` with a
+leading ``n_groups`` dimension (the encoder's into ``enc_groups``, one
+layer a group); a Python loop over the groups takes the place of
 ``lax.scan`` (remat has no meaning without a backward pass, and the
-sharding hints have no counterpart on one card).  Decode caches are stacked
-the same way, one ``KVCache`` per position in a group, and are written in
-place; their ``length`` is a host int.
+sharding hints have no counterpart on one card).
 
-Mamba, RWKV, MoE, encoder-decoder and VLM configs raise ``unported``
-(ROADMAP A15.3), on the CPU too: their modules are not ported yet.
+Decode caches are stacked the same way, one per position in a group: a
+``KVCache`` for attention, a ``MambaState`` or an ``RwkvState`` for the
+other mixers, and for the encoder-decoder ``{"self": ..., "memory_k",
+"memory_v"}`` with the encoder memory's cross-attention K / V.  Decode
+writes them in place, through per-group views, and returns them; a
+``KVCache``'s ``length`` is a host int.  On the card every attention,
+encoder and cross-attention call runs the flash-attention kernel (see
+``models.attention``).
 """
 from __future__ import annotations
 
@@ -24,27 +28,15 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import layers as L
+from repro_torch.models import mamba as mb
+from repro_torch.models import moe as moe_mod
+from repro_torch.models import rwkv as rk
 from repro_torch.models.common import ParamSpec, stack_specs
 
-__all__ = ["NEG", "decode_step", "forward_train", "group_specs",
+__all__ = ["NEG", "decode_step", "encode", "forward_train", "group_specs",
            "init_decode_caches", "model_specs", "prefill"]
 
 NEG = -1e30
-
-
-def _check_family(cfg: ArchConfig) -> None:
-    """Raise ``unported`` for every family but the dense decoder."""
-    from repro_torch.engine.config import unported   # the engine imports us
-    if cfg.kind == "encdec":
-        raise unported("encoder-decoder models")
-    if cfg.kind == "rwkv":
-        raise unported("rwkv models")
-    if cfg.family == "vlm":
-        raise unported("vlm models")
-    if cfg.attn_period:
-        raise unported("hybrid (mamba) models")
-    if cfg.moe_experts or cfg.moe_period:
-        raise unported("moe models")
 
 
 # ================================================================= specs ====
@@ -58,62 +50,119 @@ def _norm(cfg, params, x):
             else L.layer_norm(params, x))
 
 
-def _layer_specs(cfg: ArchConfig, mix: str, mlp: str) -> dict:
-    if (mix, mlp) != ("attn", "dense"):
-        raise ValueError(f"layer kind {(mix, mlp)} is not a dense decoder "
-                         f"layer")
-    return {
-        "norm1": _norm_specs(cfg),
-        "attn": attn.attention_specs(cfg.d_model, cfg.n_heads_padded,
-                                     cfg.n_kv_padded, cfg.head_dim,
-                                     cfg.qkv_bias),
-        "norm2": _norm_specs(cfg),
-        "mlp": (L.swiglu_specs(cfg.d_model, cfg.d_ff) if cfg.norm == "rms"
-                else L.gelu_mlp_specs(cfg.d_model, cfg.d_ff)),
-    }
+def _layer_specs(cfg: ArchConfig, mix: str, mlp: str,
+                 cross: bool = False) -> dict:
+    s: dict[str, Any] = {}
+    if mix == "attn":
+        s["norm1"] = _norm_specs(cfg)
+        s["attn"] = attn.attention_specs(cfg.d_model, cfg.n_heads_padded,
+                                         cfg.n_kv_padded, cfg.head_dim,
+                                         cfg.qkv_bias)
+    elif mix == "mamba":
+        s["norm1"] = _norm_specs(cfg)
+        s["mamba"] = mb.mamba_specs(cfg.d_model, cfg.d_inner, cfg.d_state,
+                                    cfg.d_conv, cfg.dt_rank)
+    elif mix == "rwkv":
+        s["norm1"] = L.layernorm_specs(cfg.d_model)
+        s["time"] = rk.rwkv_time_specs(cfg.d_model, cfg.n_heads, cfg.lora_r)
+    if cross:
+        s["norm_x"] = _norm_specs(cfg)
+        s["cross"] = attn.cross_attention_specs(
+            cfg.d_model, cfg.n_heads_padded, cfg.n_kv_padded, cfg.head_dim)
+    s["norm2"] = (_norm_specs(cfg) if mlp != "rwkv_ffn"
+                  else L.layernorm_specs(cfg.d_model))
+    if mlp == "dense":
+        s["mlp"] = (L.swiglu_specs(cfg.d_model, cfg.d_ff)
+                    if cfg.norm == "rms"
+                    else L.gelu_mlp_specs(cfg.d_model, cfg.d_ff))
+    elif mlp == "moe":
+        s["moe"] = moe_mod.moe_specs(cfg.d_model, cfg.moe_ff or cfg.d_ff,
+                                     cfg.moe_experts_padded)
+        if cfg.shared_expert_ff:
+            s["shared"] = moe_mod.shared_expert_specs(cfg.d_model,
+                                                      cfg.shared_expert_ff)
+        if cfg.dense_residual:
+            s["dense2"] = L.swiglu_specs(cfg.d_model, cfg.d_ff)
+    elif mlp == "rwkv_ffn":
+        s["chan"] = rk.rwkv_channel_specs(cfg.d_model, cfg.d_ff)
+    return s
 
 
-def group_specs(cfg: ArchConfig) -> dict:
-    return {str(pos): _layer_specs(cfg, mix, mlp)
+def group_specs(cfg: ArchConfig, cross: bool = False) -> dict:
+    return {str(pos): _layer_specs(cfg, mix, mlp, cross)
             for pos, (mix, mlp) in enumerate(cfg.group_kinds())}
 
 
 def model_specs(cfg: ArchConfig) -> dict:
-    _check_family(cfg)
     s: dict[str, Any] = {
         "embed": L.embedding_specs(cfg.vocab_padded, cfg.d_model),
-        "groups": stack_specs(group_specs(cfg), cfg.n_groups,
-                              axis_name="layers"),
+        "groups": stack_specs(group_specs(cfg, cross=(cfg.kind == "encdec")),
+                              cfg.n_groups, axis_name="layers"),
         "final_norm": _norm_specs(cfg),
     }
     if not cfg.tie_embeddings:
         s["lm_head"] = {"table": ParamSpec(
             (cfg.vocab_padded, cfg.d_model), ("vocab", "embed"), scale=0.02)}
+    if cfg.kind == "encdec":
+        enc_pattern = {"0": _layer_specs(cfg, "attn", "dense")}
+        s["enc_groups"] = stack_specs(enc_pattern, cfg.enc_layers,
+                                      axis_name="layers")
+        s["enc_norm"] = _norm_specs(cfg)
     return s
 
 
 # ============================================================ layer apply ===
 def _apply_mlp(cfg, mlp, params, x):
-    if mlp != "dense":
-        raise ValueError(mlp)
     h = _norm(cfg, params["norm2"], x)
-    y = (L.swiglu(params["mlp"], h) if cfg.norm == "rms"
-         else L.gelu_mlp(params["mlp"], h))
+    if mlp == "dense":
+        y = (L.swiglu(params["mlp"], h) if cfg.norm == "rms"
+             else L.gelu_mlp(params["mlp"], h))
+    elif mlp == "moe":
+        y = moe_mod.moe_apply(
+            params["moe"], h, n_experts=cfg.moe_experts,
+            n_experts_padded=cfg.moe_experts_padded, top_k=cfg.moe_top_k,
+            capacity_factor=cfg.capacity_factor)
+        if "shared" in params:
+            y = y + moe_mod.shared_expert_apply(params["shared"], h)
+        if "dense2" in params:
+            y = y + L.swiglu(params["dense2"], h)
+    else:
+        raise ValueError(mlp)
     return x + y
 
 
-def _attn_params(cfg, params):
-    return attn.mask_padded_heads(params["attn"], cfg.n_heads, cfg.n_kv)
+def _heads(cfg, params):
+    """Attention params with the padding heads masked."""
+    return attn.mask_padded_heads(params, cfg.n_heads, cfg.n_kv)
 
 
-def _apply_layer_train(cfg, kinds, params, x, positions):
+def _apply_layer_train(cfg, kinds, params, x, positions, memory=None):
     mix, mlp = kinds
-    h = _norm(cfg, params["norm1"], x)
-    x = x + attn.attention_train(
-        _attn_params(cfg, params), h, positions, n_heads=cfg.n_heads_padded,
-        n_kv=cfg.n_kv_padded, head_dim=cfg.head_dim,
-        rope_theta=cfg.rope_theta, causal=True, chunk=cfg.attn_chunk,
-        window=cfg.window)
+    if mix == "attn":
+        h = _norm(cfg, params["norm1"], x)
+        # the decoder's self attention is causal in every family
+        x = x + attn.attention_train(
+            _heads(cfg, params["attn"]), h, positions,
+            n_heads=cfg.n_heads_padded, n_kv=cfg.n_kv_padded,
+            head_dim=cfg.head_dim, rope_theta=cfg.rope_theta, causal=True,
+            chunk=cfg.attn_chunk, window=cfg.window)
+    elif mix == "mamba":
+        h = _norm(cfg, params["norm1"], x)
+        x = x + mb.mamba_train(params["mamba"], h, d_state=cfg.d_state,
+                               dt_rank=cfg.dt_rank, chunk=cfg.mamba_chunk)
+    elif mix == "rwkv":
+        h = L.layer_norm(params["norm1"], x)
+        y, _ = rk.rwkv_time_mix(params["time"], h, n_heads=cfg.n_heads)
+        x = x + y
+    if memory is not None and "cross" in params:
+        h = _norm(cfg, params["norm_x"], x)
+        cp = _heads(cfg, params["cross"])
+        mk, mv = attn.project_memory(cp, memory)
+        x = x + attn.cross_attention(cp, h, mk, mv)
+    if mlp == "rwkv_ffn":
+        h = L.layer_norm(params["norm2"], x)
+        y, _ = rk.rwkv_channel_mix(params["chan"], h)
+        return x + y
     return _apply_mlp(cfg, mlp, params, x)
 
 
@@ -137,98 +186,241 @@ def _mask_vocab(cfg, logits):
     return logits
 
 
+def _embed_inputs(cfg, params, batch):
+    """Token embeddings, behind the VLM's vision prefix when given."""
+    x = L.embed(params["embed"], batch["tokens"])
+    if cfg.family == "vlm" and "vision_embeds" in batch:
+        x = torch.cat([batch["vision_embeds"].to(x.dtype), x], dim=1)
+    return x
+
+
 # ============================================================== forward =====
 def forward_train(cfg: ArchConfig, params, batch) -> torch.Tensor:
-    """Token logits (B, S, vocab_padded) of the training forward."""
-    _check_family(cfg)
-    x = L.embed(params["embed"], batch["tokens"])
+    """Token logits (B, S, vocab_padded) of the training forward; the
+    VLM's S counts its ``frontend_len`` prefix."""
+    x = _embed_inputs(cfg, params, batch)
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
+    memory = (encode(cfg, params, batch["frames"]) if cfg.kind == "encdec"
+              else None)
     pattern = cfg.group_kinds()
     for gp in _unstack(params["groups"], cfg.n_groups):
         for pos, kinds in enumerate(pattern):
-            x = _apply_layer_train(cfg, kinds, gp[str(pos)], x, positions)
+            x = _apply_layer_train(cfg, kinds, gp[str(pos)], x, positions,
+                                   memory)
     x = _norm(cfg, params["final_norm"], x)
     return _logits(cfg, params, x)
 
 
+def encode(cfg: ArchConfig, params, frames) -> torch.Tensor:
+    """Encoder stack (``enc_layers`` non-causal layers) over precomputed
+    frame embeddings, cast to bf16 as the reference casts them."""
+    x = frames.to(torch.bfloat16)
+    positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
+    for gp in _unstack(params["enc_groups"], cfg.enc_layers):
+        p = gp["0"]
+        h = _norm(cfg, p["norm1"], x)
+        x = x + attn.attention_train(
+            _heads(cfg, p["attn"]), h, positions, n_heads=cfg.n_heads_padded,
+            n_kv=cfg.n_kv_padded, head_dim=cfg.head_dim,
+            rope_theta=cfg.rope_theta, causal=False, chunk=cfg.attn_chunk)
+        x = _apply_mlp(cfg, "dense", p, x)
+    return _norm(cfg, params["enc_norm"], x)
+
+
 # =============================================================== serving ====
+def _self_caches(cfg, batch, s_max, dev, dtype) -> dict:
+    """One stacked state per position of a group: K / V of zeros in
+    ``dtype`` (int8 with bf16 scales under ``kv_cache_dtype="int8"``),
+    length 0; Mamba's float32 state and bf16 conv tail; RWKV's float32
+    WKV state and its token shifts in ``dtype``."""
+    g = cfg.n_groups
+
+    def one(mix):
+        if mix == "attn":
+            return attn.new_cache((g, batch), s_max, cfg.n_kv_padded,
+                                  cfg.head_dim, dtype, dev,
+                                  quantize=(cfg.kv_cache_dtype == "int8"))
+        if mix == "mamba":
+            return mb.MambaState(
+                h=torch.zeros((g, batch, cfg.d_inner, cfg.d_state),
+                              dtype=torch.float32, device=dev),
+                conv=torch.zeros((g, batch, cfg.d_conv - 1, cfg.d_inner),
+                                 dtype=torch.bfloat16, device=dev))
+        hd = cfg.d_model // cfg.n_heads
+        shift = lambda: torch.zeros((g, batch, cfg.d_model), dtype=dtype,
+                                    device=dev)
+        return rk.RwkvState(
+            wkv=torch.zeros((g, batch, cfg.n_heads, hd, hd),
+                            dtype=torch.float32, device=dev),
+            shift_t=shift(), shift_c=shift())
+
+    return {str(pos): one(mix)
+            for pos, (mix, _mlp) in enumerate(cfg.group_kinds())}
+
+
 def init_decode_caches(cfg: ArchConfig, batch: int, s_max: int,
                        abstract: bool = False, device=None,
                        dtype: torch.dtype = torch.bfloat16) -> dict:
-    """Stacked (per group) decode caches, one per layer position: k/v
-    (n_groups, B, S_max, K, hd) of zeros in ``dtype``, length 0; int8 with
-    bf16 scales under ``kv_cache_dtype="int8"``.  ``abstract`` puts them on
-    the ``meta`` device (no storage); ``device=None`` means CUDA."""
-    _check_family(cfg)
+    """Stacked (per group) decode caches, one per layer position (see
+    ``_self_caches``), the reference's tree; the encoder-decoder's adds
+    the memory K / V, (n_groups, B, cross_memory_len, K, hd) in bf16.
+    ``abstract`` puts them on the ``meta`` device (no storage);
+    ``device=None`` means CUDA."""
     dev = torch.device("meta" if abstract else
                        "cuda" if device is None else device)
-    return {str(pos): attn.new_cache(
-        (cfg.n_groups, batch), s_max, cfg.n_kv_padded, cfg.head_dim, dtype,
-        dev, quantize=(cfg.kv_cache_dtype == "int8"))
-        for pos in range(len(cfg.group_kinds()))}
+    caches = _self_caches(cfg, batch, s_max, dev, dtype)
+    if cfg.kind != "encdec":
+        return caches
+    shape = (cfg.n_groups, batch, cfg.cross_memory_len, cfg.n_kv_padded,
+             cfg.head_dim)
+    return {"self": caches,
+            "memory_k": torch.zeros(shape, dtype=torch.bfloat16, device=dev),
+            "memory_v": torch.zeros(shape, dtype=torch.bfloat16, device=dev)}
 
 
-def _cache_views(c: attn.KVCache, n: int) -> list:
-    """A stacked cache as n per-group caches viewing its storage."""
-    fields = [f.unbind(0) if f is not None else [None] * n
-              for f in (c.k, c.v, c.k_scale, c.v_scale)]
-    return [attn.KVCache(k=fields[0][i], v=fields[1][i], length=c.length,
-                         k_scale=fields[2][i], v_scale=fields[3][i])
-            for i in range(n)]
+def _state_views(c, n: int) -> list:
+    """A stacked state as n per-group states viewing its storage."""
+    if isinstance(c, attn.KVCache):
+        fields = [f.unbind(0) if f is not None else [None] * n
+                  for f in (c.k, c.v, c.k_scale, c.v_scale)]
+        return [attn.KVCache(k=fields[0][i], v=fields[1][i], length=c.length,
+                             k_scale=fields[2][i], v_scale=fields[3][i])
+                for i in range(n)]
+    fields = [f.unbind(0) for f in c]
+    return [type(c)(*(f[i] for f in fields)) for i in range(n)]
+
+
+def _store(view, new) -> None:
+    """Write a Mamba / RWKV state back into its stacked view (a KV cache
+    is written in place by the attention)."""
+    if isinstance(view, attn.KVCache):
+        return
+    for dst, src in zip(view, new):
+        if dst is not src:
+            dst.copy_(src)
+
+
+def _advance(caches: dict, n: int) -> dict:
+    """The caches with every KV cache's length n more."""
+    return {p: c._replace(length=c.length + n)
+            if isinstance(c, attn.KVCache) else c
+            for p, c in caches.items()}
 
 
 def _decode_mix(cfg, kinds, params, x, cache):
-    h = _norm(cfg, params["norm1"], x)
-    y, cache = attn.attention_decode(_attn_params(cfg, params), h, cache,
-                                     rope_theta=cfg.rope_theta,
-                                     window=cfg.window)
-    return x + y, cache
+    mix, _ = kinds
+    if mix == "attn":
+        h = _norm(cfg, params["norm1"], x)
+        y, cache = attn.attention_decode(_heads(cfg, params["attn"]), h,
+                                         cache, rope_theta=cfg.rope_theta,
+                                         window=cfg.window)
+        return x + y, cache
+    if mix == "mamba":
+        h = _norm(cfg, params["norm1"], x)
+        y, cache = mb.mamba_decode(params["mamba"], h, cache,
+                                   d_state=cfg.d_state, dt_rank=cfg.dt_rank)
+        return x + y, cache
+    h = L.layer_norm(params["norm1"], x)
+    y, (wkv, last_t) = rk.rwkv_time_mix(params["time"], h, state=cache,
+                                        n_heads=cfg.n_heads)
+    return x + y, cache._replace(wkv=wkv, shift_t=last_t)
 
 
 def decode_step(cfg: ArchConfig, params, caches, batch):
     """One-token decode: batch['tokens'] (B, 1) -> (logits (B, 1,
     vocab_padded), caches).  The caches are written in place and returned
-    with their lengths advanced by one."""
-    _check_family(cfg)
+    with the KV caches' lengths advanced by one."""
     x = L.embed(params["embed"], batch["tokens"])
     pattern = cfg.group_kinds()
     g = cfg.n_groups
-    views = {p: _cache_views(c, g) for p, c in caches.items()}
+    is_encdec = cfg.kind == "encdec"
+    self_caches = caches["self"] if is_encdec else caches
+    views = {p: _state_views(c, g) for p, c in self_caches.items()}
     for gi, gp in enumerate(_unstack(params["groups"], g)):
         for pos, kinds in enumerate(pattern):
-            p = gp[str(pos)]
-            x, _ = _decode_mix(cfg, kinds, p, x, views[str(pos)][gi])
-            x = _apply_mlp(cfg, kinds[1], p, x)
+            p, c = gp[str(pos)], views[str(pos)][gi]
+            x, new_c = _decode_mix(cfg, kinds, p, x, c)
+            if is_encdec and "cross" in p:
+                # the reference leaves the cross heads unmasked here
+                h = _norm(cfg, p["norm_x"], x)
+                x = x + attn.cross_attention(p["cross"], h,
+                                             caches["memory_k"][gi],
+                                             caches["memory_v"][gi])
+            if kinds[1] == "rwkv_ffn":
+                h = L.layer_norm(p["norm2"], x)
+                y, last_c = rk.rwkv_channel_mix(p["chan"], h, c.shift_c)
+                x = x + y
+                new_c = new_c._replace(shift_c=last_c)
+            else:
+                x = _apply_mlp(cfg, kinds[1], p, x)
+            _store(c, new_c)
     x = _norm(cfg, params["final_norm"], x)
-    new = {p: c._replace(length=c.length + 1) for p, c in caches.items()}
+    new = _advance(self_caches, 1)
+    if is_encdec:
+        new = {**caches, "self": new}
     return _mask_vocab(cfg, _logits(cfg, params, x)), new
 
 
 def prefill(cfg: ArchConfig, params, batch, s_max: int):
-    """Populate decode caches from a prompt; returns (last logits (B,
+    """Populate decode caches from a prompt (behind the VLM's prefix; the
+    encoder-decoder encodes ``batch["frames"]``); returns (last logits (B,
     vocab_padded), caches)."""
-    _check_family(cfg)
-    tokens = batch["tokens"]
-    x = L.embed(params["embed"], tokens)
-    b, s = tokens.shape
+    x = _embed_inputs(cfg, params, batch)
+    b, s = x.shape[:2]
     positions = torch.arange(s, dtype=torch.int32, device=x.device)
     pattern = cfg.group_kinds()
     g = cfg.n_groups
-    # the cache takes the activations' dtype, as the reference's padded
-    # K/V do
-    caches = init_decode_caches(cfg, b, s_max, device=x.device,
-                                dtype=x.dtype)
-    views = {p: _cache_views(c, g) for p, c in caches.items()}
+    is_encdec = cfg.kind == "encdec"
+    memory = encode(cfg, params, batch["frames"]) if is_encdec else None
+    # KV caches and RWKV shifts take the activations' dtype, as the
+    # reference's do
+    caches = _self_caches(cfg, b, s_max, x.device, x.dtype)
+    views = {p: _state_views(c, g) for p, c in caches.items()}
+    mem_kv = []
     for gi, gp in enumerate(_unstack(params["groups"], g)):
-        for pos, (_mix, mlp) in enumerate(pattern):
-            p = gp[str(pos)]
-            h = _norm(cfg, p["norm1"], x)
-            y, _ = attn.attention_prefill(
-                _attn_params(cfg, p), h, positions, s_max,
-                rope_theta=cfg.rope_theta, chunk=cfg.attn_chunk,
-                window=cfg.window, quantize=(cfg.kv_cache_dtype == "int8"),
-                cache=views[str(pos)][gi])
-            x = _apply_mlp(cfg, mlp, p, x + y)
+        for pos, (mix, mlp) in enumerate(pattern):
+            p, c = gp[str(pos)], views[str(pos)][gi]
+            new_c = c
+            if mix == "attn":
+                h = _norm(cfg, p["norm1"], x)
+                y, _ = attn.attention_prefill(
+                    _heads(cfg, p["attn"]), h, positions, s_max,
+                    rope_theta=cfg.rope_theta, chunk=cfg.attn_chunk,
+                    window=cfg.window,
+                    quantize=(cfg.kv_cache_dtype == "int8"), cache=c)
+                x = x + y
+            elif mix == "mamba":
+                h = _norm(cfg, p["norm1"], x)
+                y, new_c = mb.mamba_prefill(p["mamba"], h,
+                                            d_state=cfg.d_state,
+                                            dt_rank=cfg.dt_rank,
+                                            chunk=cfg.mamba_chunk)
+                x = x + y
+            elif mix == "rwkv":
+                h = L.layer_norm(p["norm1"], x)
+                y, (wkv, last_t) = rk.rwkv_time_mix(p["time"], h,
+                                                    n_heads=cfg.n_heads)
+                x = x + y
+                new_c = c._replace(wkv=wkv, shift_t=last_t)
+            if is_encdec and "cross" in p:
+                # unmasked cross heads, as the reference's prefill
+                h = _norm(cfg, p["norm_x"], x)
+                mk, mv = attn.project_memory(p["cross"], memory)
+                x = x + attn.cross_attention(p["cross"], h, mk, mv)
+                if pos == 0:      # the reference caches position 0's
+                    mem_kv.append((mk, mv))
+            if mlp == "rwkv_ffn":
+                h = L.layer_norm(p["norm2"], x)
+                y, last_c = rk.rwkv_channel_mix(p["chan"], h)
+                x = x + y
+                new_c = new_c._replace(shift_c=last_c)
+            else:
+                x = _apply_mlp(cfg, mlp, p, x)
+            _store(c, new_c)
     x = _norm(cfg, params["final_norm"], x)
-    caches = {p: c._replace(length=s) for p, c in caches.items()}
+    caches = _advance(caches, s)
+    if is_encdec:
+        caches = {"self": caches,
+                  "memory_k": torch.stack([k for k, _ in mem_kv]),
+                  "memory_v": torch.stack([v for _, v in mem_kv])}
     return _mask_vocab(cfg, _logits(cfg, params, x[:, -1])), caches

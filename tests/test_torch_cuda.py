@@ -357,6 +357,60 @@ def test_cuda_lm_serve_matches_cpu():
     assert "int8 KV cache on CUDA" in UNPORTED
 
 
+def _b5_calls(cfg, prefill: bool) -> int:
+    """B5 launches of one prefill or decode step: every self-attention
+    layer, plus the encoder's layers (prefill) and the cross attention of
+    every decoder layer (encoder-decoder)."""
+    n = sum(1 for mix, _ in cfg.layer_kinds() if mix == "attn")
+    if cfg.kind != "encdec":
+        return n
+    return 2 * n + (cfg.enc_layers if prefill else 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "jamba-v0.1-52b",
+                                  "rwkv6-7b", "seamless-m4t-large-v2",
+                                  "internvl2-26b", "arctic-480b"])
+def test_cuda_lm_family_matches_cpu(arch):
+    """One family at reduced_config: prefill and one decode step on the
+    card against the CPU's plain path on the same weights (0.02), every
+    attention, encoder and cross-attention call in B5."""
+    need_card()
+    from repro_torch.configs import reduced_config
+    from repro_torch.models import transformer as T
+    from repro_torch.models.common import init_from_specs
+    cfg = reduced_config(arch)
+    cpu = init_from_specs(T.model_specs(cfg), 4, device="cpu")
+    card = _tree_to(cpu, "cuda")
+    rng = np.random.default_rng(6)
+    batch = {"tokens": torch.from_numpy(rng.integers(
+        0, cfg.vocab, (2, 17)).astype(np.int32))}
+    if cfg.family == "vlm":
+        batch["vision_embeds"] = torch.from_numpy(rng.normal(
+            size=(2, cfg.frontend_len, cfg.d_model))).to(torch.bfloat16)
+    if cfg.kind == "encdec":
+        batch["frames"] = torch.from_numpy(rng.normal(
+            size=(2, 32, cfg.d_model))).to(torch.bfloat16)
+    logits, launches = [], []
+    for params, dev in ((cpu, "cpu"), (card, "cuda")):
+        b = {k: v.to(dev) for k, v in batch.items()}
+        pre = {**b, "tokens": b["tokens"][:, :16]}
+        with torch.inference_mode():
+            ops.reset_launches()
+            lg, caches = T.prefill(cfg, params, pre, 64)
+            launches.append(ops.LAUNCHES["flash_attention"])
+            ops.reset_launches()
+            dec, _ = T.decode_step(cfg, params, caches,
+                                   {"tokens": b["tokens"][:, 16:]})
+            launches.append(ops.LAUNCHES["flash_attention"])
+        logits.append([x.float().cpu()[..., :cfg.vocab]
+                       for x in (lg, dec[:, 0])])
+    assert launches == [0, 0, _b5_calls(cfg, True), _b5_calls(cfg, False)]
+    for want, got in zip(*logits):
+        assert bool(torch.isfinite(got).all())
+        assert float((want - got).abs().max() / want.abs().max()) < 0.02
+
+
 @pytest.mark.cuda
 def test_cuda_flash_attention_rejects_unaligned_rows():
     need_card()

@@ -468,15 +468,13 @@ def test_config_and_registry_take_the_sharded_options():
     assert cfg.exchange_every == 2
     assert get_backend("sharded").name == "sharded"
     assert not get_backend("sharded").supports_batch
-    # LM serving is ported (A15.2); what is left names its ROADMAP item
+    # LM serving is ported for every family (A15.2, A15.3's serving
+    # part); what is left is B5's and names its ROADMAP item
     assert "lm serving" not in UNPORTED
     assert set(UNPORTED) == {
-        "moe models", "hybrid (mamba) models", "rwkv models",
-        "encoder-decoder models", "vlm models",
         "sliding-window attention on CUDA", "int8 KV cache on CUDA",
         "attention head dims other than 64 and 128 on CUDA"}
-    assert all(item.startswith(("Queue A, A15.3", "Queue B"))
-               for item in UNPORTED.values())
+    assert all(item.startswith("Queue B") for item in UNPORTED.values())
     # exchange_every is an algorithm static, as in the reference
     assert cfg.algo_key() != EngineConfig(backend="sharded",
                                           device="cpu").algo_key()

@@ -175,14 +175,16 @@ def _imports(path: Path):
 
 def test_port_imports_neither_jax_nor_reference():
     files = sorted((REPO / "src" / "repro_torch").rglob("*.py"))
-    files += [REPO / "chip_smoke.py", REPO / "examples" / "quickstart_torch.py"]
+    files += [REPO / "chip_smoke.py",
+              *sorted((REPO / "examples").glob("*_torch.py"))]
     assert len(files) > 15
     rel = {str(f.relative_to(REPO)) for f in files}
     for must in ("serve/service.py", "serve/admission.py", "serve/health.py",
                  "serve/loadgen.py", "checkpoint/manager.py",
                  "launch/serve.py", "launch/mesh.py", "core/distributed.py",
                  "engine/backends/sharded.py", "core/baselines.py",
-                 "core/metrics.py"):
+                 "core/metrics.py", "models/moe.py", "models/mamba.py",
+                 "models/rwkv.py"):
         assert f"src/repro_torch/{must}" in rel, must
     for f in files:
         for mod in _imports(f):

@@ -615,16 +615,18 @@ def test_serve_main_tenants_jsonl_and_lm_unported(tmp_path, capsys):
     text = capsys.readouterr().out
     assert "[serve-tenants] 2 tenants x 1 rounds" in text
     assert "0 stranded" in text
-    # LM serving is ported (A15.2): the dense decoders run, here on the
-    # CPU; the other families still raise, naming A15.3
+    # LM serving is ported for every family (A15.2, A15.3's serving
+    # part): the dense decoders, the hybrid and RWKV run, here on the CPU
     tlaunch.main(["--mode", "lm", "--arch", "yi-9b", "--device", "cpu",
                   "--batch", "2", "--max-new", "3"])
     assert "[serve] yi-9b: batch=2" in capsys.readouterr().out
     out = tlaunch.serve("yi-9b", batch=2, prompt_len=4, max_new=2,
                         s_max=8, device="cpu")
     assert out["generated"].shape == (2, 2)
-    with pytest.raises(NotImplementedError, match="A15.3"):
-        tlaunch.main(["--mode", "lm", "--arch", "jamba-v0.1-52b",
-                      "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="A15.3"):
-        tlaunch.serve("rwkv6-7b", device="cpu")
+    tlaunch.main(["--mode", "lm", "--arch", "jamba-v0.1-52b",
+                  "--device", "cpu", "--batch", "2", "--max-new", "3"])
+    assert "[serve] jamba-v0.1-52b: batch=2" in capsys.readouterr().out
+    out = tlaunch.serve("rwkv6-7b", batch=2, prompt_len=4, max_new=3,
+                        s_max=8, device="cpu")
+    assert out["generated"].shape == (2, 3)
+    assert (out["generated"] >= 0).all() and (out["generated"] < 512).all()

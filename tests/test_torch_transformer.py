@@ -1,18 +1,21 @@
-"""PyTorch port, the decoder-only transformer and LM serving against the
-JAX package.
+"""PyTorch port, the transformer of every family and LM serving against
+the JAX package.
 
-For the four dense archs at ``reduced_config`` (``yi-9b``;
-``mistral-nemo-12b``; ``starcoder2-15b`` with its sliding window, layer
-norm, GELU MLP and qkv bias; ``qwen1.5-32b`` with qkv bias and the int8
-KV cache, also with padded heads), the reference's weights
+For the ten archs at ``reduced_config`` (the dense decoders ``yi-9b``,
+``mistral-nemo-12b``, ``starcoder2-15b`` with its sliding window, layer
+norm, GELU MLP and qkv bias, ``qwen1.5-32b`` with qkv bias and the int8
+KV cache, also with padded heads; the MoE ``qwen2-moe-a2.7b`` with its
+shared expert and ``arctic-480b`` with its dense residual; the hybrid
+``jamba-v0.1-52b``, Mamba + attention + MoE in a period of 8; ``rwkv6-7b``;
+the encoder-decoder ``seamless-m4t-large-v2`` with its frames; the VLM
+``internvl2-26b`` with its vision prefix), the reference's weights
 (``init_from_specs(..., PRNGKey)``) are carried over with
 ``params_from_numpy``, and ``forward_train``, ``prefill`` and
 ``decode_step`` logits are held to the reference's at 0.02 relative (max
 abs difference over max abs, over the real vocab): the models run in bf16,
 and the two frameworks round other partial sums to bf16
 (``tests/test_serving.py``'s TOL).  The port's own decode is held to its
-own forward the same way, step by step.  Every other family raises
-``unported`` naming A15.3.
+own forward the same way, step by step.
 """
 import dataclasses
 
@@ -31,7 +34,10 @@ from repro_torch import configs as tconfigs  # noqa: E402
 from repro_torch.engine.config import UNPORTED  # noqa: E402
 from repro_torch.launch import serve as tserve  # noqa: E402
 from repro_torch.models import transformer as TT  # noqa: E402
-from repro_torch.models.common import init_from_specs  # noqa: E402
+from repro_torch.models.common import (  # noqa: E402
+    float32_replay,
+    init_from_specs,
+)
 from repro_torch.models.convert import params_from_numpy  # noqa: E402
 
 TOL = 0.02
@@ -39,6 +45,7 @@ DENSE = ("yi-9b", "mistral-nemo-12b", "starcoder2-15b", "qwen1.5-32b",
          "qwen1.5-32b+padded")
 OTHER = ("jamba-v0.1-52b", "rwkv6-7b", "seamless-m4t-large-v2",
          "arctic-480b", "qwen2-moe-a2.7b", "internvl2-26b")
+ALL = DENSE + OTHER
 
 
 def configs(name):
@@ -81,35 +88,86 @@ def tokens(cfg, b, s, seed):
         np.int32)
 
 
-@pytest.mark.parametrize("name", DENSE)
+def extras(cfg, b, seed):
+    """The VLM's vision prefix and the encoder-decoder's frames (16 of
+    them), normal draws in bf16 as ``tests/test_serving.py`` makes them:
+    (reference's, port's) dicts, empty for the other families."""
+    rng = np.random.default_rng(seed + 100)
+    j, t = {}, {}
+    for key, n, on in (("vision_embeds", cfg.frontend_len,
+                        cfg.family == "vlm"),
+                       ("frames", 16, cfg.kind == "encdec")):
+        if on:
+            a = np.array(jnp.asarray(rng.normal(size=(b, n, cfg.d_model)),
+                                     jnp.bfloat16).astype(jnp.float32))
+            j[key] = jnp.asarray(a, jnp.bfloat16)
+            t[key] = torch.from_numpy(a).to(torch.bfloat16)
+    return j, t
+
+
+def offset(cfg):
+    """Positions before the first token: the VLM's prefix."""
+    return cfg.frontend_len if cfg.family == "vlm" else 0
+
+
+def self_caches(c, cfg):
+    return c["self"] if cfg.kind == "encdec" else c
+
+
+@pytest.mark.parametrize("name", ALL)
 def test_forward_train_matches_reference(name):
     jcfg, tcfg, jp, tp = model(name)
     toks = tokens(tcfg, 2, 24, 2)
-    want = JT.forward_train(jcfg, jp, {"tokens": jnp.asarray(toks)})
+    jx, tx = extras(tcfg, 2, 2)
+    want = JT.forward_train(jcfg, jp, {"tokens": jnp.asarray(toks), **jx})
     with torch.inference_mode():
-        got = TT.forward_train(tcfg, tp, {"tokens": torch.from_numpy(toks)})
+        got = TT.forward_train(tcfg, tp, {"tokens": torch.from_numpy(toks),
+                                          **tx})
     assert got.dtype == torch.bfloat16
-    assert got.shape == (2, 24, tcfg.vocab_padded)
+    assert got.shape == (2, offset(tcfg) + 24, tcfg.vocab_padded)
     assert rel(want, got, tcfg.vocab) < TOL
 
 
-@pytest.mark.parametrize("name", DENSE)
+def check_states(jc, tc, cfg, length):
+    """The port's prefill caches against the reference's: KV caches of
+    the reference's shape and dtype, ``length`` rows filled (zeros
+    past them); the Mamba / RWKV states and the memory K / V within
+    TOL."""
+    jself, tself = self_caches(jc, cfg), self_caches(tc, cfg)
+    assert sorted(jself) == sorted(tself)
+    for pos, c in tself.items():
+        if isinstance(c, tuple) and hasattr(c, "length"):
+            assert c.length == length
+            assert c.k.shape == jself[pos].k.shape and c.k.dtype == (
+                torch.int8 if cfg.kv_cache_dtype == "int8"
+                else torch.bfloat16)
+            assert not torch.any(c.k[:, :, length:])
+            continue
+        for f, jf, tf in zip(c._fields, jself[pos], c):
+            assert tuple(tf.shape) == jf.shape, f
+            assert str(tf.dtype).replace("torch.", "") \
+                == jnp.dtype(jf.dtype).name, f
+            assert rel(jf, tf, None) < TOL, f
+    if cfg.kind == "encdec":
+        for f in ("memory_k", "memory_v"):
+            assert tuple(tc[f].shape) == jc[f].shape
+            assert rel(jc[f], tc[f], None) < TOL
+
+
+@pytest.mark.parametrize("name", ALL)
 def test_prefill_and_decode_match_reference(name):
     """Prefill logits, its caches, and two decode steps' logits."""
     jcfg, tcfg, jp, tp = model(name)
     toks = tokens(tcfg, 2, 22, 3)
-    jl, jc = JT.prefill(jcfg, jp, {"tokens": jnp.asarray(toks[:, :20])},
-                        s_max=64)
+    jx, tx = extras(tcfg, 2, 3)
+    jl, jc = JT.prefill(jcfg, jp, {"tokens": jnp.asarray(toks[:, :20]),
+                                   **jx}, s_max=64)
     with torch.inference_mode():
         tl, tc = TT.prefill(tcfg, tp, {"tokens": torch.from_numpy(
-            toks[:, :20])}, s_max=64)
+            toks[:, :20]), **tx}, s_max=64)
     assert tl.shape == (2, tcfg.vocab_padded)
     assert rel(jl, tl, tcfg.vocab) < TOL
-    for pos, c in tc.items():
-        assert c.length == 20
-        assert c.k.shape == jc[pos].k.shape and c.k.dtype == (
-            torch.int8 if tcfg.kv_cache_dtype == "int8" else torch.bfloat16)
-        assert not torch.any(c.k[:, :, 20:])
+    check_states(jc, tc, tcfg, offset(tcfg) + 20)
     for t in (20, 21):
         jd, jc = JT.decode_step(jcfg, jp, jc,
                                 {"tokens": jnp.asarray(toks[:, t:t + 1])})
@@ -118,64 +176,66 @@ def test_prefill_and_decode_match_reference(name):
                 "tokens": torch.from_numpy(toks[:, t:t + 1])})
         assert td.shape == (2, 1, tcfg.vocab_padded)
         assert rel(jd, td, tcfg.vocab) < TOL, t
-    assert all(c.length == 22 for c in tc.values())
+    check_states(jc, tc, tcfg, offset(tcfg) + 22)
 
 
-@pytest.mark.parametrize("name", DENSE)
+@pytest.mark.parametrize("name", ALL)
 def test_multi_step_decode_matches_own_forward(name):
     """Decoding tokens one by one == the train forward over the whole
     sequence (tests/test_serving.py:54)."""
     _, cfg, _, params = model(name)
     s_pre, n_dec = 8, 6
     toks = torch.from_numpy(tokens(cfg, 1, s_pre + n_dec, 4))
+    _, tx = extras(cfg, 1, 4)
+    o = offset(cfg)
     with torch.inference_mode():
-        full = TT.forward_train(cfg, params, {"tokens": toks})
-        _, caches = TT.prefill(cfg, params, {"tokens": toks[:, :s_pre]},
-                               s_max=64)
+        full = TT.forward_train(cfg, params, {"tokens": toks, **tx})
+        _, caches = TT.prefill(cfg, params, {"tokens": toks[:, :s_pre],
+                                             **tx}, s_max=64)
         for t in range(n_dec):
             dec, caches = TT.decode_step(cfg, params, caches, {
                 "tokens": toks[:, s_pre + t:s_pre + t + 1]})
-            assert rel(full[:, s_pre + t], dec[:, -1], cfg.vocab) < TOL, t
+            assert rel(full[:, o + s_pre + t], dec[:, -1], cfg.vocab) \
+                < TOL, t
 
 
-@pytest.mark.parametrize("name", DENSE[:4])
+@pytest.mark.parametrize("name", ALL[:4] + OTHER)
 def test_init_decode_caches_match_reference(name):
+    """The reference's abstract cache tree, leaf for leaf: shapes and
+    dtypes on ``meta`` (a KV cache's length is a host int, 0)."""
     jcfg, tcfg = configs(name)
     jc = JT.init_decode_caches(jcfg, 3, 40, abstract=True)
     tc = TT.init_decode_caches(tcfg, 3, 40, abstract=True)
     assert sorted(jc) == sorted(tc)
-    for pos in jc:
-        for f in ("k", "v", "k_scale", "v_scale"):
-            j, t = getattr(jc[pos], f), getattr(tc[pos], f)
+    jself, tself = self_caches(jc, tcfg), self_caches(tc, tcfg)
+    assert sorted(jself) == sorted(tself)
+    pairs = []
+    for pos in jself:
+        assert type(jself[pos]).__name__ == type(tself[pos]).__name__
+        for f in jself[pos]._fields:
+            j, t = getattr(jself[pos], f), getattr(tself[pos], f)
+            if f == "length":
+                assert t == 0
+                continue
             assert (j is None) == (t is None), f
             if j is not None:
-                assert tuple(t.shape) == j.shape and t.device.type == "meta"
-                assert str(t.dtype).replace("torch.", "") \
-                    == jnp.dtype(j.dtype).name
-        assert tc[pos].length == 0
-
-
-@pytest.mark.parametrize("arch", OTHER)
-def test_other_families_raise_unported(arch):
-    cfg = tconfigs.reduced_config(arch)
-    calls = [lambda: TT.model_specs(cfg),
-             lambda: TT.forward_train(cfg, {}, {"tokens": None}),
-             lambda: TT.prefill(cfg, {}, {"tokens": None}, 16),
-             lambda: TT.decode_step(cfg, {}, {}, {"tokens": None}),
-             lambda: TT.init_decode_caches(cfg, 1, 16, device="cpu"),
-             lambda: tserve.serve(arch, device="cpu")]
-    for call in calls:
-        with pytest.raises(NotImplementedError, match="A15.3"):
-            call()
+                pairs.append((j, t))
+    if tcfg.kind == "encdec":
+        pairs += [(jc[f], tc[f]) for f in ("memory_k", "memory_v")]
+    for j, t in pairs:
+        assert tuple(t.shape) == j.shape and t.device.type == "meta"
+        assert str(t.dtype).replace("torch.", "") \
+            == jnp.dtype(j.dtype).name
 
 
 def test_unported_names_each_roadmap_item():
-    families = {"moe models", "hybrid (mamba) models", "rwkv models",
-                "encoder-decoder models", "vlm models"}
-    assert families < set(UNPORTED)
+    """Every family is ported: what stays unported is B5's (Queue B), on
+    CUDA only."""
+    assert set(UNPORTED) == {
+        "sliding-window attention on CUDA", "int8 KV cache on CUDA",
+        "attention head dims other than 64 and 128 on CUDA"}
     for k, item in UNPORTED.items():
-        assert ("A15.3" in item) == (k in families), k
-        assert k in families or ("Queue B" in item and "CUDA" in k), k
+        assert "A15.3" not in item and "Queue B" in item and "CUDA" in k, k
 
 
 def test_serve_runs_on_cpu_and_is_greedy():
@@ -254,3 +314,33 @@ def test_lm_cli_runs_on_cpu(capsys):
     assert "[serve] yi-9b: batch=2" in capsys.readouterr().out
     with pytest.raises(SystemExit):
         tserve.main(["--mode", "lm", "--device", "cpu"])
+
+
+@pytest.mark.parametrize("arch", sorted(tconfigs.ARCHS))
+def test_float32_replay_equals_the_upcast_tree(arch):
+    """``float32_replay`` keeps the groups' attention / MLP / MoE weights
+    in bf16, upcast where each product reads them: forward, prefill and a
+    decode step give exactly the fully upcast tree's logits."""
+    cfg = tconfigs.reduced_config(arch)
+    params = init_from_specs(TT.model_specs(cfg), 5, device="cpu")
+    full = {k: (v.float() if isinstance(v, torch.Tensor) else
+                jax.tree.map(lambda t: t.float(), v))
+            for k, v in params.items()}
+    lean = float32_replay(params)
+    kept = [k for k, v in lean["groups"]["0"].items()
+            if any(t.dtype == torch.bfloat16
+                   for t in jax.tree.leaves(v))]
+    assert set(kept) <= {"attn", "cross", "mlp", "moe", "shared", "dense2"}
+    assert bool(kept) == (cfg.kind != "rwkv")
+    assert lean["embed"]["table"].dtype == torch.float32
+    toks = torch.from_numpy(tokens(cfg, 2, 13, 9))
+    _, tx = extras(cfg, 2, 9)
+    out = []
+    with torch.inference_mode():
+        for p in (full, lean):
+            f = TT.forward_train(cfg, p, {"tokens": toks, **tx})
+            lg, c = TT.prefill(cfg, p, {"tokens": toks[:, :12], **tx}, 32)
+            dec, _ = TT.decode_step(cfg, p, c, {"tokens": toks[:, 12:]})
+            out.append((f, lg, dec))
+    for a, b in zip(*out):
+        assert a.dtype == torch.float32 and torch.equal(a, b)
