@@ -234,6 +234,45 @@ Phases, one JSON line each:
            on the prefill's and first decode step's recorded calls
            (self, encoder, cross, decode) against its plain version
            (8e-3), timed beside its bound, the plain version and SDPA.
+  train    LM training.  (a) At the trainer's own call (q (4, 4096, 32,
+           128) over k / v (4, 4096, 4, 128), bf16, causal): B5-bwd
+           against its plain version (2e-2), two launches bit-equal, B5
+           with lse bit-equal to B5 without it, its lse within 1e-5 of
+           the plain logsumexp and its output within 8e-3, both timed
+           beside their bounds, plain versions and SDPA (the kernels
+           line's B5-bwd row).  Then B5-bwd (ops.flash_attention_bwd)
+           against its plain version (autograd through the chunked
+           oracle) for dq, dk and dv, in float32 (TF32 off, 1e-4) and
+           bf16 (2e-2), max abs difference over max abs: Yi-9B's
+           attention (1, 4096, 32 / 4,
+           128) and (4, 512, 32 / 4, 128) causal, hd 64 at 16 / 16 heads
+           (S=512 causal, 32 encoder rows, 512 over a 32-row memory),
+           G = 6 (4, 1536, 48 / 8, 128) causal, ragged (300 causal; 300
+           over 200); two launches bit-equal; B5 with lse gives B5's bits
+           and an lse within 1e-5 of the plain logsumexp; timed at Yi's
+           and the (4, 512) shape beside its bound and SDPA's backward.
+           (b) One make_train_step step of Yi-9B at full width and 2
+           layers, B=2 x S=256, on the card and the CPU from one state
+           (the seed's weights after a shared warm step over the same
+           batch reversed, made on the card, copied bit for bit): float32
+           loss within 1e-5, every gradient leaf within 1e-4, and the
+           card step's parameters within 1e-4 of the CPU's AdamW fed the
+           card step's gradients from the same state; bf16 within 0.02;
+           the parameters end to end against the CPU step's reported.  (c)
+           launch.train.run on
+           the card: Yi-9B at full width, 8 of 48 layers, remat full, B=4
+           x S=4096, 6 steps of synthetic data (launch counts reset just
+           before, read just after: B5 16 and B5-bwd 8 a step): losses
+           and grad norms finite, the first within 1.0 of ln 64000; the
+           per-step losses, grad norms, lrs and seconds; the median step of
+           steps 2-6, tokens/s, model TFLOP/s (6 N T + 12 L H hd pairs
+           B, N the product parameters) and its share of 989, peak
+           bytes; one more step under torch.profiler (device busy and
+           idle share, device ms of the products, B5, B5-bwd and the
+           elementwise rest).  (d) tests/test_train_loop.py's runs at
+           reduced_config("yi-9b") on the card: the loss falls by 0.5 in
+           30 steps; 8 steps straight and 4 + save + resume + 4 end on
+           bit-equal parameters.
   audit    static analysis and the plan audit (repro_torch.analysis;
            needs main).  python -m repro_torch.launch.lint --strict in a
            subprocess (exit 0 with the committed baseline); the audit
@@ -315,7 +354,7 @@ SKEW_GRAPH = "rmat(20, 16, seed=0)"
 PHASES = ("kernels", "parity", "c1", "main", "wide_fit", "dense",
           "skew_fit", "batch", "obs", "microbatch", "stream", "ingest",
           "ooc", "serve", "sharded", "timing", "trace", "flash", "lm",
-          "lm_families", "audit")
+          "lm_families", "train", "audit")
 # phase -> the phases whose graphs and fits it reuses
 NEEDS = {"timing": ("main", "wide_fit"), "trace": ("main",),
          "dense": ("wide_fit",), "microbatch": ("batch",),
@@ -367,10 +406,22 @@ KERNELS = {
                     "src/repro/kernels/fused_sweep.py:128"),
     "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention.py:73"),
+    "flash_attention_bwd": (
+        "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        "gradient of src/repro/kernels/flash_attention.py:73 (no Pallas "
+        "backward; the reference differentiates "
+        "src/repro/models/attention.py:100)"),
 }
 
 
+_START: list = []        # the script's start on the host clock (main)
+
+
 def emit(obj: dict) -> None:
+    """One JSON line; a phase's line also carries the seconds since the
+    script started."""
+    if "phase" in obj and _START:
+        obj = {**obj, "script_elapsed_s": time.perf_counter() - _START[0]}
     print(json.dumps(obj), flush=True)
 
 
@@ -3443,6 +3494,492 @@ def _leaves(tree):
         yield tree
 
 
+# ----------------------------------------------------------------- train
+
+# B5-bwd against its plain version: (b, sq, h, k, hd, skv, causal).  Yi's
+# attention at S=4096 and at train_4k's per-sequence cut (4 x 512),
+# seamless' hd 64 (16 / 16 heads: decoder, encoder over 32 frames, cross
+# attention over them), internvl2's G = 6 over its 1,024-row prefix + 512,
+# and ragged lengths.
+TRAIN_BWD_CASES = ((1, 4096, 32, 4, 128, 4096, True),
+                   (4, 512, 32, 4, 128, 512, True),
+                   (4, 512, 16, 16, 64, 512, True),
+                   (4, 32, 16, 16, 64, 32, False),
+                   (4, 512, 16, 16, 64, 32, False),
+                   (4, 1536, 48, 8, 128, 1536, True),
+                   (2, 300, 8, 2, 128, 300, True),
+                   (2, 300, 4, 4, 64, 200, False))
+TRAIN_BWD_TIMED = (0, 1)       # the cases timed, indices of the above
+# The trainer's (c) own call, the one each of its steps gives B5 and B5-bwd
+# once per layer: q (4, 4096, 32, 128) over k / v (4, 4096, 4, 128), in
+# the path's bf16; checked, timed and reported in the kernels line.
+TRAIN_BWD_MAIN = (4, 4096, 32, 4, 128, 4096, True)
+TRAIN_BWD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+TRAIN_LSE_TOL = 1e-5
+TRAIN_FWD_TOL = {"float32": 1e-5, "bfloat16": 8e-3}    # the flash phase's
+
+
+def _bwd_work(b, sq, h, k, hd, skv, causal, elem):
+    """(operations, bytes) of one B5-bwd call: S and dP recomputed, dV,
+    dK and dQ over the visible pairs (2 FLOPs a multiply-add, 5 products
+    of hd each); q, k, v, out, dout and lse read once, dq, dk, dv written
+    once."""
+    rows = np.arange(1, sq + 1)
+    pairs = int(np.minimum(rows, skv).sum()) if causal else sq * skv
+    operations = 10 * b * h * hd * pairs
+    bytes_ = elem * (4 * b * sq * h * hd + 4 * b * skv * k * hd) \
+        + 4 * b * h * sq
+    return operations, bytes_
+
+
+def _train_bwd_case(torch, rt, gen, case, dtype, timed=False):
+    """One B5-bwd case: against its plain version, (timed) beside its
+    bound, the plain version and SDPA's backward."""
+    ops, ref = rt.ops, rt.ref
+    b, sq, h, k, hd, skv, causal = case
+    q, kk, v = _qkv(torch, gen, b, sq, h, k, hd, skv, dtype)
+    do = torch.randn(q.shape, device=gen.device, generator=gen).to(dtype)
+    out, lse = ops.flash_attention_fwd(q, kk, v, causal)
+    got = ops.flash_attention_bwd(q, kk, v, out, do, lse, causal)
+    want = ref.flash_attention_bwd_ref(q, kk, v, do, causal)
+    name = str(dtype).replace("torch.", "")
+    row = {"shape": [b, sq, h, k, hd, skv], "causal": causal, "dtype": name}
+    for label, g_, w_ in zip(("dq", "dk", "dv"), got, want):
+        check(g_.dtype == dtype and g_.shape == w_.shape
+              and bool(torch.isfinite(g_).all()),
+              f"B5-bwd {label} malformed at {row}")
+        abs_err, rel = _rel(g_, w_)
+        check(rel <= TRAIN_BWD_TOL[name], f"B5-bwd {label} disagrees with "
+              f"its plain version at {row}: rel {rel}")
+        row[f"{label}_max_abs_err"], row[f"{label}_rel_err"] = abs_err, rel
+    if not timed:
+        return row
+    again = ops.flash_attention_bwd(q, kk, v, out, do, lse, causal)
+    check(all(torch.equal(x, y) for x, y in zip(got, again)),
+          f"two B5-bwd launches differ at {row}")
+    row["repeat_bit_equal"] = True
+    del got, want, again
+    row["ms"] = _time_ms(torch, lambda: ops.flash_attention_bwd(
+        q, kk, v, out, do, lse, causal), reps=10, warmup=2)
+    row["plain_ms"] = _time_ms(torch, lambda: ref.flash_attention_bwd_ref(
+        q, kk, v, do, causal), reps=2, warmup=1)
+    # SDPA's backward (yardstick only): fwd + bwd minus fwd
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_(True)
+                  for x in (q, kk, v))
+    dot = do.transpose(1, 2).contiguous()
+
+    def fwd_bwd():
+        o = sdpa(qt, kt, vt, is_causal=causal, enable_gqa=True)
+        torch.autograd.grad(o, (qt, kt, vt), dot)
+    with torch.no_grad():
+        fwd_ms = _time_ms(torch, lambda: sdpa(qt, kt, vt, is_causal=causal,
+                                              enable_gqa=True))
+    row["library_ms"] = _time_ms(torch, fwd_bwd) - fwd_ms
+    row["library_fwd_ms"] = fwd_ms
+    operations, bytes_ = _bwd_work(b, sq, h, k, hd, skv, causal,
+                                   q.element_size())
+    ops_ms = operations / BF16_OPS_PER_S * 1e3
+    bytes_ms = bytes_ / HBM_BYTES_PER_S * 1e3
+    row.update({"operations": operations, "bytes": bytes_,
+                "bound_ms": max(ops_ms, bytes_ms),
+                "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+                "achieved_TFLOPs": operations / (row["ms"] * 1e-3) / 1e12})
+    return row
+
+
+def _train_lse(torch, rt, gen, case, dtype, timed=False):
+    """B5 with lse gives the bits of B5 without it; lse within
+    TRAIN_LSE_TOL of the plain logsumexp; (timed) B5 with lse, the
+    training forward, beside its bound, the plain version and SDPA."""
+    ops, ref = rt.ops, rt.ref
+    b, sq, h, k, hd, skv, causal = case
+    q, kk, v = _qkv(torch, gen, b, sq, h, k, hd, skv, dtype)
+    with torch.no_grad():
+        plain = ops.flash_attention(q, kk, v, causal=causal)
+    out, lse = ops.flash_attention_fwd(q, kk, v, causal)
+    check(torch.equal(out, plain), f"B5's output changes when it writes lse "
+          f"at {case} {dtype}")
+    err = float((lse - ref.attention_lse_ref(q, kk, causal)).abs().max())
+    check(err <= TRAIN_LSE_TOL, f"B5's lse off the plain logsumexp by {err} "
+          f"at {case} {dtype}")
+    row = {"shape": list(case[:6]), "causal": causal,
+           "dtype": str(dtype).replace("torch.", ""), "bits_equal": True,
+           "lse_max_abs_err": err}
+    if not timed:
+        return row
+    del plain, out, lse
+    want = ref.flash_attention_ref(q, kk, v, causal)
+    got, _ = ops.flash_attention_fwd(q, kk, v, causal)
+    row["max_abs_err"], row["rel_err"] = _rel(got, want)
+    check(row["rel_err"] < TRAIN_FWD_TOL[row["dtype"]], f"B5 with lse "
+          f"disagrees with its plain version at {case}: {row['rel_err']}")
+    del got, want
+    row["ms"] = _time_ms(torch, lambda: ops.flash_attention_fwd(
+        q, kk, v, causal))
+    row["plain_ms"] = _time_ms(torch, lambda: ref.flash_attention_ref(
+        q, kk, v, causal), reps=2, warmup=1)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, kk, v))
+    row["library_ms"] = _time_ms(torch, lambda: sdpa(
+        qt, kt, vt, is_causal=causal, enable_gqa=True))
+    # QK^T and PV over the visible pairs; q, k, v read once, the output
+    # and lse written once
+    rows = np.arange(1, sq + 1)
+    pairs = int(np.minimum(rows, skv).sum()) if causal else sq * skv
+    operations = 4 * b * h * hd * pairs
+    bytes_ = q.element_size() * (2 * q.numel() + 2 * kk.numel()) \
+        + 4 * b * h * sq
+    ops_ms = operations / BF16_OPS_PER_S * 1e3
+    bytes_ms = bytes_ / HBM_BYTES_PER_S * 1e3
+    row.update({"operations": operations, "bytes": bytes_,
+                "bound_ms": max(ops_ms, bytes_ms),
+                "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+                "achieved_TFLOPs": operations / (row["ms"] * 1e-3) / 1e12})
+    return row
+
+
+def _train_kernels(torch, rt, dev):
+    """(a) At the trainer's call (TRAIN_BWD_MAIN, bf16): B5-bwd against
+    its plain version, two launches bit-equal, timed; B5 with lse against
+    B5 without it and the plain logsumexp, timed.  Then B5-bwd on every
+    case in float32 (TF32 off) and bf16, timed at TRAIN_BWD_TIMED in bf16;
+    B5's lse."""
+    gen = torch.Generator(device=dev).manual_seed(29)
+    main = {"bwd": _train_bwd_case(torch, rt, gen, TRAIN_BWD_MAIN,
+                                   torch.bfloat16, timed=True)}
+    torch.cuda.empty_cache()
+    main["fwd"] = _train_lse(torch, rt, gen, TRAIN_BWD_MAIN, torch.bfloat16,
+                             timed=True)
+    torch.cuda.empty_cache()
+    cases = []
+    for i, case in enumerate(TRAIN_BWD_CASES):
+        for dtype in (torch.float32, torch.bfloat16):
+            cases.append(_train_bwd_case(
+                torch, rt, gen, case, dtype,
+                timed=(i in TRAIN_BWD_TIMED and dtype == torch.bfloat16)))
+            torch.cuda.empty_cache()
+    lse = [_train_lse(torch, rt, gen, TRAIN_BWD_CASES[0], torch.bfloat16),
+           _train_lse(torch, rt, gen, TRAIN_BWD_CASES[6], torch.float32),
+           _train_lse(torch, rt, gen, TRAIN_BWD_CASES[7], torch.bfloat16)]
+    return {"main": main, "cases": cases, "lse": lse,
+            "tolerance_rel": TRAIN_BWD_TOL,
+            "lse_tolerance_abs": TRAIN_LSE_TOL,
+            "timed": [c for c in cases if "ms" in c]}
+
+
+# The train phase's trainer (c): Yi-9B at full width cut to TRAIN_LAYERS of
+# its 48 layers (remat="full", the config's), B x S = TRAIN_BATCH x
+# TRAIN_SEQ (train_4k's sequence; its global batch of 256 cut to 4),
+# TRAIN_STEPS steps of synthetic data from LM_SEED; (b) runs LM_CPU's 2
+# layers at TRAIN_CPU_BATCH x TRAIN_CPU_SEQ on both sides; (d) the
+# reference's tests/test_train_loop.py runs at reduced_config("yi-9b").
+TRAIN_LAYERS = 8
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 4096, 6
+TRAIN_CPU_BATCH, TRAIN_CPU_SEQ = 2, 256
+TRAIN_STEP_IDX = 5          # the compared step: warmup's end, lr = peak;
+                            # the shared warm step is the one before it
+TRAIN_CPU_TOL = {"float32": {"loss": 1e-5, "grads": 1e-4, "params": 1e-4},
+                 "bfloat16": {"loss": LM_TOL, "grads": LM_TOL,
+                              "params": LM_TOL}}
+
+
+def _tree_leaves_named(tree, prefix=""):
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _tree_leaves_named(tree[k], f"{prefix}/{k}")
+    else:
+        yield prefix, tree
+
+
+def _train_card_vs_cpu(torch, dev):
+    """(b) One make_train_step step of Yi-9B at full width and 2 layers on
+    the card and on the CPU, in float32 (TF32 off) and bf16, from one
+    state: the seed's weights after a shared warm step, made once on the
+    card and copied to the CPU bit for bit.  The warm step runs the
+    compared batch reversed (rows and positions: the same tokens, so
+    every embedding row the compared step reads has non-zero moments).
+    Gated (max abs diff / max abs): the loss, every gradient leaf, and
+    the card step's own parameters against the CPU's AdamW fed the card
+    step's gradients (the same state and lr: the lr, clip and update the
+    card step composes).  The parameters end to end against the CPU
+    step's are reported: Adam divides by the gradient's scale, so an
+    element whose gradient is near 0 in both steps moves by a share of lr
+    that the two sides' rounding of that gradient decides."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLMDataset
+    from repro_torch.models import transformer as T
+    from repro_torch.models.common import init_from_specs
+    from repro_torch.optim import adamw_update
+    from repro_torch.train import steps as S
+    cfg = dataclasses.replace(get_config(LM_ARCH), n_layers=LM_CPU["layers"])
+    cpu = torch.device("cpu")
+    base = init_from_specs(T.model_specs(cfg), LM_SEED, device=cpu)
+    host = SyntheticLMDataset(vocab=cfg.vocab, seq_len=TRAIN_CPU_SEQ,
+                              global_batch=TRAIN_CPU_BATCH,
+                              seed=LM_SEED).next_batch()
+    warm = {k: np.ascontiguousarray(v[::-1, ::-1]) for k, v in host.items()}
+    step, *_ = S.make_train_step(cfg, None, "train_4k", peak_lr=1e-3,
+                                 warmup=TRAIN_STEP_IDX, donate=False,
+                                 keep_grads=True)
+    out = {"layers": cfg.n_layers, "batch": TRAIN_CPU_BATCH,
+           "seq": TRAIN_CPU_SEQ, "step_idx": TRAIN_STEP_IDX}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).replace("torch.", "")
+        tol = TRAIN_CPU_TOL[name]
+        p0 = _tree_map(base, lambda x: x.to(dev, dtype))
+        p1, o1, _ = step(p0, S.init_opt_state(cfg, p0),
+                         {k: torch.from_numpy(v).to(dev)
+                          for k, v in warm.items()}, TRAIN_STEP_IDX - 1)
+        del p0
+        runs = []
+        for where in (cpu, dev):
+            params = _tree_map(p1, lambda x: x.to(where, copy=True))
+            opt = type(o1)(*(_tree_map(x, lambda y: y.to(where, copy=True))
+                             for x in o1))
+            batch = {k: torch.from_numpy(v).to(where) for k, v in host.items()}
+            t0 = time.perf_counter()
+            new, _opt, metrics = step(params, opt, batch, TRAIN_STEP_IDX)
+            loss = float(metrics["loss"])
+            runs.append((loss, metrics.pop("grads"), new, metrics,
+                         time.perf_counter() - t0, params, opt))
+            del _opt
+        (l_cpu, g_cpu, new_cpu, m_cpu, s_cpu, p_cpu, o_cpu), \
+            (l_dev, g_dev, new_dev, m_dev, s_dev, _, _) = runs
+        # the CPU's AdamW fed the card step's gradients, from the shared
+        # state at the CPU step's lr: what the card step's update must be
+        chained, _, _ = adamw_update(_tree_map(g_dev, lambda x: x.cpu()),
+                                     o_cpu, p_cpu, float(m_cpu["lr"]))
+        del p_cpu, o_cpu
+        check(np.isfinite(l_dev), f"train card loss not finite ({name})")
+        loss_rel = abs(l_dev - l_cpu) / abs(l_cpu)
+        # every comparison runs on the card, the CPU's trees copied over
+        grad_rel = {}
+        for (path, a), (_, b) in zip(_tree_leaves_named(g_cpu),
+                                     _tree_leaves_named(g_dev)):
+            check(bool(torch.isfinite(b).all()), f"grad {path} not finite")
+            a = a.to(dev)
+            grad_rel[path] = _rel(b, a)[1] if a.abs().max() > 0 \
+                else float(b.abs().max())
+        param_rel, e2e_rel, upd_rel, flipped, over = {}, {}, 0.0, 0, 0
+        for (path, c), (_, b), (_, a), (_, p) in zip(
+                _tree_leaves_named(new_cpu), _tree_leaves_named(new_dev),
+                _tree_leaves_named(chained), _tree_leaves_named(p1)):
+            c, b, p = c.to(dev).float(), b.float(), p.float()
+            check(bool(torch.isfinite(b).all()), f"param {path} not finite")
+            param_rel[path] = _rel(b, a.to(dev))[1]
+            e2e_rel[path] = _rel(b, c)[1]
+            upd_rel = max(upd_rel, float((b - c).abs().max()
+                                         / max(float((c - p).abs().max()),
+                                               1e-30)))
+            flipped += int(((b - p) * (c - p) < 0).sum())
+            over += int(((b - c).abs() > tol["params"] * c.abs().max()).sum())
+        g_worst = max(grad_rel, key=grad_rel.get)
+        p_worst = max(param_rel, key=param_rel.get)
+        e_worst = max(e2e_rel, key=e2e_rel.get)
+        out[name] = {"loss_cpu": l_cpu, "loss_card": l_dev,
+                     "loss_rel": loss_rel,
+                     "grad_norm_cpu": float(m_cpu["grad_norm"]),
+                     "grad_norm_card": float(m_dev["grad_norm"]),
+                     "lr": float(m_cpu["lr"]),
+                     "grads_rel_max": grad_rel[g_worst],
+                     "grads_rel_worst_leaf": g_worst,
+                     "params_rel_max": param_rel[p_worst],
+                     "params_rel_worst_leaf": p_worst,
+                     "params_end_to_end_rel_max": e2e_rel[e_worst],
+                     "params_end_to_end_worst_leaf": e_worst,
+                     "params_end_to_end_over_tolerance": over,
+                     "update_rel_max": upd_rel,
+                     "update_sign_differs": flipped,
+                     "cpu_step_s": s_cpu, "card_step_s": s_dev,
+                     "tolerance": tol}
+        check(loss_rel <= tol["loss"], f"train card vs CPU loss ({name}): "
+              f"{l_dev} against {l_cpu}, rel {loss_rel}")
+        check(grad_rel[g_worst] <= tol["grads"], f"train card vs CPU grads "
+              f"({name}): {g_worst} rel {grad_rel[g_worst]}")
+        check(param_rel[p_worst] <= tol["params"], f"train card step's "
+              f"parameters vs the CPU's AdamW on its gradients ({name}): "
+              f"{p_worst} rel {param_rel[p_worst]}")
+        del runs, new_cpu, new_dev, g_cpu, g_dev, p1, o1, chained
+    return out
+
+
+def _product_params(params) -> int:
+    """Parameters of the matrix products: every group's attention and MLP
+    matrices and the LM head; the embedding is a gather."""
+    n = params["lm_head"]["table"].numel()
+    for layer in params["groups"].values():
+        for sub in ("attn", "mlp"):
+            n += sum(x.numel() for x in _leaves(layer.get(sub, {})))
+    return n
+
+
+# Kernel-name fragments -> the training layer a traced step's device time
+# is binned under; the rest is elementwise work: norms, RoPE, SwiGLU, the
+# loss over the logits, AdamW, casts and copies.
+TRAIN_KERNEL_BINS = (("B5-bwd", ("dkdv_mma", "dq_mma", "delta_kernel")),
+                     ("B5", ("flash_wgmma",)),
+                     ("products (cuBLAS)", ("gemm", "nvjet", "xmma",
+                                            "cutlass")))
+
+
+def _train_traced_step(torch, cfg, params, opt_state, dev):
+    """One more train step (donated, the run's state) under torch.profiler
+    (device activity): its wall, the device's busy time (union of its
+    events) and idle share, device milliseconds per TRAIN_KERNEL_BINS
+    layer and the top kernels."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.data import SyntheticLMDataset
+    from repro_torch.train import steps as S
+    step, *_ = S.make_train_step(cfg, None, "train_4k", peak_lr=1e-3,
+                                 warmup=5, donate=True)
+    host = SyntheticLMDataset(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                              global_batch=TRAIN_BATCH,
+                              seed=LM_SEED + 1).next_batch()
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in host.items()}
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        _, _, metrics = step(params, opt_state, batch, TRAIN_STEPS)
+        loss = float(metrics["loss"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    check(np.isfinite(loss), "train: the traced step's loss is not finite")
+    events, busy = _device_busy(torch, prof)
+    bins: dict = {}
+    timed = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+    for e in timed:
+        name = next((b for b, frags in TRAIN_KERNEL_BINS
+                     if any(f in e.key for f in frags)), "elementwise")
+        bins[name] = bins.get(name, 0.0) + e.self_device_time_total / 1e3
+    top = sorted(timed, key=lambda e: -e.self_device_time_total)[:8]
+    return {"wall_s": wall, "device_busy_s": busy,
+            "device_idle_share": 1 - busy / wall, "device_events": events,
+            "device_ms_by_layer": bins,
+            "top_device_ops_ms": [[e.key[:60], e.self_device_time_total
+                                   / 1e3, e.count] for e in top]}
+
+
+def _train_run(torch, rt, dev):
+    """(c) The trainer through launch.train.run on the card: Yi-9B at full
+    width, TRAIN_LAYERS layers, remat full, TRAIN_BATCH x TRAIN_SEQ,
+    TRAIN_STEPS steps; launch counts reset just before, read just
+    after; then one more step traced."""
+    import dataclasses
+    import math
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import run
+    ops = rt.ops
+    cfg = get_config(LM_ARCH)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    res = run(LM_ARCH, reduced=False, steps=TRAIN_STEPS, seq_len=TRAIN_SEQ,
+              global_batch=TRAIN_BATCH, seed=LM_SEED, log_every=1,
+              device=dev, layers=TRAIN_LAYERS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    b5, b5_bwd = (ops.LAUNCHES[k] for k in ("flash_attention",
+                                            "flash_attention_bwd"))
+    peak = torch.cuda.max_memory_allocated()
+    losses, gnorms = res["losses"], res["grad_norms"]
+    check(len(losses) == TRAIN_STEPS and all(map(math.isfinite,
+                                                 losses + gnorms)),
+          f"train: a loss or grad norm not finite: {losses} {gnorms}")
+    check(abs(losses[0] - math.log(cfg.vocab)) <= 1.0,
+          f"train: first loss {losses[0]}, ln(vocab) {math.log(cfg.vocab)}")
+    check(b5 == 2 * TRAIN_LAYERS * TRAIN_STEPS
+          and b5_bwd == TRAIN_LAYERS * TRAIN_STEPS,
+          f"train: B5 {b5} and B5-bwd {b5_bwd} launches in {TRAIN_STEPS} "
+          f"steps, want {2 * TRAIN_LAYERS} and {TRAIN_LAYERS} a step")
+    n_prod = _product_params(res["params"])
+    n_all = sum(x.numel() for x in _leaves(res["params"]))
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    pairs = TRAIN_SEQ * (TRAIN_SEQ + 1) // 2
+    flops = 6 * n_prod * tokens + 12 * TRAIN_LAYERS * cfg.n_heads \
+        * cfg.head_dim * pairs * TRAIN_BATCH
+    step_s, lrs = res["step_s"], res["lrs"]
+    med = float(np.median(step_s[1:]))
+    traced = _train_traced_step(torch, dataclasses.replace(
+        cfg, n_layers=TRAIN_LAYERS), res["params"], res["opt_state"], dev)
+    del res
+    return {"layers": TRAIN_LAYERS, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+            "remat": cfg.remat, "steps": TRAIN_STEPS, "losses": losses,
+            "grad_norms": gnorms, "lrs": lrs, "step_s": step_s,
+            "params": n_all, "product_params": n_prod,
+            "first_step_s": step_s[0], "median_step_s": med,
+            "tokens_per_s": tokens / med, "model_flops_per_step": flops,
+            "model_TFLOPs": flops / med / 1e12,
+            "model_flops_share_of_989": flops / med / BF16_OPS_PER_S,
+            "peak_device_bytes": peak, "run_wall_s": wall,
+            "b5_launches_per_step": b5 / TRAIN_STEPS,
+            "b5_bwd_launches_per_step": b5_bwd / TRAIN_STEPS,
+            "b5_launches": b5, "b5_bwd_launches": b5_bwd,
+            "traced_step": traced}
+
+
+def _train_reference_checks(torch, dev):
+    """(d) The reference's tests/test_train_loop.py runs on the card at
+    reduced_config("yi-9b") (hd 64: B5 and B5-bwd): the loss falls, and
+    an interrupted and resumed run ends on the uninterrupted run's
+    parameters, bit for bit."""
+    import shutil
+    import tempfile
+    from repro_torch.launch.train import run
+    t0 = time.perf_counter()
+    out = run("yi-9b", steps=30, seq_len=64, global_batch=8, log_every=100,
+              peak_lr=3e-3, device=dev)
+    losses = out["losses"]
+    check(min(losses) < losses[0] - 0.5,
+          f"train (d): the loss did not fall: {losses[0]} -> {min(losses)}")
+    learn_s = time.perf_counter() - t0
+    common = dict(arch="yi-9b", seq_len=32, global_batch=4, log_every=100,
+                  device=dev)
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_train_"))
+    try:
+        t0 = time.perf_counter()
+        ref = run(steps=8, **common)
+        run(steps=4, ckpt_dir=str(tmp / "ck"), save_every=4, **common)
+        resumed = run(steps=8, ckpt_dir=str(tmp / "ck"), save_every=4,
+                      resume=True, **common)
+        restart_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    check(resumed["final_step"] == 8, "train (d): resumed run ended at "
+          f"step {resumed['final_step']}")
+    differ = [p for (p, a), (_, b) in zip(
+        _tree_leaves_named(ref["params"]),
+        _tree_leaves_named(resumed["params"])) if not torch.equal(a, b)]
+    check(not differ, f"train (d): resumed parameters differ from the "
+          f"uninterrupted run's in {differ}")
+    return {"learn": {"first_loss": losses[0], "min_loss": min(losses),
+                      "last_loss": losses[-1], "steps": len(losses),
+                      "wall_s": learn_s},
+            "restart": {"bit_equal_leaves": sum(1 for _ in _tree_leaves_named(
+                ref["params"])), "wall_s": restart_s}}
+
+
+def phase_train(torch, rt, dev):
+    """LM training: (a) B5-bwd, (b) card against CPU, (c) the trainer at
+    full width, (d) the reference's training-loop checks."""
+    import gc
+    out = {"kernels": _train_kernels(torch, rt, dev)}
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    out["card_vs_cpu"] = _train_card_vs_cpu(torch, dev)
+    out["card_vs_cpu"]["wall_s"] = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["trainer"] = _train_run(torch, rt, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["reference_checks"] = _train_reference_checks(torch, dev)
+    return out
+
+
 # ----------------------------------------------------------------- audit
 
 def _audit_rows(report) -> list:
@@ -3540,6 +4077,7 @@ def _parse_args(argv):
 
 
 def main(argv=None) -> int:
+    _START[:] = [time.perf_counter()]
     args = _parse_args(argv)
     run = set(args.phases)
     import torch
@@ -3674,6 +4212,9 @@ def main(argv=None) -> int:
         families = phase_lm_families(torch, rt, dev)
         emit({"phase": "lm_families", "nvidia_smi": smi,
               "archs": families})
+    if "train" in run:
+        train = phase_train(torch, rt, dev)
+        emit({"phase": "train", "nvidia_smi": smi, **train})
     if "audit" in run:
         audit_launches, res = phase_audit(torch, rt, dev, g, fused)
         emit({"phase": "audit", "nvidia_smi": smi, **res})
@@ -3731,8 +4272,27 @@ def main(argv=None) -> int:
                        "lm_families_launches: the lm_families phase's "
                        "serve() of each arch, the same prompts, one "
                        "launch per attention, encoder and cross-attention "
-                       "layer and call",
+                       "layer and call; train_launches: the train phase's "
+                       "trainer, 6 steps of Yi-9B at 8 layers, two per "
+                       "layer and step (the forward, remat's recompute)",
+        "train_launches": train["trainer"]["b5_launches"],
         "max_abs_err": fm["max_abs_err"], **{k: fm[k] for k in keys}})
+    tk = train["kernels"]["main"]["bwd"]  # the trainer's call, bf16
+    rows.append({
+        "name": "flash_attention_bwd", "route": "cuda",
+        "source": KERNELS["flash_attention_bwd"][0],
+        "replaces": KERNELS["flash_attention_bwd"][1],
+        "launches": train["trainer"]["b5_bwd_launches"],
+        "launched_by": "launches: the train phase's trainer, "
+                       "launch.train.run of Yi-9B at full width, 8 layers, "
+                       "4 x 4096 tokens, 6 steps, one launch per layer and "
+                       "step (B5 twice: the forward and remat's "
+                       "recompute); checked and timed at the trainer's "
+                       "call: B=4, S=4096, H=32, K=4, hd=128, bf16, "
+                       "causal; library_ms: SDPA's backward",
+        "max_abs_err": max(tk[f"{x}_max_abs_err"] for x in ("dq", "dk",
+                                                            "dv")),
+        **{k: tk[k] for k in keys}})
     emit({"kernels": rows})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -24,7 +24,10 @@
 // step reads the first L + 1 rows of a (B, S_max, K, hd) cache): batch b
 // starts at row b * kv_rows, and no row at or past Skv is read.
 // Masked logits are -1e30, m / l / acc stay float32, the output is
-// acc / max(l, 1e-30), as in the TPU kernel and its oracle.
+// acc / max(l, 1e-30), as in the TPU kernel and its oracle.  Given an lse
+// buffer, a call also writes each query row's m + log(l) (in units of the
+// scaled scores), the statistics the TPU kernel's pallas_call returns
+// beside acc; the backward (flash_attention_bwd.cu) rebuilds P from it.
 //  * bf16: a Hopper kernel (sm_90a).  A block owns 128 query rows of one
 //    (head, batch) and walks KV tiles of 128 keys.  A producer warp issues
 //    TMA loads, Q once and then K and V into a two-stage shared-memory
@@ -234,7 +237,7 @@ __global__ void __launch_bounds__(kThreads, 1) flash_wgmma_kernel(
     const __grid_constant__ CUtensorMap q_map,
     const __grid_constant__ CUtensorMap k_map,
     const __grid_constant__ CUtensorMap v_map, uint16_t* __restrict__ o,
-    Shape s) {
+    float* __restrict__ lse, Shape s) {
   constexpr int kTile = tile_bytes<HD>();
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
@@ -416,6 +419,13 @@ __global__ void __launch_bounds__(kThreads, 1) flash_wgmma_kernel(
         *reinterpret_cast<uint32_t*>(ob + r1 * row_stride + 8 * i) =
             pack_bf16(acc[4 * i + 2] / d1, acc[4 * i + 3] / d1);
     }
+    // The row's log-sum-exp of the scaled scores, for the backward: m is
+    // the raw maximum and l sums exp(scale * (x - m)).
+    if (lse != nullptr && t == 0) {
+      float* lb = lse + ((long long)b * s.H + h) * s.Sq;
+      if (r0 < s.Sq) lb[r0] = m0 * s.scale + logf(d0);
+      if (r1 < s.Sq) lb[r1] = m1 * s.scale + logf(d1);
+    }
   }
 }
 
@@ -435,7 +445,8 @@ constexpr size_t fma_smem_bytes() {
 template <int HD>
 __global__ void __launch_bounds__(kFmaThreads) flash_fma_kernel(
     const float* __restrict__ q, const float* __restrict__ k,
-    const float* __restrict__ v, float* __restrict__ o, Shape s) {
+    const float* __restrict__ v, float* __restrict__ o,
+    float* __restrict__ lse, Shape s) {
   constexpr int LQ = HD + 1, LP = kFmaBK + 1, RQ = kFmaBQ / 16, C = HD / 16;
   extern __shared__ float smem[];
   float* qs = smem;                  // [BQ][LQ]
@@ -547,12 +558,16 @@ __global__ void __launch_bounds__(kFmaThreads) flash_fma_kernel(
     const float den = fmaxf(l[i], 1e-30f);
 #pragma unroll
     for (int c = 0; c < C; ++c) ob[row * q_stride + tx + 16 * c] = acc[i][c] / den;
+    // m is the maximum of the scaled scores here (q was scaled on load)
+    if (lse != nullptr && tx == 0)
+      lse[((long long)b * s.H + h) * s.Sq + row] = m[i] + logf(den);
   }
 }
 
 template <int HD>
 cudaError_t launch_fma(const void* q, const void* k, const void* v, void* o,
-                       int B, const Shape& s, cudaStream_t stream) {
+                       float* lse, int B, const Shape& s,
+                       cudaStream_t stream) {
   constexpr size_t smem = fma_smem_bytes<HD>();
   const cudaError_t err = cudaFuncSetAttribute(
       flash_fma_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -561,7 +576,7 @@ cudaError_t launch_fma(const void* q, const void* k, const void* v, void* o,
   const dim3 grid((s.Sq + kFmaBQ - 1) / kFmaBQ, s.H, B);
   flash_fma_kernel<HD><<<grid, kFmaThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), s);
+      static_cast<const float*>(v), static_cast<float*>(o), lse, s);
   return cudaGetLastError();
 }
 
@@ -607,8 +622,8 @@ CUresult encode_map(EncodeTiled encode, CUtensorMap* map, const void* ptr,
 // Returns a cudaError_t, or minus the CUresult of a failed tensor-map
 // encode.
 template <int HD>
-int launch_wgmma(const void* q, const void* k, const void* v, void* o, int B,
-                 const Shape& s, cudaStream_t stream) {
+int launch_wgmma(const void* q, const void* k, const void* v, void* o,
+                 float* lse, int B, const Shape& s, cudaStream_t stream) {
   const long long blocks = (long long)((s.Sq + kBQ - 1) / kBQ) * B * s.H;
   if (blocks > 0x7fffffff) return (int)cudaErrorInvalidValue;
   const EncodeTiled encode = encode_tiled();
@@ -626,7 +641,7 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o, int B,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
   flash_wgmma_kernel<HD><<<(unsigned)blocks, kThreads, smem, stream>>>(
-      qm, km, vm, static_cast<uint16_t*>(o), s);
+      qm, km, vm, static_cast<uint16_t*>(o), lse, s);
   return (int)cudaGetLastError();
 }
 
@@ -634,13 +649,16 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o, int B,
 
 // q, o: (B, Sq, H, hd); k, v: (B, kv_rows, K, hd), of which the first Skv
 // rows of each batch are the keys; all contiguous, 16-byte aligned.  dtype
-// 0 = float32, 1 = bfloat16; hd 64 or 128.  Returns 0, a cudaError_t, or
-// minus the CUresult of a failed tensor-map encode.
+// 0 = float32, 1 = bfloat16; hd 64 or 128.  lse, when not null, is (B, H,
+// Sq) float32 and takes each query row's log-sum-exp of its scaled
+// scores, m + log(l), which the backward (flash_attention_bwd.cu) reads;
+// the output's bits are the same either way.  Returns 0, a cudaError_t,
+// or minus the CUresult of a failed tensor-map encode.
 extern "C" int attn_flash_attention(const void* q, const void* k,
-                                    const void* v, void* o, int B, int H,
-                                    int K, int Sq, int Skv, int kv_rows,
-                                    int hd, int causal, int dtype,
-                                    void* stream) {
+                                    const void* v, void* o, void* lse,
+                                    int B, int H, int K, int Sq, int Skv,
+                                    int kv_rows, int hd, int causal,
+                                    int dtype, void* stream) {
   if (B < 1 || B > 65535 || K < 1 || H < K || H % K != 0 || H > 65535 ||
       Sq < 0 || Skv < 1 || kv_rows < Skv)
     return (int)cudaErrorInvalidValue;
@@ -648,10 +666,11 @@ extern "C" int attn_flash_attention(const void* q, const void* k,
   const Shape s{B, Sq, Skv, H, K, H / K, kv_rows, causal ? 1 : 0,
                 (float)(1.0 / sqrt((double)hd))};
   const cudaStream_t st = (cudaStream_t)stream;
+  float* l = static_cast<float*>(lse);
   int err = (int)cudaErrorInvalidValue;
-  if (dtype == kDtypeBF16 && hd == 64) err = launch_wgmma<64>(q, k, v, o, B, s, st);
-  if (dtype == kDtypeBF16 && hd == 128) err = launch_wgmma<128>(q, k, v, o, B, s, st);
-  if (dtype == kDtypeF32 && hd == 64) err = (int)launch_fma<64>(q, k, v, o, B, s, st);
-  if (dtype == kDtypeF32 && hd == 128) err = (int)launch_fma<128>(q, k, v, o, B, s, st);
+  if (dtype == kDtypeBF16 && hd == 64) err = launch_wgmma<64>(q, k, v, o, l, B, s, st);
+  if (dtype == kDtypeBF16 && hd == 128) err = launch_wgmma<128>(q, k, v, o, l, B, s, st);
+  if (dtype == kDtypeF32 && hd == 64) err = (int)launch_fma<64>(q, k, v, o, l, B, s, st);
+  if (dtype == kDtypeF32 && hd == 128) err = (int)launch_fma<128>(q, k, v, o, l, B, s, st);
   return err;
 }

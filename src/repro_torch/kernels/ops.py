@@ -1,5 +1,6 @@
 """Public wrappers of the hand-written kernels, dispatched by the tensors'
-device: the four LPA kernels and flash attention.
+device: the four LPA kernels, flash attention (B5) and its backward
+(B5-bwd).
 
 * A CUDA tensor launches the hand-written kernel from ``csrc/`` on the
   current stream (built at first use, see ``build.py``).  A kernel that
@@ -11,6 +12,13 @@ outputs with ``torch.empty`` and, where it launches its kernel, adds one to
 ``LAUNCHES[name]``.  The neighbor vectors (``labels``, ``comm``, ``chg``) are
 gathered through ``nbr`` inside the kernels; they may be longer than the
 tile's row count, and ``nbr`` must index into them.
+
+``flash_attention`` is differentiable.  On the CPU autograd goes through
+its plain version.  On CUDA, when grad mode is on and q, k or v requires
+grad, the call is a ``torch.autograd.Function``: its forward launches B5
+with the per-row log-sum-exp (``lse``) and saves q, k, v, the output and
+``lse``; its backward launches B5-bwd (``flash_attention_bwd``).  Without
+grad the launch is the serving one, which writes no ``lse``.
 """
 from __future__ import annotations
 
@@ -18,14 +26,14 @@ import torch
 
 from repro_torch.kernels import build, ref
 
-__all__ = ["LAUNCHES", "MAX_DEGREE", "flash_attention", "fused_move",
-           "fused_split", "label_argmax", "min_label", "reset_launches",
-           "resolve_fuse"]
+__all__ = ["LAUNCHES", "MAX_DEGREE", "flash_attention", "flash_attention_bwd",
+           "flash_attention_fwd", "fused_move", "fused_split", "label_argmax",
+           "min_label", "reset_launches", "resolve_fuse"]
 
 # Kernel launches per op since the last reset (CUDA path only).
 LAUNCHES: dict[str, int] = {"label_argmax": 0, "min_label": 0,
                             "fused_move": 0, "fused_split": 0,
-                            "flash_attention": 0}
+                            "flash_attention": 0, "flash_attention_bwd": 0}
 MAX_DEGREE = 1024  # widest tile row the kernels take (shared-memory rows)
 # What the flash-attention kernel takes: element type -> its dtype code.
 _ATTN_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -206,23 +214,14 @@ def fused_split(nbr, nmask, labels, comm, chg, prune: bool):
     return out
 
 
-def flash_attention(q, k, v, causal: bool = True, kv_len: int | None = None):
-    """GQA attention of q (B, Sq, H, hd) over k/v (B, Skv, K, hd), the
-    models' layout in and out (see ``ref.flash_attention_ref``).
-
-    Query head h reads KV head ``h // (H // K)``; under ``causal`` query i
-    sees keys 0..i, both counted from 0.  ``kv_len`` (a host int, default
-    Skv) is the count of visible keys: keys at and past it are masked and,
-    on the card, never read, while batches stay Skv rows apart (a decode
-    step over the first L + 1 rows of a cache).  bfloat16 or float32, hd
-    64 or 128, contiguous.  Returns (B, Sq, H, hd) in q's dtype.
-    """
+def _check_attention(q, k, v) -> None:
+    """q (B, Sq, H, hd) and k / v (B, Skv, K, hd): one dtype B5 takes, hd
+    64 or 128, H % K == 0, contiguous, on one CPU or CUDA device."""
     if q.dim() != 4 or k.dim() != 4:
         raise ValueError(f"q and k must be 4-D, got {tuple(q.shape)} and "
                          f"{tuple(k.shape)}")
-    b, sq, h, hd = q.shape
+    b, _sq, h, hd = q.shape
     skv, kk = k.shape[1], k.shape[2]
-    dev = q.device
     if tuple(k.shape) != (b, skv, kk, hd) or tuple(v.shape) != tuple(k.shape):
         raise ValueError(f"k and v must be (B, Skv, K, hd) = (b, ., ., {hd}) "
                          f"alike, got {tuple(k.shape)} and {tuple(v.shape)}")
@@ -235,6 +234,82 @@ def flash_attention(q, k, v, causal: bool = True, kv_len: int | None = None):
     if kk < 1 or h % kk or skv < 1:
         raise ValueError(f"need H % K == 0 and Skv >= 1, got H={h}, K={kk}, "
                          f"Skv={skv}")
+    dev = q.device
+    if not (k.device == v.device == dev) or dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"q, k, v must lie on one CPU or CUDA device, got "
+                         f"{q.device}, {k.device}, {v.device}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+def _flash_launch(q, k, v, causal: bool, kv_len: int, lse=None):
+    """One B5 launch into a new output; ``lse`` (B, H, Sq) float32, if
+    given, takes each query row's log-sum-exp."""
+    b, sq, h, hd = q.shape
+    skv, kk = k.shape[1], k.shape[2]
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned")
+    out = torch.empty_like(q)
+    if sq and b:
+        _launch("flash_attention", q.device, q.data_ptr(), k.data_ptr(),
+                v.data_ptr(), out.data_ptr(),
+                None if lse is None else lse.data_ptr(), b, h, kk, sq,
+                kv_len, skv, hd, int(bool(causal)), _ATTN_DTYPE_CODE[q.dtype],
+                symbol="attn_flash_attention")
+    return out
+
+
+def flash_attention_fwd(q, k, v, causal: bool = True):
+    """``flash_attention`` over every key, with each query row's
+    log-sum-exp of its scaled scores: (out, lse (B, H, Sq) float32), what
+    ``flash_attention_bwd`` reads (see ``ref.attention_lse_ref``).  Not
+    differentiable itself."""
+    _check_attention(q, k, v)
+    if q.device.type == "cpu":
+        return (ref.flash_attention_ref(q, k, v, causal),
+                ref.attention_lse_ref(q, k, causal))
+    b, sq, h, _hd = q.shape
+    lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    return _flash_launch(q, k, v, causal, k.shape[1], lse), lse
+
+
+class _FlashAttention(torch.autograd.Function):
+    """B5 forward with ``lse``, B5-bwd backward (CUDA tensors only)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal):
+        out, lse = flash_attention_fwd(q, k, v, causal)
+        ctx.causal = causal
+        ctx.save_for_backward(q, k, v, out, lse)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, dout.contiguous(), lse,
+                                         ctx.causal)
+        return dq, dk, dv, None
+
+
+def flash_attention(q, k, v, causal: bool = True, kv_len: int | None = None):
+    """GQA attention of q (B, Sq, H, hd) over k/v (B, Skv, K, hd), the
+    models' layout in and out (see ``ref.flash_attention_ref``).
+
+    Query head h reads KV head ``h // (H // K)``; under ``causal`` query i
+    sees keys 0..i, both counted from 0.  ``kv_len`` (a host int, default
+    Skv) is the count of visible keys: keys at and past it are masked and,
+    on the card, never read, while batches stay Skv rows apart (a decode
+    step over the first L + 1 rows of a cache).  bfloat16 or float32, hd
+    64 or 128, contiguous.  Returns (B, Sq, H, hd) in q's dtype.
+
+    Differentiable: on CUDA under grad (q, k or v requiring it) the call
+    runs B5 with ``lse`` and its backward B5-bwd; ``kv_len < Skv`` then
+    raises ``ValueError``.
+    """
+    _check_attention(q, k, v)
+    skv = k.shape[1]
     kv_len = skv if kv_len is None else kv_len
     # a host int: a device scalar here would cost a sync per launch
     if (isinstance(kv_len, (bool, torch.Tensor))
@@ -243,21 +318,52 @@ def flash_attention(q, k, v, causal: bool = True, kv_len: int | None = None):
         raise ValueError(f"kv_len must be a host int in [1, Skv={skv}], got "
                          f"{kv_len!r}")
     kv_len = kv_len.__index__()
-    if not (k.device == v.device == dev) or dev.type not in ("cpu", "cuda"):
-        raise ValueError(f"q, k, v must lie on one CPU or CUDA device, got "
-                         f"{q.device}, {k.device}, {v.device}")
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-    if dev.type == "cpu":
+    if q.device.type == "cpu":
         return ref.flash_attention_ref(q, k, v, causal, kv_len)
-    for name, t in (("q", q), ("k", k), ("v", v)):
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        if kv_len < skv:
+            raise ValueError("kv_len < Skv under grad: B5-bwd takes every "
+                             "key (training never masks keys)")
+        return _FlashAttention.apply(q, k, v, bool(causal))
+    return _flash_launch(q, k, v, causal, kv_len)
+
+
+def flash_attention_bwd(q, k, v, out, dout, lse, causal: bool):
+    """Gradient of ``flash_attention(q, k, v, causal)`` (every key
+    visible) for the output gradient ``dout``: returns (dq, dk, dv) in the
+    inputs' dtypes and shapes (see ``ref.flash_attention_bwd_ref``).
+
+    ``out`` is the forward's output and ``lse`` (B, H, Sq) float32 its
+    per-row log-sum-exp, both from B5; the CPU path recomputes them and
+    reads neither.  On CUDA one call is three launches of B5-bwd (delta,
+    dK / dV, dQ), counted once.
+    """
+    _check_attention(q, k, v)
+    b, sq, h, hd = q.shape
+    skv, kk = k.shape[1], k.shape[2]
+    for name, t in (("out", out), ("dout", dout)):
+        if (tuple(t.shape) != tuple(q.shape) or t.dtype != q.dtype
+                or t.device != q.device or not t.is_contiguous()):
+            raise ValueError(f"{name}: expected a contiguous {q.dtype} "
+                             f"{tuple(q.shape)} on {q.device}, got {t.dtype} "
+                             f"{tuple(t.shape)} on {t.device}")
+    if q.device.type == "cpu":
+        return ref.flash_attention_bwd_ref(q, k, v, dout, causal)
+    _check_tile("lse", lse, torch.float32, (b, h, sq), q.device)
+    for name, t in (("q", q), ("k", k), ("v", v), ("out", out),
+                    ("dout", dout)):
         if t.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned")
-    out = torch.empty_like(q)
-    if sq and b:
-        _launch("flash_attention", dev, q.data_ptr(), k.data_ptr(),
-                v.data_ptr(), out.data_ptr(), b, h, kk, sq, kv_len, skv, hd,
-                int(bool(causal)), _ATTN_DTYPE_CODE[q.dtype],
-                symbol="attn_flash_attention")
-    return out
+    delta = torch.empty_like(lse)
+    dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
+    if sq:
+        _launch("flash_attention_bwd", q.device, q.data_ptr(), k.data_ptr(),
+                v.data_ptr(), out.data_ptr(), dout.data_ptr(), lse.data_ptr(),
+                delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                b, h, kk, sq, skv, hd, int(bool(causal)),
+                _ATTN_DTYPE_CODE[q.dtype], symbol="attn_flash_attention_bwd")
+    else:
+        dk.zero_()
+        dv.zero_()
+    return dq, dk, dv

@@ -7,7 +7,9 @@ The four LPA kernels (bit-exact semantics) take the padded neighbor tiles
 them on the card.  ``labels[:rows]`` is each row's own label.
 
 ``flash_attention_ref`` is the chunked online-softmax oracle of
-``models/attention.py`` at positions ``arange``.
+``models/attention.py`` at positions ``arange``;
+``attention_lse_ref`` its per-row log-sum-exp and
+``flash_attention_bwd_ref`` its gradient through autograd, in float32.
 
 The CPU path of every op runs these; ``chip_smoke.py`` holds each CUDA
 kernel against them on the card.
@@ -147,3 +149,31 @@ def flash_attention_ref(q, k, v, causal: bool, kv_len: int | None = None):
                                         causal=causal,
                                         chunk=min(512, k.shape[1]),
                                         kv_valid_len=kv_len)
+
+
+def attention_lse_ref(q, k, causal: bool):
+    """Each query row's log-sum-exp of its scaled, masked scores (B, H,
+    Sq) float32, positions from 0: the statistics B5 writes for its
+    backward."""
+    b, sq, h, hd = q.shape
+    kk = k.shape[2]
+    qg = q.reshape(b, sq, kk, h // kk, hd).float() * (1.0 / (hd ** 0.5))
+    s = torch.einsum("bqkgd,bckd->bkgqc", qg, k.float())
+    if causal:
+        pos_q = torch.arange(sq, device=q.device)
+        pos_k = torch.arange(k.shape[1], device=q.device)
+        s = s.masked_fill(pos_q[:, None] < pos_k[None, :], float("-inf"))
+    return torch.logsumexp(s, dim=-1).reshape(b, h, sq)
+
+
+def flash_attention_bwd_ref(q, k, v, do, causal: bool):
+    """(dq, dk, dv) of ``flash_attention_ref(q, k, v, causal)`` for the
+    output gradient ``do``: autograd through the float32 oracle (the
+    function the reference's XLA differentiates), each cast to its
+    input's dtype."""
+    with torch.enable_grad():
+        q32, k32, v32 = (x.detach().float().requires_grad_(True)
+                         for x in (q, k, v))
+        out = flash_attention_ref(q32, k32, v32, causal)
+        dq, dk, dv = torch.autograd.grad(out, (q32, k32, v32), do.float())
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)

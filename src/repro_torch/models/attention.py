@@ -10,9 +10,13 @@ Where the attention runs:
   * a CUDA tensor goes through B5 (``ops.flash_attention``): training and
     prefill causal over positions 0..S-1 (the kernel counts positions from
     0, as the models' callers do), decode with ``kv_len = L + 1`` over the
-    cache in place, cross attention non-causal.  What B5 does not cover (a
+    cache in place, cross attention non-causal.  Under grad (training, the
+    encoder and cross attention included) the call is differentiable: B5
+    also writes each query row's log-sum-exp, and the backward runs B5's
+    hand-written backward (B5-bwd) from it.  What B5 does not cover (a
     sliding window, an int8 cache, head dims other than 64 and 128) raises
-    ``unported``: nothing falls back to the plain attention on the card;
+    ``unported``: nothing falls back to the plain attention on the card, so
+    ``starcoder2-15b`` (window) neither serves nor trains there yet;
   * a CPU tensor goes through ``chunked_attention`` with the reference's
     arguments (``chunk``; decode and cross ``min(2048, Skv)``), so its
     float32 sums fold in the reference's order, every case included.

@@ -2,13 +2,18 @@
 as plain functions over the parameter dict.
 
 The counterpart of ``repro.models.transformer`` for every family: specs,
-the training forward (logits only; the loss and the backward pass wait for
-ROADMAP A15.3), the encoder, prefill and one-token decode.  The parameter
-tree keeps the reference's layout, layers stacked into ``groups`` with a
+the training forward and its loss (``loss_fn``; gradients come from
+autograd), the encoder, prefill and one-token decode.  The parameter tree
+keeps the reference's layout, layers stacked into ``groups`` with a
 leading ``n_groups`` dimension (the encoder's into ``enc_groups``, one
 layer a group); a Python loop over the groups takes the place of
-``lax.scan`` (remat has no meaning without a backward pass, and the
-sharding hints have no counterpart on one card).
+``lax.scan`` (the sharding hints have no counterpart on one card).  Under
+grad, each group runs under the config's remat policy, as the reference's
+``_scan_groups`` applies it: ``"full"`` keeps only the group's input and
+recomputes the rest in the backward (``torch.utils.checkpoint``,
+non-reentrant), ``"dots"`` keeps the matrix products' outputs and
+recomputes the rest (selective checkpointing), ``"none"`` keeps
+everything.
 
 Decode caches are stacked the same way, one per position in a group: a
 ``KVCache`` for attention, a ``MambaState`` or an ``RwkvState`` for the
@@ -17,13 +22,15 @@ other mixers, and for the encoder-decoder ``{"self": ..., "memory_k",
 writes them in place, through per-group views, and returns them; a
 ``KVCache``'s ``length`` is a host int.  On the card every attention,
 encoder and cross-attention call runs the flash-attention kernel (see
-``models.attention``).
+``models.attention``), and its gradient the flash-attention backward.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any
 
 import torch
+from torch.utils import checkpoint as _ckpt
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as attn
@@ -34,7 +41,7 @@ from repro_torch.models import rwkv as rk
 from repro_torch.models.common import ParamSpec, stack_specs
 
 __all__ = ["NEG", "decode_step", "encode", "forward_train", "group_specs",
-           "init_decode_caches", "model_specs", "prefill"]
+           "init_decode_caches", "loss_fn", "model_specs", "prefill"]
 
 NEG = -1e30
 
@@ -195,6 +202,35 @@ def _embed_inputs(cfg, params, batch):
 
 
 # ============================================================== forward =====
+# The matrix products whose outputs remat="dots" keeps (``einsum`` lowers
+# to these), as ``checkpoint_policies.checkpoint_dots`` keeps dot_general's.
+_DOT_OPS = frozenset({torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+                      torch.ops.aten.addmm.default,
+                      torch.ops.aten.baddbmm.default})
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return (_ckpt.CheckpointPolicy.MUST_SAVE if op in _DOT_OPS
+            else _ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _scan_groups(cfg, groups, n: int, x, body):
+    """``x = body(x, group)`` over the n stacked groups in order, each
+    group under the remat policy when grad is on."""
+    step = body
+    if torch.is_grad_enabled() and cfg.remat in ("full", "dots"):
+        kw = {} if cfg.remat == "full" else {"context_fn": functools.partial(
+            _ckpt.create_selective_checkpoint_contexts, _save_dots)}
+        step = functools.partial(_ckpt.checkpoint, body, use_reentrant=False,
+                                 **kw)
+    elif cfg.remat not in ("none", "full", "dots"):
+        raise ValueError(f"remat must be none / full / dots, got "
+                         f"{cfg.remat!r}")
+    for gp in _unstack(groups, n):
+        x = step(x, gp)
+    return x
+
+
 def forward_train(cfg: ArchConfig, params, batch) -> torch.Tensor:
     """Token logits (B, S, vocab_padded) of the training forward; the
     VLM's S counts its ``frontend_len`` prefix."""
@@ -203,10 +239,14 @@ def forward_train(cfg: ArchConfig, params, batch) -> torch.Tensor:
     memory = (encode(cfg, params, batch["frames"]) if cfg.kind == "encdec"
               else None)
     pattern = cfg.group_kinds()
-    for gp in _unstack(params["groups"], cfg.n_groups):
+
+    def body(xc, gp):
         for pos, kinds in enumerate(pattern):
-            x = _apply_layer_train(cfg, kinds, gp[str(pos)], x, positions,
-                                   memory)
+            xc = _apply_layer_train(cfg, kinds, gp[str(pos)], xc, positions,
+                                    memory)
+        return xc
+
+    x = _scan_groups(cfg, params["groups"], cfg.n_groups, x, body)
     x = _norm(cfg, params["final_norm"], x)
     return _logits(cfg, params, x)
 
@@ -216,15 +256,34 @@ def encode(cfg: ArchConfig, params, frames) -> torch.Tensor:
     frame embeddings, cast to bf16 as the reference casts them."""
     x = frames.to(torch.bfloat16)
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
-    for gp in _unstack(params["enc_groups"], cfg.enc_layers):
+
+    def body(xc, gp):
         p = gp["0"]
-        h = _norm(cfg, p["norm1"], x)
-        x = x + attn.attention_train(
+        h = _norm(cfg, p["norm1"], xc)
+        xc = xc + attn.attention_train(
             _heads(cfg, p["attn"]), h, positions, n_heads=cfg.n_heads_padded,
             n_kv=cfg.n_kv_padded, head_dim=cfg.head_dim,
             rope_theta=cfg.rope_theta, causal=False, chunk=cfg.attn_chunk)
-        x = _apply_mlp(cfg, "dense", p, x)
+        return _apply_mlp(cfg, "dense", p, xc)
+
+    x = _scan_groups(cfg, params["enc_groups"], cfg.enc_layers, x, body)
     return _norm(cfg, params["enc_norm"], x)
+
+
+def loss_fn(cfg: ArchConfig, params, batch) -> torch.Tensor:
+    """Mean next-token cross-entropy in float32 (a 0-d tensor), padded-vocab
+    ids masked out, the VLM's prefix positions dropped: the reference's
+    ``loss_fn``."""
+    logits = forward_train(cfg, params, batch).to(torch.float32)
+    if cfg.family == "vlm" and "vision_embeds" in batch:
+        logits = logits[:, cfg.frontend_len:]
+    if cfg.vocab_padded > cfg.vocab:       # with none padded: the identity
+        vmask = torch.arange(cfg.vocab_padded, device=logits.device) \
+            < cfg.vocab
+        logits = torch.where(vmask, logits, NEG)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, batch["targets"].long()[..., None])[..., 0]
+    return torch.mean(logz - gold)
 
 
 # =============================================================== serving ====

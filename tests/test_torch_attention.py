@@ -5,7 +5,10 @@ cache, cross attention, padded heads) against the JAX package on the same
 numpy-seeded inputs.
 
 ``ops.flash_attention`` is held to JAX's ``mode="interpret"``, which runs
-the Pallas kernel's body, on every case of ``tests/test_flash_attention.py``.
+the Pallas kernel's body, on every case of ``tests/test_flash_attention.py``;
+its gradient (the plain version of B5-bwd) to ``jax.grad`` of the
+reference's ``chunked_attention``, and ``flash_attention_fwd``'s row
+log-sum-exp to JAX's ``logsumexp``.
 Tolerances are relative (max abs difference over max abs): 1e-5 in float32,
 8e-3 in bfloat16 (one bf16 ulp is ~0.4 %, and the two sides may round the
 float32 result to bf16 on either side of a boundary).
@@ -239,6 +242,82 @@ def test_flash_attention_keeps_empty_queries():
     q, k, v = T(qkv(2, 8, 4, 2, 64, dtype="float32"), "float32")
     out = ops.flash_attention(q[:, :0], k, v, causal=True)
     assert out.shape == (2, 0, 4, 64)
+
+
+# --- the gradient of flash_attention (B5-bwd's plain version) ----------
+
+GRAD_CASES = {
+    # (b, sq, h, k, hd, skv, causal): G = H / K is 1 or 4
+    "causal_g1": (2, 40, 4, 4, 64, None, True),
+    "causal_g4": (2, 40, 8, 2, 64, None, True),
+    "causal_ragged_g4_hd128": (1, 45, 4, 1, 128, None, True),
+    "causal_more_queries_g1": (1, 45, 2, 2, 64, 30, True),
+    "full_cross_g1": (2, 24, 4, 4, 64, 37, False),
+    "full_ragged_g4": (1, 33, 8, 2, 128, 45, False),
+}
+
+
+@pytest.mark.parametrize("case", sorted(GRAD_CASES))
+def test_flash_attention_grad_matches_reference(case):
+    """dq, dk, dv of ``ops.flash_attention`` (autograd on the CPU path)
+    against ``jax.grad`` of the reference's ``chunked_attention`` (what XLA
+    differentiates in the reference's models), float32, within 1e-5; and
+    ``ops.flash_attention_bwd`` returns the same gradients."""
+    import jax
+    b, sq, h, k, hd, skv, causal = GRAD_CASES[case]
+    skv = skv or sq
+    arrays = qkv(b, sq, h, k, hd, skv, seed=sum(map(ord, case)),
+                 dtype="float32")
+    do = np.random.default_rng(9).standard_normal((b, sq, h, hd)).astype(
+        np.float32)
+    pos_q, pos_k = jnp.arange(sq, dtype=jnp.int32), jnp.arange(
+        skv, dtype=jnp.int32)
+
+    def loss(q, k_, v):
+        out = jattn.chunked_attention(q, k_, v, pos_q, pos_k, causal=causal,
+                                      chunk=min(512, skv))
+        return jnp.sum(out * do)
+    want = jax.grad(loss, argnums=(0, 1, 2))(*J(arrays, "float32"))
+    q, kk, v = (t.requires_grad_(True) for t in T(arrays, "float32"))
+    out = ops.flash_attention(q, kk, v, causal=causal)
+    out.backward(torch.from_numpy(do))
+    for w, t in zip(want, (q, kk, v)):
+        assert rel_err(w, t.grad) < TOL["float32"]
+    tout, lse = ops.flash_attention_fwd(*(x.detach() for x in (q, kk, v)),
+                                        causal=causal)
+    assert torch.equal(tout, out.detach())
+    got = ops.flash_attention_bwd(*(x.detach() for x in (q, kk, v)), tout,
+                                  torch.from_numpy(do), lse, causal)
+    for g, t in zip(got, (q, kk, v)):
+        assert g.dtype == t.dtype and torch.equal(g, t.grad)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_fwd_lse_is_the_logsumexp(causal):
+    """The lse B5 writes for its backward: each query row's log-sum-exp
+    of its scaled, masked scores, against JAX's logsumexp."""
+    import jax
+    arrays = qkv(2, 30, 4, 2, 64, skv=30 if causal else 21, seed=3,
+                 dtype="float32")
+    q, k, _ = J(arrays, "float32")
+    s = jnp.einsum("bqkgd,bckd->bkgqc", q.reshape(2, 30, 2, 2, 64) / 8.0, k)
+    if causal:
+        s = jnp.where(jnp.arange(30)[:, None] >= jnp.arange(30)[None, :], s,
+                      -jnp.inf)
+    want = jax.nn.logsumexp(s, axis=-1).reshape(2, 4, 30)
+    _, lse = ops.flash_attention_fwd(*T(arrays, "float32"), causal=causal)
+    assert lse.shape == (2, 4, 30) and lse.dtype == torch.float32
+    np.testing.assert_allclose(lse.numpy(), np.asarray(want), rtol=0,
+                               atol=1e-5)
+
+
+def test_flash_attention_bwd_rejects_bad_inputs():
+    q, k, v = T(qkv(1, 16, 4, 2, 64, dtype="float32"), "float32")
+    out, lse = ops.flash_attention_fwd(q, k, v, causal=True)
+    with pytest.raises(ValueError):
+        ops.flash_attention_bwd(q, k, v, out[:, :8], out, lse, True)
+    with pytest.raises(ValueError):
+        ops.flash_attention_bwd(q, k, v, out, out.bfloat16(), lse, True)
 
 
 # --- flash_attention's kv_len against chunked_attention(kv_valid_len=) --

@@ -766,6 +766,101 @@ def test_cuda_one_rank_nccl_sharded_fit_matches_tile(tmp_path):
     assert launches["fused_move"] == launches["fused_split"] == 0
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", [
+    # (b, sq, h, k, hd, skv, causal)
+    (2, 512, 32, 4, 128, 512, True),          # Yi's heads, G = 8
+    (2, 300, 4, 4, 64, 200, False),           # ragged, cross, G = 1
+])
+def test_cuda_flash_attention_bwd_matches_plain_version(shape, dtype):
+    """B5-bwd against autograd through the plain version: dq, dk, dv
+    within 1e-4 (float32, TF32 off) / 2e-2 (bf16), relative; two
+    launches give the same bits."""
+    need_card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    b, sq, h, k, hd, skv, causal = shape
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    q, kk, v, do = (torch.randn(s, device="cuda", generator=gen).to(dtype)
+                    for s in ((b, sq, h, hd), (b, skv, k, hd),
+                              (b, skv, k, hd), (b, sq, h, hd)))
+    out, lse = ops.flash_attention_fwd(q, kk, v, causal)
+    ops.reset_launches()
+    got = ops.flash_attention_bwd(q, kk, v, out, do, lse, causal)
+    again = ops.flash_attention_bwd(q, kk, v, out, do, lse, causal)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["flash_attention_bwd"] == 2
+    want = ref.flash_attention_bwd_ref(q, kk, v, do, causal)
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    for g, a, w in zip(got, again, want):
+        assert g.dtype == dtype and torch.equal(g, a)
+        err = float((g.float() - w.float()).abs().max()
+                    / w.float().abs().max())
+        assert err < tol, err
+
+
+@pytest.mark.cuda
+def test_cuda_flash_attention_grad_goes_through_b5_bwd():
+    """Under grad on the card, ops.flash_attention is B5 with lse and its
+    backward B5-bwd: nonzero q, k and v gradients equal to the plain
+    version's; kv_len < Skv under grad raises."""
+    need_card()
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    q, kk, v = (torch.randn(s, device="cuda", generator=gen).bfloat16()
+                .requires_grad_(True)
+                for s in ((2, 256, 8, 64), (2, 256, 2, 64), (2, 256, 2, 64)))
+    do = torch.randn((2, 256, 8, 64), device="cuda", generator=gen).bfloat16()
+    ops.reset_launches()
+    out = ops.flash_attention(q, kk, v, causal=True)
+    out.backward(do)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["flash_attention"] == 1
+    assert ops.LAUNCHES["flash_attention_bwd"] == 1
+    want = ref.flash_attention_bwd_ref(q.detach(), kk.detach(), v.detach(),
+                                       do, True)
+    for t, w in zip((q, kk, v), want):
+        assert t.grad is not None and float(t.grad.float().abs().max()) > 0
+        err = float((t.grad.float() - w.float()).abs().max()
+                    / w.float().abs().max())
+        assert err < 2e-2, err
+    with pytest.raises(ValueError, match="kv_len"):
+        ops.flash_attention(q, kk, v, causal=False, kv_len=100)
+
+
+@pytest.mark.cuda
+def test_cuda_train_step_matches_cpu():
+    """One make_train_step step of reduced Yi-9B (hd 64) on the card
+    against the CPU in float32 (TF32 off): the loss within 1e-5, the
+    grad norm within 1e-4; B5 and B5-bwd launched once per layer."""
+    need_card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    import dataclasses
+    from repro_torch.configs import reduced_config
+    from repro_torch.data import SyntheticLMDataset
+    from repro_torch.models import transformer as T
+    from repro_torch.models.common import init_from_specs, map_specs
+    from repro_torch.train import steps as S
+    cfg = reduced_config("yi-9b")
+    specs = map_specs(lambda s: dataclasses.replace(s, dtype=torch.float32),
+                      T.model_specs(cfg))
+    cpu = init_from_specs(specs, 4, device="cpu")
+    host = SyntheticLMDataset(vocab=cfg.vocab, seq_len=64, global_batch=4,
+                              seed=4).next_batch()
+    step, *_ = S.make_train_step(cfg, None, "train_4k", donate=False)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        params = _tree_to(cpu, dev)
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in host.items()}
+        ops.reset_launches()
+        _, _, m = step(params, S.init_opt_state(cfg, params), batch, 10)
+        out[dev] = (float(m["loss"]), float(m["grad_norm"]))
+        if dev == "cuda":
+            assert ops.LAUNCHES["flash_attention"] == cfg.n_layers
+            assert ops.LAUNCHES["flash_attention_bwd"] == cfg.n_layers
+    (l0, g0), (l1, g1) = out["cpu"], out["cuda"]
+    assert abs(l1 - l0) <= 1e-5 * l0 and abs(g1 - g0) <= 1e-4 * g0
+
+
 def test_port_import_pulls_in_no_jax():
     """Importing the whole port loads neither JAX nor the JAX package."""
     code = ("import sys; import repro_torch.engine, repro_torch.core, "
@@ -778,7 +873,10 @@ def test_port_import_pulls_in_no_jax():
             "repro_torch.launch.mesh, repro_torch.core.distributed, "
             "repro_torch.core.baselines, repro_torch.core.metrics, "
             "repro_torch.configs, repro_torch.models.transformer, "
-            "repro_torch.models.convert, repro_torch.data.clustering; "
+            "repro_torch.models.convert, repro_torch.data.clustering, "
+            "repro_torch.data.pipeline, repro_torch.optim, "
+            "repro_torch.optim.compress, repro_torch.train, repro_torch.ft, "
+            "repro_torch.launch.train; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]; assert not bad, bad")
     subprocess.run([sys.executable, "-c", code], check=True, timeout=120,

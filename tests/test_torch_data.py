@@ -1,9 +1,12 @@
-"""PyTorch port, ``data.clustering`` and the community pipeline example
-against the JAX package.
+"""PyTorch port, ``data.clustering``, ``data.pipeline`` and the community
+pipeline and LM training examples against the JAX package.
 
 The document graph is built on the host by the same numpy code, and the
 detection is the port's GSL-LPA, which equals the reference label for
-label; so the labels and the batches must be equal exactly.
+label; so the labels and the batches must be equal exactly.  The
+synthetic LM stream is the same numpy code too: its tokens must be equal
+bit for bit for every (seed, host, host count, step), restored state
+included.
 """
 import os
 import subprocess
@@ -16,7 +19,9 @@ import pytest
 torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
 
+from repro.data import SyntheticLMDataset as JData  # noqa: E402
 from repro.data import clustering as jclust  # noqa: E402
+from repro_torch.data import SyntheticLMDataset as TData  # noqa: E402
 from repro_torch.data import clustering as tclust  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -95,3 +100,56 @@ def test_community_pipeline_example_runs_on_cpu():
     assert "gsl_lpa == Engine: OK" in out
     assert "disconnected=0.0%" in out
     assert "documents: 24 in 4 communities, 4 locality batches" in out
+
+
+# --- the synthetic LM stream (data.pipeline) ----------------------------
+
+@pytest.mark.parametrize("host_count", [1, 4])
+@pytest.mark.parametrize("seed", [0, 1, 12345])
+def test_synthetic_lm_dataset_bit_identical(seed, host_count):
+    """Every host's batches over 3 steps, then a restore of step 1's
+    state on a fresh stream replays step 1 on."""
+    kw = dict(vocab=1000, seq_len=33, global_batch=8, seed=seed,
+              host_count=host_count)
+    for host in range(host_count):
+        j, t = JData(host_index=host, **kw), TData(host_index=host, **kw)
+        assert t.host_batch == j.host_batch == 8 // host_count
+        states = []
+        for _ in range(3):
+            states.append(t.state())
+            assert t.state() == j.state()
+            jb, tb = j.next_batch(), t.next_batch()
+            assert sorted(tb) == ["targets", "tokens"]
+            for k in tb:
+                assert tb[k].dtype == jb[k].dtype
+                np.testing.assert_array_equal(tb[k], jb[k])
+        again = TData(host_index=host, **kw)
+        again.restore(states[1])
+        ref = JData(host_index=host, **kw)
+        ref.restore(states[1])
+        np.testing.assert_array_equal(again.next_batch()["tokens"],
+                                      ref.next_batch()["tokens"])
+
+
+def test_synthetic_lm_dataset_small_vocab_and_bad_host_count():
+    """A vocab below n_topics * 16 (topic blocks clipped), and a global
+    batch the hosts do not divide."""
+    kw = dict(vocab=100, seq_len=16, global_batch=4, seed=3, step=5)
+    np.testing.assert_array_equal(TData(**kw).next_batch()["tokens"],
+                                  JData(**kw).next_batch()["tokens"])
+    with pytest.raises(AssertionError):
+        TData(vocab=100, seq_len=16, global_batch=6, host_count=4)
+
+
+def test_train_lm_example_runs_on_cpu():
+    """examples/train_lm_torch.py for a few steps on the CPU."""
+    proc = subprocess.run(
+        [sys.executable, str(ROOT / "examples" / "train_lm_torch.py"),
+         "--steps", "3", "--seq-len", "32", "--global-batch", "2",
+         "--device", "cpu"], capture_output=True, text=True, timeout=300,
+        env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    out = proc.stdout
+    assert "config: 8L d=768 params=" in out
+    assert "[train] done: 3 steps" in out
+    assert "loss: " in out and "over 3 steps" in out

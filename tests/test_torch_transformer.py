@@ -229,13 +229,19 @@ def test_init_decode_caches_match_reference(name):
 
 
 def test_unported_names_each_roadmap_item():
-    """Every family is ported: what stays unported is B5's (Queue B), on
-    CUDA only."""
+    """Every family is ported and trains on one device: what stays
+    unported is B5's (Queue B), on CUDA only, and a training mesh of more
+    than one device (parallel/, A15.3)."""
     assert set(UNPORTED) == {
         "sliding-window attention on CUDA", "int8 KV cache on CUDA",
-        "attention head dims other than 64 and 128 on CUDA"}
+        "attention head dims other than 64 and 128 on CUDA",
+        "parallel/ (ZeRO-1, tensor parallel)"}
     for k, item in UNPORTED.items():
-        assert "A15.3" not in item and "Queue B" in item and "CUDA" in k, k
+        if k.startswith("parallel/"):
+            assert "A15.3" in item and "Queue A" in item, k
+        else:
+            assert "A15.3" not in item and "Queue B" in item \
+                and "CUDA" in k, k
 
 
 def test_serve_runs_on_cpu_and_is_greedy():
