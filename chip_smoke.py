@@ -240,7 +240,9 @@ Phases, one JSON line each:
            with lse bit-equal to B5 without it, its lse within 1e-5 of
            the plain logsumexp and its output within 8e-3, both timed
            beside their bounds, plain versions and SDPA (the kernels
-           line's B5-bwd row).  Then B5-bwd (ops.flash_attention_bwd)
+           line's B5-bwd row); B5-bwd's ms per launch (delta, main
+           pass, dQ cast), each launched alone, CUDA events.  Then B5-bwd
+           (ops.flash_attention_bwd)
            against its plain version (autograd through the chunked
            oracle) for dq, dk and dv, in float32 (TF32 off, 1e-4) and
            bf16 (2e-2), max abs difference over max abs: Yi-9B's
@@ -248,7 +250,10 @@ Phases, one JSON line each:
            128) and (4, 512, 32 / 4, 128) causal, hd 64 at 16 / 16 heads
            (S=512 causal, 32 encoder rows, 512 over a 32-row memory),
            G = 6 (4, 1536, 48 / 8, 128) causal, ragged (300 causal; 300
-           over 200); two launches bit-equal; B5 with lse gives B5's bits
+           over 200), the bf16 tiles' edges (129 and 191 causal at 16 / 2
+           heads, 200 queries over 130 keys causal, one key at hd 64);
+           two launches bit-equal in each; two shapes back to back, the
+           first's bits again after the second; B5 with lse gives B5's bits
            and an lse within 1e-5 of the plain logsumexp; timed at Yi's
            and the (4, 512) shape beside its bound and SDPA's backward.
            (b) One make_train_step step of Yi-9B at full width and 2
@@ -269,7 +274,8 @@ Phases, one JSON line each:
            B, N the product parameters) and its share of 989, peak
            bytes; one more step under torch.profiler (device busy and
            idle share, device ms of the products, B5, B5-bwd and the
-           elementwise rest).  (d) tests/test_train_loop.py's runs at
+           elementwise rest, and B5-bwd's per launch: delta, main pass,
+           dQ cast).  (d) tests/test_train_loop.py's runs at
            reduced_config("yi-9b") on the card: the loss falls by 0.5 in
            30 steps; 8 steps straight and 4 + save + resume + 4 end on
            bit-equal parameters.
@@ -289,9 +295,10 @@ Phases, one JSON line each:
            plan-cache hit, both equal to main's labels.  Plan builds per
            bin, the excess count and the walls in one line.
 
-The build fails the run if ptxas reports a spill in the flash kernel or
-in any instance of min_label or fused_split, or serialised wgmma in the
-flash kernel.
+The build fails the run if ptxas reports a spill in the flash kernel
+(flash_wgmma<64|128>), in B5-bwd's bf16 main pass (bwd_wgmma<64|128>) or
+in any instance of min_label or fused_split, or serialised wgmma in
+either of the first two.
 
 Then the kernels summary line, the nvidia-smi line, and the result line.
 Any failure raises: the exit code is then non-zero and no result prints.
@@ -318,6 +325,8 @@ FLASH_MAIN = {"b": 1, "s": 4096, "h": 32, "k": 4, "hd": 128}
 # More timed calls at that width: (S, causal).
 FLASH_TIMED = ((4096, False), (16384, True))
 FLASH_KERNELS = ("flash_wgmma<64>", "flash_wgmma<128>")
+# B5-bwd's bf16 main pass, held to the same gate as FLASH_KERNELS.
+BWD_KERNELS = ("bwd_wgmma<64>", "bwd_wgmma<128>")
 # The lm phase: Yi-9B served at full width and depth from random weights
 # (seed LM_SEED); (b) runs LM_CPU's cut on the card and on the CPU.
 LM_ARCH = "yi-9b"
@@ -2618,9 +2627,12 @@ def _qkv(torch, gen, b, sq, h, k, hd, skv, dtype):
 
 
 def _rel(got, want) -> tuple[float, float]:
-    """(max abs difference, that over max abs of the plain version)."""
+    """(max abs difference, that over max abs of the plain version); the
+    difference itself where the plain version is all zeros (B5-bwd's dq
+    and dk over one key, where softmax has no gradient)."""
     diff = float((got.float() - want.float()).abs().max())
-    return diff, diff / float(want.float().abs().max())
+    scale = float(want.float().abs().max())
+    return diff, (diff / scale if scale > 0 else diff)
 
 
 def phase_flash(torch, rt, dev):
@@ -3500,7 +3512,9 @@ def _leaves(tree):
 # attention at S=4096 and at train_4k's per-sequence cut (4 x 512),
 # seamless' hd 64 (16 / 16 heads: decoder, encoder over 32 frames, cross
 # attention over them), internvl2's G = 6 over its 1,024-row prefix + 512,
-# and ragged lengths.
+# and ragged lengths; then the bf16 kernel's tile edges (64 query rows,
+# 128 keys): a partial last query and KV tile at G = 8 (129, 191), causal
+# with more queries than keys, one key.
 TRAIN_BWD_CASES = ((1, 4096, 32, 4, 128, 4096, True),
                    (4, 512, 32, 4, 128, 512, True),
                    (4, 512, 16, 16, 64, 512, True),
@@ -3508,7 +3522,11 @@ TRAIN_BWD_CASES = ((1, 4096, 32, 4, 128, 4096, True),
                    (4, 512, 16, 16, 64, 32, False),
                    (4, 1536, 48, 8, 128, 1536, True),
                    (2, 300, 8, 2, 128, 300, True),
-                   (2, 300, 4, 4, 64, 200, False))
+                   (2, 300, 4, 4, 64, 200, False),
+                   (2, 129, 16, 2, 128, 129, True),
+                   (2, 191, 16, 2, 128, 191, True),
+                   (2, 200, 8, 2, 128, 130, True),
+                   (2, 100, 8, 2, 64, 1, False))
 TRAIN_BWD_TIMED = (0, 1)       # the cases timed, indices of the above
 # The trainer's (c) own call, the one each of its steps gives B5 and B5-bwd
 # once per layer: q (4, 4096, 32, 128) over k / v (4, 4096, 4, 128), in
@@ -3533,8 +3551,8 @@ def _bwd_work(b, sq, h, k, hd, skv, causal, elem):
 
 
 def _train_bwd_case(torch, rt, gen, case, dtype, timed=False):
-    """One B5-bwd case: against its plain version, (timed) beside its
-    bound, the plain version and SDPA's backward."""
+    """One B5-bwd case: against its plain version, two launches bit-equal,
+    (timed) beside its bound, the plain version and SDPA's backward."""
     ops, ref = rt.ops, rt.ref
     b, sq, h, k, hd, skv, causal = case
     q, kk, v = _qkv(torch, gen, b, sq, h, k, hd, skv, dtype)
@@ -3552,13 +3570,14 @@ def _train_bwd_case(torch, rt, gen, case, dtype, timed=False):
         check(rel <= TRAIN_BWD_TOL[name], f"B5-bwd {label} disagrees with "
               f"its plain version at {row}: rel {rel}")
         row[f"{label}_max_abs_err"], row[f"{label}_rel_err"] = abs_err, rel
-    if not timed:
-        return row
+    del want
     again = ops.flash_attention_bwd(q, kk, v, out, do, lse, causal)
     check(all(torch.equal(x, y) for x, y in zip(got, again)),
           f"two B5-bwd launches differ at {row}")
     row["repeat_bit_equal"] = True
-    del got, want, again
+    del got, again
+    if not timed:
+        return row
     row["ms"] = _time_ms(torch, lambda: ops.flash_attention_bwd(
         q, kk, v, out, do, lse, causal), reps=10, warmup=2)
     row["plain_ms"] = _time_ms(torch, lambda: ref.flash_attention_bwd_ref(
@@ -3586,6 +3605,27 @@ def _train_bwd_case(torch, rt, gen, case, dtype, timed=False):
                 "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
                 "achieved_TFLOPs": operations / (row["ms"] * 1e-3) / 1e12})
     return row
+
+
+def _bwd_back_to_back(torch, rt, gen):
+    """Two bf16 shapes back to back, then the first again: its bits are
+    the first call's, so the tickets and the workspace carry nothing from
+    one call to the next."""
+    ops = rt.ops
+    shapes = (TRAIN_BWD_CASES[9], TRAIN_BWD_CASES[1])
+    inputs = []
+    for b, sq, h, k, hd, skv, causal in shapes:
+        q, kk, v = _qkv(torch, gen, b, sq, h, k, hd, skv, torch.bfloat16)
+        do = torch.randn(q.shape, device=gen.device,
+                         generator=gen).bfloat16()
+        out, lse = ops.flash_attention_fwd(q, kk, v, causal)
+        inputs.append((q, kk, v, out, do, lse, causal))
+    first = ops.flash_attention_bwd(*inputs[0])
+    ops.flash_attention_bwd(*inputs[1])
+    again = ops.flash_attention_bwd(*inputs[0])
+    check(all(torch.equal(x, y) for x, y in zip(first, again)),
+          "B5-bwd: a call after another shape changes the bits")
+    return {"shapes": [list(c[:6]) for c in shapes], "bit_equal": True}
 
 
 def _train_lse(torch, rt, gen, case, dtype, timed=False):
@@ -3641,10 +3681,11 @@ def _train_lse(torch, rt, gen, case, dtype, timed=False):
 
 def _train_kernels(torch, rt, dev):
     """(a) At the trainer's call (TRAIN_BWD_MAIN, bf16): B5-bwd against
-    its plain version, two launches bit-equal, timed; B5 with lse against
-    B5 without it and the plain logsumexp, timed.  Then B5-bwd on every
-    case in float32 (TF32 off) and bf16, timed at TRAIN_BWD_TIMED in bf16;
-    B5's lse."""
+    its plain version, two launches bit-equal, timed, with its device time
+    per launch; B5 with lse against B5 without it and the plain
+    logsumexp, timed.  Then B5-bwd on every case in float32 (TF32 off) and
+    bf16, two launches bit-equal in each, timed at TRAIN_BWD_TIMED in
+    bf16; two shapes back to back; B5's lse."""
     gen = torch.Generator(device=dev).manual_seed(29)
     main = {"bwd": _train_bwd_case(torch, rt, gen, TRAIN_BWD_MAIN,
                                    torch.bfloat16, timed=True)}
@@ -3663,6 +3704,7 @@ def _train_kernels(torch, rt, dev):
            _train_lse(torch, rt, gen, TRAIN_BWD_CASES[6], torch.float32),
            _train_lse(torch, rt, gen, TRAIN_BWD_CASES[7], torch.bfloat16)]
     return {"main": main, "cases": cases, "lse": lse,
+            "back_to_back": _bwd_back_to_back(torch, rt, gen),
             "tolerance_rel": TRAIN_BWD_TOL,
             "lse_tolerance_abs": TRAIN_LSE_TOL,
             "timed": [c for c in cases if "ms" in c]}
@@ -3815,10 +3857,13 @@ def _product_params(params) -> int:
     return n
 
 
+# B5-bwd's bf16 launches -> the fragment of their kernels' names.
+BWD_LAUNCH_BINS = (("delta", "delta_kernel"), ("main", "bwd_wgmma"),
+                   ("dq_cast", "dq_cast"))
 # Kernel-name fragments -> the training layer a traced step's device time
 # is binned under; the rest is elementwise work: norms, RoPE, SwiGLU, the
 # loss over the logits, AdamW, casts and copies.
-TRAIN_KERNEL_BINS = (("B5-bwd", ("dkdv_mma", "dq_mma", "delta_kernel")),
+TRAIN_KERNEL_BINS = (("B5-bwd", tuple(f for _, f in BWD_LAUNCH_BINS)),
                      ("B5", ("flash_wgmma",)),
                      ("products (cuBLAS)", ("gemm", "nvjet", "xmma",
                                             "cutlass")))
@@ -3828,7 +3873,9 @@ def _train_traced_step(torch, cfg, params, opt_state, dev):
     """One more train step (donated, the run's state) under torch.profiler
     (device activity): its wall, the device's busy time (union of its
     events) and idle share, device milliseconds per TRAIN_KERNEL_BINS
-    layer and the top kernels."""
+    layer, B5-bwd's per launch (BWD_LAUNCH_BINS: delta, the main pass,
+    dQ's cast; the mean over the step's calls, each the trainer's own)
+    and the top kernels."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.data import SyntheticLMDataset
     from repro_torch.train import steps as S
@@ -3853,10 +3900,18 @@ def _train_traced_step(torch, cfg, params, opt_state, dev):
         name = next((b for b, frags in TRAIN_KERNEL_BINS
                      if any(f in e.key for f in frags)), "elementwise")
         bins[name] = bins.get(name, 0.0) + e.self_device_time_total / 1e3
+    by_launch = {}
+    for n, frag in BWD_LAUNCH_BINS:
+        hits = [e for e in timed if frag in e.key]
+        calls = sum(e.count for e in hits)
+        check(calls == TRAIN_LAYERS, f"train: the traced step shows "
+              f"{calls} B5-bwd {n} launches, want {TRAIN_LAYERS}")
+        by_launch[n] = sum(e.self_device_time_total for e in hits) \
+            / 1e3 / calls
     top = sorted(timed, key=lambda e: -e.self_device_time_total)[:8]
     return {"wall_s": wall, "device_busy_s": busy,
             "device_idle_share": 1 - busy / wall, "device_events": events,
-            "device_ms_by_layer": bins,
+            "device_ms_by_layer": bins, "b5_bwd_ms_by_launch": by_launch,
             "top_device_ops_ms": [[e.key[:60], e.self_device_time_total
                                    / 1e3, e.count] for e in top]}
 
@@ -4107,8 +4162,9 @@ def main(argv=None) -> int:
     resources = build.BUILD_INFO["resources"]
     # every instance of the split kernels (min_label_narrow<4>, ...)
     no_spill = [n for n in resources
-                if n in FLASH_KERNELS or n.startswith(SPLIT_KERNELS)]
-    for prefix in (*FLASH_KERNELS, *SPLIT_KERNELS):
+                if n in FLASH_KERNELS + BWD_KERNELS
+                or n.startswith(SPLIT_KERNELS)]
+    for prefix in (*FLASH_KERNELS, *BWD_KERNELS, *SPLIT_KERNELS):
         check(any(n.startswith(prefix) for n in no_spill),
               f"ptxas reports no entry for {prefix}")
     for name in no_spill:
@@ -4292,7 +4348,8 @@ def main(argv=None) -> int:
                        "causal; library_ms: SDPA's backward",
         "max_abs_err": max(tk[f"{x}_max_abs_err"] for x in ("dq", "dk",
                                                             "dv")),
-        **{k: tk[k] for k in keys}})
+        "ms_by_launch": train["trainer"]["traced_step"][
+            "b5_bwd_ms_by_launch"], **{k: tk[k] for k in keys}})
     emit({"kernels": rows})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -25,7 +25,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("label_argmax.cu", "min_label.cu", "fused_move.cu",
            "fused_split.cu", "flash_attention.cu", "flash_attention_bwd.cu")
-HEADERS = ("lpa_common.cuh",)
+HEADERS = ("lpa_common.cuh", "hopper_common.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 LIB_NAME = "liblpa_kernels.so"
@@ -43,10 +43,10 @@ SIGNATURES = {
     # rows, hd, causal, dtype code; stream
     "attn_flash_attention": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                              _I, _I, _P),
-    # q, k, v, out, dout, lse, delta (scratch), dq, dk, dv; B, H, K, Sq,
-    # Skv, hd, causal, dtype code; stream
-    "attn_flash_attention_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
-                                 _I, _I, _I, _I, _I, _I, _I, _P),
+    # q, k, v, out, dout, lse, stats, dq workspace, tickets (scratch), dq,
+    # dk, dv; B, H, K, Sq, Skv, hd, causal, dtype code; stream
+    "attn_flash_attention_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                 _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
 }
 
 _LIB: ctypes.CDLL | None = None
@@ -94,8 +94,8 @@ _SERIALIZED = re.compile(r"wgmma\.mma_async instructions are serialized "
 _KERNELS = ("label_argmax_narrow", "label_argmax_wide", "label_argmax",
             "min_label_narrow", "min_label_wide", "fused_move_narrow",
             "fused_move_wide", "fused_move", "fused_split_narrow",
-            "fused_split_wide", "flash_wgmma", "flash_fma", "dkdv_mma",
-            "dq_mma", "dkdv_fma", "dq_fma", "delta")
+            "fused_split_wide", "flash_wgmma", "flash_fma", "bwd_wgmma",
+            "dq_cast", "dkdv_fma", "dq_fma", "delta")
 
 
 def _kernel_name(mangled: str) -> str:

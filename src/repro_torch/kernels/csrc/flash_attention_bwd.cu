@@ -10,41 +10,80 @@
 // Bound on the card: tensor-core FLOPs.  A causal square call does
 // 10*B*H*hd*S(S+1)/2 operations (S = Q K^T and dP = dO V^T recomputed,
 // dV += P^T dO, dK += dS^T Q, dQ += dS K) on 2*(4*B*S*H*hd + 4*B*S*K*hd)
-// bytes of bf16 plus the float32 statistics; at Yi-9B's attention (H=32,
-// K=4, hd=128) and S=4096 that is 3.44e11 operations against 0.16 GB, 0.35
-// ms at 989 TFLOP/s against 0.05 ms at 3.35 TB/s.
+// bytes of bf16 plus the float32 statistics; at the trainer's call (B=4,
+// S=4096, H=32, K=4, hd=128) that is 1.375e12 operations against 0.61 GB,
+// 1.39 ms at 989 TFLOP/s against 0.18 ms at 3.35 TB/s.
 //
 // Semantics: positions count from 0 on both sides, key j is visible to
 // query i when j < Skv and (not causal or j <= i), scale = 1/sqrt(hd), as
 // in B5.  With P = exp(scale * q.k - lse) and delta = rowsum(dO o O):
 //   dV = P^T dO,  dS = P o (dO V^T - delta),  dK = scale dS^T Q,
 //   dQ = scale dS K.
-// Three launches, no atomics, a fixed order of every sum, so two calls
-// give the same bits:
-//  * delta: one warp per (batch, query, head) row, float32.
-//  * dK / dV: one block per (KV tile of 64 keys, KV head, batch).  K and V
-//    stay in shared memory; the block walks the G = H / K query heads of
-//    its KV head and, for each, the query tiles from the causal diagonal
-//    on, accumulating dK and dV in float32 registers.  GQA's sum over the
-//    G heads happens inside the block.
-//  * dQ: one block per (query tile of 64 rows, head, batch), walking the
-//    KV tiles up to the diagonal, dQ in float32 registers.
-//  * bf16: mma.sync m16n8k16 with float32 accumulators, four warps of 16
-//    rows each (keys in dK / dV, queries in dQ); operands come from
-//    shared memory through ldmatrix (rows padded by 16 bytes, so the eight
-//    rows of a matrix fall in distinct banks), and P and dS go from the
-//    accumulators straight into the A fragments of the next product.  No
-//    pipelining: loads and products alternate behind __syncthreads.
+// No atomic sums and a fixed order of every sum, so two calls give the
+// same bits.
+//  * bf16: three launches.
+//    1. delta: hd / 8 threads per (batch, query, head) row, float32; it
+//       also writes lse * log2(e) beside delta, both padded to whole
+//       64-row query tiles with zeros.
+//    2. The main pass, a Hopper kernel (sm_90a), computes dK, dV and dQ
+//       together: 5 products per (KV tile, query tile) pair, where a
+//       two-kernel design recomputes S and dP for dQ (7).  A work item is
+//       (KV tile of 128 keys, KV head, batch): K and V stay in shared
+//       memory (one TMA load), and the item walks the G = H / K query
+//       heads of its KV head and, under causal, the query tiles from the
+//       diagonal on, last tile first and the G heads innermost, so GQA's
+//       sum over the G heads stays inside the item.  A producer warp
+//       streams 64-row Q and dO tiles (TMA, the 4-D maps of B5, which
+//       zero-fill rows past Sq) and their lse / delta (bulk copies) into
+//       a two-stage mbarrier ring.  Two consumer warpgroups (setmaxnreg
+//       240) own 64 keys each: S^T = K Q^T and dP^T = V dO^T are wgmma
+//       m64n64k16 from shared memory, committed apart so that P^T is built
+//       while dP^T runs; P^T and dS^T are built in the accumulators, which
+//       packed to bf16 already are the A fragments of dV += P^T dO (run
+//       while dS^T is built) and dK += dS^T Q (wgmma with A in registers,
+//       dO / Q as MN-major B operands).  dS^T goes to shared memory
+//       (128-byte swizzle, one 128-byte row per key), and after a barrier
+//       of the two warpgroups each computes dQ's partial dS K for half of
+//       the head dims (A = dS MN-major, B = K MN-major, over the item's
+//       128 keys) into one of two float32 staging tiles.
+//       dQ's partials meet in a float32 workspace (B, H, query tiles, 64 x
+//       hd, in the accumulators' fragment order) in ascending KV-tile
+//       order: a writer warp copies each partial with one bulk store (KV
+//       tile 0, so the workspace needs no memset) or one bulk float32 add,
+//       after a per-(batch, head, query tile) ticket in global memory says
+//       that the items of every lower KV tile have added theirs, and
+//       releases the ticket once its own add has completed (acquire /
+//       release at gpu scope).  A persistent grid of one block per SM
+//       takes items from a counter in the order of Item (four passes over
+//       the KV tiles, group by group inside a pass), in which a group's
+//       KV tiles ascend, so every item waited on is held by a running
+//       block; the counter only schedules, and every sum keeps its order.
+//    3. A last pass casts the workspace, scaled, to dQ's (B, Sq, H, hd).
+//    What bounds it on the card: the tensor cores, as far as the small
+//    (m64n64) products and the per-step barrier of the two warpgroups let
+//    them run (at the trainer's call ~45 % of 989 TFLOP/s); the
+//    workspace's 4.4 GB of L2 adds cost ~0.15 ms more once the items that
+//    share a tile run together.  The threads' shared-memory writes read by
+//    wgmma or a bulk copy are fenced for shared memory only: a fence over
+//    every state space waited on the bulk adds in flight and slowed the
+//    products by half.
 //  * f32: FMA on the CUDA cores (TF32 would miss the float32 oracle), a
 //    16 x 16 thread grid with 4 rows x hd/16 columns each; q is scaled as
 //    it is loaded, as in B5's float32 kernel, so the product by the
-//    scaled Q already carries dK's scale.
+//    scaled Q already carries dK's scale.  Three launches: delta, dK / dV
+//    (one block per 64 keys of a KV head and batch, walking its G query
+//    heads), dQ (one block per 64 query rows).
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "hopper_common.cuh"
+
 namespace {
+
+using namespace hopper;
 
 constexpr int kDtypeF32 = 0;
 constexpr int kDtypeBF16 = 1;
@@ -55,6 +94,9 @@ struct Shape {
   int B, Sq, Skv, H, K, group;  // group = H / K
   int causal;
   float scale;                  // 1 / sqrt(hd)
+  int n_qt;                     // bf16: query tiles of kBM rows
+  int n_items;                  // bf16: (KV tile, KV head, batch) items
+  int n_kv;                     // bf16: KV tiles of kBN keys
 };
 
 __device__ __forceinline__ bool visible(int key, int row, const Shape& s) {
@@ -68,391 +110,485 @@ __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
 
 // ----------------------------------------------------------------- delta
 
-// delta[b, h, i] = sum_d dO[b, i, h, d] * O[b, i, h, d], one warp a row;
-// rows are (b, i, h) in memory order.
+// delta[b, h, i] = sum_d dO[b, i, h, d] * O[b, i, h, d]: hd / V threads a
+// row (V elements = 16 bytes each); rows are (b, i, h) in memory order,
+// i < sq_pad (>= Sq), and rows at or past Sq are 0.  Given lse2, it also
+// takes lse * log2(e) (0 past Sq).  delta and lse2 are (B, H, sq_pad).
 template <typename T>
 __global__ void __launch_bounds__(256) delta_kernel(
     const T* __restrict__ o, const T* __restrict__ dout,
-    float* __restrict__ delta, long long rows, int hd, Shape s) {
-  const long long r = (long long)blockIdx.x * 8 + threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  if (r >= rows) return;
+    const float* __restrict__ lse, float* __restrict__ delta,
+    float* __restrict__ lse2, long long rows, int hd, int sq_pad, Shape s) {
+  constexpr int V = 16 / sizeof(T);
+  const int per_row = hd / V;              // 8, 16 or 32 threads
+  const long long r =
+      ((long long)blockIdx.x * 256 + threadIdx.x) / per_row;
+  const int part = threadIdx.x % per_row;
+  const int h = (int)(r % s.H);
+  const long long bi = r / s.H;          // b * sq_pad + i
+  const long long b = bi / sq_pad, i = bi % sq_pad;
   float acc = 0.f;
-  for (int d = lane; d < hd; d += 32)
-    acc = fmaf(to_f32(o[r * hd + d]), to_f32(dout[r * hd + d]), acc);
+  if (r < rows && i < s.Sq) {
+    const long long src = ((b * s.Sq + i) * s.H + h) * hd + part * V;
+    const uint4 ov = *reinterpret_cast<const uint4*>(o + src);
+    const uint4 dv = *reinterpret_cast<const uint4*>(dout + src);
+    const T* op = reinterpret_cast<const T*>(&ov);
+    const T* dp = reinterpret_cast<const T*>(&dv);
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
+    for (int x = 0; x < V; ++x) acc = fmaf(to_f32(op[x]), to_f32(dp[x]), acc);
+  }
+  for (int off = per_row / 2; off > 0; off >>= 1)
     acc += __shfl_xor_sync(kFull, acc, off);
-  if (lane == 0) {
-    const int h = (int)(r % s.H);
-    const long long bi = r / s.H;          // b * Sq + i
-    const long long b = bi / s.Sq, i = bi % s.Sq;
-    delta[(b * s.H + h) * s.Sq + i] = acc;
+  if (r < rows && part == 0) {
+    const long long row = b * s.H + h;
+    delta[row * sq_pad + i] = acc;
+    if (lse2 != nullptr)
+      lse2[row * sq_pad + i] = i < s.Sq ? lse[row * s.Sq + i] * kLog2e : 0.f;
   }
 }
 
 // ------------------------------------------------------------------ bf16
 
-constexpr int kRows = 64;      // keys (dK / dV) or queries (dQ) per block
-constexpr int kThreads = 128;  // four warps of 16 rows
+constexpr int kBM = 64;            // query rows per step
+constexpr int kBN = 128;           // keys per item, 64 per consumer warpgroup
+constexpr int kStages = 2;         // Q / dO tiles in the ring
+constexpr int kThreads = 384;      // producer warpgroup + 2 consumer ones
+constexpr int kConsumerWarps = 8;
+constexpr int kQBox = kBoxCols * 2 * kBM;    // one 64-row box, 8 KB
+constexpr int kKVBox = kBoxCols * 2 * kBN;   // one 128-row box, 16 KB
+constexpr int kDSBytes = kBN * kBM * 2;      // dS^T: 128 keys x 64 queries
+constexpr int kDQBufs = 2;         // dQ staging tiles
+// Items are handed out in kPasses passes over the KV tiles, each pass
+// group-major: see Item.
+constexpr int kPasses = 4;
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+// Shared memory from a 1024-byte aligned base (the 128-byte swizzle's
+// period): K, V (HD / 64 boxes each), the ring's Q and dO per stage, two
+// dS^T buffers, the float32 dQ staging tiles, each stage's lse2 and delta
+// (64 floats each), the mbarriers kv_full, full[kStages], empty[kStages],
+// dq_full[kDQBufs], dq_empty[kDQBufs], and the item slot.
+template <int HD>
+struct Smem {
+  static constexpr int kKV = HD * 2 * kBN;
+  static constexpr int kQT = HD * 2 * kBM;
+  static constexpr int kDQ = kBM * HD * 4;
+  static constexpr int k = 0;
+  static constexpr int v = kKV;
+  static constexpr int ring = 2 * kKV;   // stage s: Q at + 2 kQT s, dO + kQT
+  static constexpr int ds = ring + 2 * kStages * kQT;
+  static constexpr int dq = ds + 2 * kDSBytes;
+  static constexpr int stats = dq + kDQBufs * kDQ;  // lse2 + 512 s, delta + 256
+  static constexpr int bars = stats + 512 * kStages;
+  static constexpr int item = bars + 8 * (1 + 2 * kStages + 2 * kDQBufs);
+  static constexpr size_t bytes = item + 16 + 1024;  // + alignment
+};
+
+__device__ __forceinline__ void consumers_sync() {
+  asm volatile("bar.sync 1, 256;\n" ::: "memory");
 }
 
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
+__device__ __forceinline__ void st_shared(uint32_t addr, uint32_t v) {
+  asm volatile("st.shared.b32 [%0], %1;\n" :: "r"(addr), "r"(v) : "memory");
 }
 
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
+__device__ __forceinline__ int ld_acquire(const int* p) {
+  int v;
+  asm volatile("ld.acquire.gpu.global.b32 %0, [%1];\n"
+               : "=r"(v) : "l"(p) : "memory");
+  return v;
 }
 
-// d (16 x 8, f32) += A (16 x 16) B (16 x 8), bf16 fragments.
-__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
-                                    uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+__device__ __forceinline__ void red_release_add(int* p, int v) {
+  asm volatile("red.release.gpu.global.add.s32 [%0], %1;\n"
+               :: "l"(p), "r"(v) : "memory");
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 x = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&x);
-}
-
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// Fragment addresses in a row-major shared tile of row stride LD (bf16
-// elements).  frag_a: the A operand of rows r0..r0+15 and k columns
-// c0..c0+15 (ldsm_x4), and equally the B operands of two n-tiles from a
-// tile stored [k][n] (ldsm_x4_t: k rows r0.., n columns c0..c0+15).
-// frag_b: the B operands of two n-tiles from a tile stored [n][k]
-// (ldsm_x4: n rows n0..n0+15, k columns k0..k0+15).
-template <int LD>
-__device__ __forceinline__ uint32_t frag_a(uint32_t base, int r0, int c0,
-                                           int lane) {
-  return base + ((r0 + (lane & 15)) * LD + c0 + (lane >> 4) * 8) * 2;
-}
-template <int LD>
-__device__ __forceinline__ uint32_t frag_b(uint32_t base, int n0, int k0,
-                                           int lane) {
-  return base +
-         ((n0 + (lane >> 4) * 8 + (lane & 7)) * LD + k0 + ((lane >> 3) & 1) * 8) * 2;
-}
-
-// rows row0..row0+n_rows-1 of a (rows, stride) bf16 matrix into a shared
-// tile of row stride LD, 16 bytes a thread; rows at or past `limit` as 0.
-template <int HD, int LD>
-__device__ __forceinline__ void load_rows(uint16_t* dst,
-                                          const uint16_t* __restrict__ src,
-                                          int row0, int n_rows, int limit,
-                                          long long stride) {
-  constexpr int kChunks = HD / 8;
-  for (int i = threadIdx.x; i < n_rows * kChunks; i += kThreads) {
-    const int r = i / kChunks, c = (i % kChunks) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < limit)
-      val = *reinterpret_cast<const uint4*>(src + (row0 + r) * stride + c);
-    *reinterpret_cast<uint4*>(dst + r * LD + c) = val;
+// The item's place.  Items go out in kPasses passes over the KV tiles
+// (pass x: tiles x * per .. x * per + per - 1), and inside a pass group by
+// group ((batch, KV head) outermost, KV tile ascending), so the items that
+// add into a workspace tile mostly run together and find it in L2, while
+// the longest (lowest) KV tiles still go first.  A group's KV tiles are
+// handed out in ascending order, as the tickets need.
+struct Item {
+  int j, b, kh, n_steps;
+  __device__ Item(int item, const Shape& s) {
+    const int per = (s.n_kv + kPasses - 1) / kPasses;
+    const int x = item / (s.B * s.K * per);
+    const int in_pass = min(per, s.n_kv - x * per);
+    const int rest = item - x * s.B * s.K * per;
+    const int bk = rest / in_pass;
+    j = x * per + rest % in_pass;
+    b = bk / s.K;
+    kh = bk - b * s.K;
+    const int first = s.causal ? min(j * (kBN / kBM), s.n_qt) : 0;
+    n_steps = (s.n_qt - first) * s.group;
   }
-}
+  // Step st: query tile n_qt - 1 - st / G (the last first), head st % G.
+  __device__ int qt(int st, const Shape& s) const {
+    return s.n_qt - 1 - st / s.group;
+  }
+  __device__ int h(int st, const Shape& s) const {
+    return kh * s.group + st % s.group;
+  }
+};
 
-// The inner tile of the other side: 32 rows at hd 128 (registers), 64 at
-// hd 64.
+// Warpgroup 0: thread 0 takes items from the counter (tickets[0]) and
+// issues every load; lane 0 of warp 1 writes dQ's partials.  Warpgroups 1
+// and 2 compute, keys 0-63 and 64-127 of the item.  Their accumulator
+// fragments: warp w, lane (g = lane / 4, t = lane % 4) holds rows 16w + g
+// and 16w + g + 8, columns 8i + 2t and 8i + 2t + 1.
 template <int HD>
-__host__ __device__ constexpr int inner_rows() { return HD == 128 ? 32 : 64; }
+__global__ void __launch_bounds__(kThreads, 1) bwd_wgmma_kernel(
+    const __grid_constant__ CUtensorMap q_map,
+    const __grid_constant__ CUtensorMap k_map,
+    const __grid_constant__ CUtensorMap v_map,
+    const __grid_constant__ CUtensorMap do_map,
+    const float* __restrict__ stats, uint16_t* __restrict__ dk,
+    uint16_t* __restrict__ dv, float* __restrict__ dq_ws,
+    int* __restrict__ tickets, Shape s) {
+  using L = Smem<HD>;
+  constexpr int kDqCols = HD / 2;      // dQ's head dims per warpgroup
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem =
+      smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u);
+  const uint32_t base = smem_u32(smem);
+  const uint32_t kv_full = base + L::bars;
+  const uint32_t full = kv_full + 8;                 // + 8 * stage
+  const uint32_t empty = full + 8 * kStages;
+  const uint32_t dq_full = empty + 8 * kStages;
+  const uint32_t dq_empty = dq_full + 8 * kDQBufs;
+  volatile int* item_slot = reinterpret_cast<volatile int*>(smem + L::item);
 
-template <int HD>
-constexpr size_t mma_smem_bytes() {
-  // two tiles of kRows and two of inner_rows, bf16, padded rows; then two
-  // float vectors of inner_rows (dK / dV's lse and delta per query).
-  return (size_t)2 * (2 * kRows + 2 * inner_rows<HD>()) * (HD + 8) +
-         (size_t)2 * 4 * inner_rows<HD>();
-}
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    for (int st = 0; st < kStages; ++st) {
+      mbar_init(full + 8 * st, 1);
+      mbar_init(empty + 8 * st, kConsumerWarps);
+    }
+    for (int x = 0; x < kDQBufs; ++x) {
+      mbar_init(dq_full + 8 * x, kConsumerWarps);
+      mbar_init(dq_empty + 8 * x, 1);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
 
-// One block: 64 keys of one KV head and batch; warp w owns keys 16w..+15.
-// Blocks run the key tiles with the most query tiles (the first, under
-// causal) first.
-template <int HD>
-__global__ void __launch_bounds__(kThreads) dkdv_mma_kernel(
-    const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
-    const uint16_t* __restrict__ v, const uint16_t* __restrict__ dout,
-    const float* __restrict__ lse, const float* __restrict__ delta,
-    uint16_t* __restrict__ dk, uint16_t* __restrict__ dv, Shape s) {
-  constexpr int QT = inner_rows<HD>(), LD = HD + 8, NQ = QT / 8, ND = HD / 8;
-  extern __shared__ __align__(16) uint8_t smem_raw[];
-  uint16_t* ks = reinterpret_cast<uint16_t*>(smem_raw);
-  uint16_t* vs = ks + kRows * LD;
-  uint16_t* qs = vs + kRows * LD;
-  uint16_t* dos = qs + QT * LD;
-  float* lse_s = reinterpret_cast<float*>(dos + QT * LD);  // * log2(e)
-  float* delta_s = lse_s + QT;
-
-  const int kh = blockIdx.x % s.K, b = (blockIdx.x / s.K) % s.B;
-  const int k0 = (blockIdx.x / (s.K * s.B)) * kRows;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t = lane % 4;
-  const int key0 = k0 + 16 * warp + g, key1 = key0 + 8;
-  const long long kv_stride = (long long)s.K * HD, q_stride = (long long)s.H * HD;
-  const long long kv_off = (long long)b * s.Skv * kv_stride + (long long)kh * HD;
-  load_rows<HD, LD>(ks, k + kv_off, k0, kRows, s.Skv, kv_stride);
-  load_rows<HD, LD>(vs, v + kv_off, k0, kRows, s.Skv, kv_stride);
-  const uint32_t ks_a = smem_u32(ks), vs_a = smem_u32(vs);
-  const uint32_t qs_a = smem_u32(qs), dos_a = smem_u32(dos);
-  const float sl = s.scale * kLog2e;
-
-  float dk_acc[ND][4], dv_acc[ND][4];
-#pragma unroll
-  for (int n = 0; n < ND; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk_acc[n][e] = dv_acc[n][e] = 0.f;
-
-  const int n_qt = (s.Sq + QT - 1) / QT;
-  const int first = s.causal ? min(k0 / QT, n_qt) : 0;
-  for (int gi = 0; gi < s.group; ++gi) {
-    const int h = kh * s.group + gi;
-    const long long q_off = (long long)b * s.Sq * q_stride + (long long)h * HD;
-    const long long st_off = ((long long)b * s.H + h) * s.Sq;
-    for (int it = first; it < n_qt; ++it) {
-      const int q0 = it * QT;
-      __syncthreads();  // the last tile's reads are done (and K, V stored)
-      load_rows<HD, LD>(qs, q + q_off, q0, QT, s.Sq, q_stride);
-      load_rows<HD, LD>(dos, dout + q_off, q0, QT, s.Sq, q_stride);
-      for (int i = threadIdx.x; i < QT; i += kThreads) {
-        const bool in = q0 + i < s.Sq;
-        lse_s[i] = in ? lse[st_off + q0 + i] * kLog2e : 0.f;
-        delta_s[i] = in ? delta[st_off + q0 + i] : 0.f;
-      }
+  int it = 0;       // steps so far in this block: the rings' counter
+  int n_done = 0;   // items so far: kv_full's phase
+  if (threadIdx.x < 128) {
+    // ---- producer warpgroup
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+    for (;;) {
+      if (threadIdx.x == 0) *item_slot = atomicAdd(tickets, 1);
       __syncthreads();
-
-      // S^T = K Q^T: this warp's 16 keys x QT queries, over hd.
-      float pt[NQ][4];
+      const int item = *item_slot;
+      if (item >= s.n_items) break;
+      const Item w(item, s);
+      if (warp == 0 && lane == 0) {
+        mbar_expect_tx(kv_full, 2 * L::kKV);
 #pragma unroll
-      for (int j = 0; j < NQ; ++j)
+        for (int c = 0; c < HD / kBoxCols; ++c) {
+          tma_load(base + L::k + c * kKVBox, &k_map, kv_full, c * kBoxCols,
+                   w.kh, w.j * kBN, w.b);
+          tma_load(base + L::v + c * kKVBox, &v_map, kv_full, c * kBoxCols,
+                   w.kh, w.j * kBN, w.b);
+        }
+        const long long plane = (long long)s.B * s.H * s.n_qt * kBM;
+        for (int st = 0; st < w.n_steps; ++st) {
+          const int n = it + st, stage = n % kStages;
+          if (n >= kStages) mbar_wait(empty + 8 * stage, (n / kStages - 1) & 1);
+          const int qt = w.qt(st, s), h = w.h(st, s);
+          const uint32_t bar = full + 8 * stage;
+          const uint32_t qs = base + L::ring + 2 * L::kQT * stage;
+          mbar_expect_tx(bar, 2 * L::kQT + 2 * kBM * 4);
 #pragma unroll
-        for (int e = 0; e < 4; ++e) pt[j][e] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < HD / 16; ++kk) {
-        uint32_t a[4];
-        ldsm_x4(a, frag_a<LD>(ks_a, 16 * warp, 16 * kk, lane));
-#pragma unroll
-        for (int j = 0; j < NQ / 2; ++j) {
-          uint32_t bq[4];
-          ldsm_x4(bq, frag_b<LD>(qs_a, 16 * j, 16 * kk, lane));
-          mma(pt[2 * j], a, bq[0], bq[1]);
-          mma(pt[2 * j + 1], a, bq[2], bq[3]);
+          for (int c = 0; c < HD / kBoxCols; ++c) {
+            tma_load(qs + c * kQBox, &q_map, bar, c * kBoxCols, h, qt * kBM,
+                     w.b);
+            tma_load(qs + L::kQT + c * kQBox, &do_map, bar, c * kBoxCols, h,
+                     qt * kBM, w.b);
+          }
+          const float* row =
+              stats + ((long long)(w.b * s.H + h) * s.n_qt + qt) * kBM;
+          const uint32_t ss = base + L::stats + 512 * stage;
+          bulk_load(ss, row, kBM * 4, bar);
+          bulk_load(ss + 256, row + plane, kBM * 4, bar);
+        }
+      } else if (warp == 1 && lane == 0) {
+        // dQ's partials into the workspace in ascending KV-tile order: KV
+        // tile j adds once tiles 0 .. j - 1 have (tile 0 stores, so the
+        // workspace needs no memset), and releases the ticket once its
+        // add has completed.
+        for (int st = 0; st < w.n_steps; ++st) {
+          const int n = it + st, buf = n % kDQBufs;
+          const long long tile =
+              (long long)(w.b * s.H + w.h(st, s)) * s.n_qt + w.qt(st, s);
+          int* ticket = tickets + 1 + tile;
+          if (w.j > 0) {
+            while (ld_acquire(ticket) < w.j) {
+            }
+            fence_proxy_async_global();
+          }
+          mbar_wait(dq_full + 8 * buf, (n / kDQBufs) & 1);
+          float* dst = dq_ws + tile * (kBM * HD);
+          const uint32_t src = base + L::dq + buf * L::kDQ;
+          if (w.j == 0)
+            bulk_store(dst, src, L::kDQ);
+          else
+            bulk_add_f32(dst, src, L::kDQ);
+          bulk_commit();
+          bulk_wait_read();
+          mbar_arrive(dq_empty + 8 * buf);
+          bulk_wait();
+          fence_proxy_async_global();
+          red_release_add(ticket, 1);
         }
       }
-      // P^T: fragment j holds queries q0 + 8j + 2t (+1) of keys key0 (e <
-      // 2) and key1.
-#pragma unroll
-      for (int j = 0; j < NQ; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int c = 8 * j + 2 * t + (e & 1);
-          pt[j][e] = visible(e < 2 ? key0 : key1, q0 + c, s)
-                         ? ex2(fmaf(pt[j][e], sl, -lse_s[c]))
-                         : 0.f;
-        }
-      // dV += P^T dO over the QT queries.
-#pragma unroll
-      for (int kk = 0; kk < QT / 16; ++kk) {
-        const uint32_t a[4] = {pack_bf16(pt[2 * kk][0], pt[2 * kk][1]),
-                               pack_bf16(pt[2 * kk][2], pt[2 * kk][3]),
-                               pack_bf16(pt[2 * kk + 1][0], pt[2 * kk + 1][1]),
-                               pack_bf16(pt[2 * kk + 1][2], pt[2 * kk + 1][3])};
-#pragma unroll
-        for (int n = 0; n < ND / 2; ++n) {
-          uint32_t bo[4];
-          ldsm_x4_t(bo, frag_a<LD>(dos_a, 16 * kk, 16 * n, lane));
-          mma(dv_acc[2 * n], a, bo[0], bo[1]);
-          mma(dv_acc[2 * n + 1], a, bo[2], bo[3]);
-        }
-      }
-      // dP^T = V dO^T, then dS^T = P^T o (dP^T - delta).
-      float ds[NQ][4];
-#pragma unroll
-      for (int j = 0; j < NQ; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) ds[j][e] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < HD / 16; ++kk) {
-        uint32_t a[4];
-        ldsm_x4(a, frag_a<LD>(vs_a, 16 * warp, 16 * kk, lane));
-#pragma unroll
-        for (int j = 0; j < NQ / 2; ++j) {
-          uint32_t bo[4];
-          ldsm_x4(bo, frag_b<LD>(dos_a, 16 * j, 16 * kk, lane));
-          mma(ds[2 * j], a, bo[0], bo[1]);
-          mma(ds[2 * j + 1], a, bo[2], bo[3]);
-        }
-      }
-#pragma unroll
-      for (int j = 0; j < NQ; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          ds[j][e] = pt[j][e] * (ds[j][e] - delta_s[8 * j + 2 * t + (e & 1)]);
-      // dK += dS^T Q (scaled at the end).
-#pragma unroll
-      for (int kk = 0; kk < QT / 16; ++kk) {
-        const uint32_t a[4] = {pack_bf16(ds[2 * kk][0], ds[2 * kk][1]),
-                               pack_bf16(ds[2 * kk][2], ds[2 * kk][3]),
-                               pack_bf16(ds[2 * kk + 1][0], ds[2 * kk + 1][1]),
-                               pack_bf16(ds[2 * kk + 1][2], ds[2 * kk + 1][3])};
-#pragma unroll
-        for (int n = 0; n < ND / 2; ++n) {
-          uint32_t bq[4];
-          ldsm_x4_t(bq, frag_a<LD>(qs_a, 16 * kk, 16 * n, lane));
-          mma(dk_acc[2 * n], a, bq[0], bq[1]);
-          mma(dk_acc[2 * n + 1], a, bq[2], bq[3]);
-        }
-      }
+      __syncwarp();
+      it += w.n_steps;
+      ++n_done;
+      __syncthreads();
     }
-  }
-
-  // Fragment n holds head dims 8n + 2t (+1) of keys key0 (e < 2), key1.
-  uint16_t* dkb = dk + kv_off + 2 * t;
-  uint16_t* dvb = dv + kv_off + 2 * t;
+  } else {
+    // ---- consumer warpgroups
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+    const int wg = threadIdx.x / 128 - 1, tid = threadIdx.x % 128;
+    const int warp = tid / 32, lane = tid % 32;
+    const int g = lane / 4, t = lane % 4;
+    const float sl = s.scale * kLog2e;
+    // This warpgroup's 64 keys: rows 64 wg.. of each K / V box (A of S^T
+    // and dP^T); its kDqCols head dims of K (B of dQ, MN-major).
+    const uint32_t ka = base + L::k + wg * 64 * 128;
+    const uint32_t va = base + L::v + wg * 64 * 128;
+    const uint32_t kb = base + L::k + (wg * kDqCols / kBoxCols) * kKVBox +
+                        (wg * kDqCols % kBoxCols) * 2;
+    for (;;) {
+      __syncthreads();
+      const int item = *item_slot;
+      if (item >= s.n_items) break;
+      const Item w(item, s);
+      const int key_lo = w.j * kBN + 64 * wg;
+      const int kr0 = key_lo + 16 * warp + g, kr1 = kr0 + 8;
+      float dk_acc[HD / 2], dv_acc[HD / 2];
 #pragma unroll
-  for (int n = 0; n < ND; ++n) {
-    if (key0 < s.Skv) {
-      *reinterpret_cast<uint32_t*>(dkb + key0 * kv_stride + 8 * n) =
-          pack_bf16(dk_acc[n][0] * s.scale, dk_acc[n][1] * s.scale);
-      *reinterpret_cast<uint32_t*>(dvb + key0 * kv_stride + 8 * n) =
-          pack_bf16(dv_acc[n][0], dv_acc[n][1]);
-    }
-    if (key1 < s.Skv) {
-      *reinterpret_cast<uint32_t*>(dkb + key1 * kv_stride + 8 * n) =
-          pack_bf16(dk_acc[n][2] * s.scale, dk_acc[n][3] * s.scale);
-      *reinterpret_cast<uint32_t*>(dvb + key1 * kv_stride + 8 * n) =
-          pack_bf16(dv_acc[n][2], dv_acc[n][3]);
+      for (int i = 0; i < HD / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+      mbar_wait(kv_full, n_done & 1);
+
+      for (int st = 0; st < w.n_steps; ++st) {
+        const int n = it + st, stage = n % kStages;
+        const int q0 = w.qt(st, s) * kBM;
+        const uint32_t qs = base + L::ring + 2 * L::kQT * stage;
+        const uint32_t dos = qs + L::kQT;
+        const float* lse2 =
+            reinterpret_cast<const float*>(smem + L::stats + 512 * stage);
+        const float* dl = lse2 + kBM;
+
+        // S^T = K Q^T, then dP^T = V dO^T, over HD / 16 steps of 16 head
+        // dims (32 B of a 128-B row), committed as two groups: P^T is
+        // built while dP^T's products run.
+        float sT[32], dpT[32];
+        mbar_wait(full + 8 * stage, (n / kStages) & 1);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < HD / 16; ++kk) {
+          const uint32_t oa = (kk / 4) * kKVBox + (kk % 4) * 32;
+          const uint32_t ob = (kk / 4) * kQBox + (kk % 4) * 32;
+          wgmma_ss<0, 0>(sT, sw128_desc(ka + oa, 16, 1024),
+                         sw128_desc(qs + ob, 16, 1024), kk > 0);
+        }
+        wgmma_commit();
+#pragma unroll
+        for (int kk = 0; kk < HD / 16; ++kk) {
+          const uint32_t oa = (kk / 4) * kKVBox + (kk % 4) * 32;
+          const uint32_t ob = (kk / 4) * kQBox + (kk % 4) * 32;
+          wgmma_ss<0, 0>(dpT, sw128_desc(va + oa, 16, 1024),
+                         sw128_desc(dos + ob, 16, 1024), kk > 0);
+        }
+        wgmma_commit();
+        fence_acc(sT);
+        fence_acc(dpT);
+        wgmma_wait<1>();
+        fence_acc(sT);
+
+        // P^T = exp(scale s - lse); fragment i holds queries q0 + 8i + 2t
+        // (+1) of keys kr0 (e < 2) and kr1.  Rows past Sq need no mask:
+        // their Q, dO, lse and delta are 0.
+        const bool masked =
+            key_lo + 63 >= s.Skv || (s.causal && key_lo + 63 > q0);
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const float2 l2 =
+              *reinterpret_cast<const float2*>(lse2 + 8 * i + 2 * t);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            float p = ex2(fmaf(sT[4 * i + e], sl, (e & 1) ? -l2.y : -l2.x));
+            if (masked) {
+              const int key = e < 2 ? kr0 : kr1;
+              const int q = q0 + 8 * i + 2 * t + (e & 1);
+              if (key >= s.Skv || (s.causal && key > q)) p = 0.f;
+            }
+            sT[4 * i + e] = p;
+          }
+        }
+        // In bf16: fragments 2kk and 2kk + 1 are the A fragment of queries
+        // 16kk .. 16kk + 15 (keys g, g + 8; queries 2t.. and 2t + 8..).
+        uint32_t pa[16], da[16];
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+          for (int x = 0; x < 4; ++x)
+            pa[4 * kk + x] =
+                pack_bf16(sT[8 * kk + 2 * x], sT[8 * kk + 2 * x + 1]);
+
+        // dV += P^T dO over the 64 queries, run while dS^T is built: dO is
+        // an MN-major B operand, 16 queries x 128 B = 2048 B a step; the
+        // next 64 head dims are the next box (LBO).
+        fence_acc(dv_acc);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_rs(dv_acc, pa + 4 * kk,
+                   sw128_desc(dos + kk * 2048, kQBox, 1024));
+        wgmma_commit();
+        fence_acc(dpT);
+        wgmma_wait<1>();
+        fence_acc(dpT);
+
+        // dS^T = P^T o (dP^T - delta)
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const float2 d2 = *reinterpret_cast<const float2*>(dl + 8 * i + 2 * t);
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            dpT[4 * i + e] =
+                sT[4 * i + e] * (dpT[4 * i + e] - ((e & 1) ? d2.y : d2.x));
+        }
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+          for (int x = 0; x < 4; ++x)
+            da[4 * kk + x] =
+                pack_bf16(dpT[8 * kk + 2 * x], dpT[8 * kk + 2 * x + 1]);
+        // dS^T into this step's buffer: row = the key's place in the item,
+        // 64 queries = 128 B, 16-byte chunk i of row r at chunk i ^ (r % 8).
+        const uint32_t dsb = base + L::ds + (n & 1) * kDSBytes;
+        const uint32_t row0 = dsb + (64 * wg + 16 * warp + g) * 128;
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const uint32_t chunk = ((i ^ g) << 4) + 4 * t;
+          st_shared(row0 + chunk, da[4 * (i / 2) + 2 * (i % 2)]);
+          st_shared(row0 + 8 * 128 + chunk, da[4 * (i / 2) + 2 * (i % 2) + 1]);
+        }
+
+        // dK += dS^T Q, Q as dO above.
+        fence_acc(dk_acc);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_rs(dk_acc, da + 4 * kk, sw128_desc(qs + kk * 2048, kQBox, 1024));
+        wgmma_commit();
+
+        // dQ's partial dS K: both warpgroups' dS^T in shared memory and
+        // visible to wgmma; A = dS (64 queries x 128 keys) MN-major, B =
+        // this warpgroup's kDqCols head dims of K, MN-major.
+        fence_proxy_async_shared();
+        consumers_sync();
+        float dq[HD / 4];
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < kBN / 16; ++kk)
+          wgmma_ss<1, 1>(dq, sw128_desc(dsb + kk * 2048, kDSBytes, 1024),
+                         sw128_desc(kb + kk * 2048, kKVBox, 1024), kk > 0);
+        wgmma_commit();
+        fence_acc(dv_acc);
+        fence_acc(dk_acc);
+        fence_acc(dq);
+        wgmma_wait_all();
+        fence_acc(dv_acc);
+        fence_acc(dk_acc);
+        fence_acc(dq);
+        if (lane == 0) mbar_arrive(empty + 8 * stage);
+
+        // The partial into the staging tile, in fragment order: float4 i
+        // of thread tid of warpgroup wg at (wg * 64 * kDqCols / 4 + 128 i
+        // + tid); the cast pass reads that order.
+        const int buf = n % kDQBufs;
+        if (n >= kDQBufs)
+          mbar_wait(dq_empty + 8 * buf, (n / kDQBufs - 1) & 1);
+        float4* stg = reinterpret_cast<float4*>(smem + L::dq + buf * L::kDQ) +
+                      wg * (kBM * kDqCols / 4) + tid;
+#pragma unroll
+        for (int i = 0; i < HD / 16; ++i)
+          stg[128 * i] = make_float4(dq[4 * i], dq[4 * i + 1], dq[4 * i + 2],
+                                     dq[4 * i + 3]);
+        fence_proxy_async_shared();
+        __syncwarp();
+        if (lane == 0) mbar_arrive(dq_full + 8 * buf);
+      }
+
+      // Fragment i holds head dims 8i + 2t (+1) of keys kr0 (e < 2), kr1.
+      const long long kv_stride = (long long)s.K * HD;
+      const long long kv_off =
+          ((long long)w.b * s.Skv * s.K + w.kh) * HD + 2 * t;
+#pragma unroll
+      for (int i = 0; i < HD / 8; ++i) {
+        if (kr0 < s.Skv) {
+          *reinterpret_cast<uint32_t*>(dk + kv_off + kr0 * kv_stride + 8 * i) =
+              pack_bf16(dk_acc[4 * i] * s.scale, dk_acc[4 * i + 1] * s.scale);
+          *reinterpret_cast<uint32_t*>(dv + kv_off + kr0 * kv_stride + 8 * i) =
+              pack_bf16(dv_acc[4 * i], dv_acc[4 * i + 1]);
+        }
+        if (kr1 < s.Skv) {
+          *reinterpret_cast<uint32_t*>(dk + kv_off + kr1 * kv_stride + 8 * i) =
+              pack_bf16(dk_acc[4 * i + 2] * s.scale,
+                        dk_acc[4 * i + 3] * s.scale);
+          *reinterpret_cast<uint32_t*>(dv + kv_off + kr1 * kv_stride + 8 * i) =
+              pack_bf16(dv_acc[4 * i + 2], dv_acc[4 * i + 3]);
+        }
+      }
+      it += w.n_steps;
+      ++n_done;
+      __syncthreads();
     }
   }
 }
 
-// One block: 64 query rows of one head and batch; warp w owns rows
-// 16w..+15.  The last query tile (the most KV tiles under causal) first.
+// dQ = scale * the workspace, from its fragment order to (B, Sq, H, hd)
+// bf16: one block per (batch, head, query tile), the tile through shared
+// memory, 16 bytes (8 head dims of a row) per thread and store.
 template <int HD>
-__global__ void __launch_bounds__(kThreads) dq_mma_kernel(
-    const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
-    const uint16_t* __restrict__ v, const uint16_t* __restrict__ dout,
-    const float* __restrict__ lse, const float* __restrict__ delta,
-    uint16_t* __restrict__ dq, Shape s) {
-  constexpr int KT = inner_rows<HD>(), LD = HD + 8, NK = KT / 8, ND = HD / 8;
-  extern __shared__ __align__(16) uint8_t smem_raw[];
-  uint16_t* qs = reinterpret_cast<uint16_t*>(smem_raw);
-  uint16_t* dos = qs + kRows * LD;
-  uint16_t* ks = dos + kRows * LD;
-  uint16_t* vs = ks + KT * LD;
-
-  const int h = blockIdx.x % s.H, b = (blockIdx.x / s.H) % s.B;
-  const int n_qt = (s.Sq + kRows - 1) / kRows;
-  const int q0 = (n_qt - 1 - (int)(blockIdx.x / (s.H * s.B))) * kRows;
-  const int kh = h / s.group;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t = lane % 4;
-  const int r0 = q0 + 16 * warp + g, r1 = r0 + 8;
-  const long long kv_stride = (long long)s.K * HD, q_stride = (long long)s.H * HD;
-  const long long q_off = (long long)b * s.Sq * q_stride + (long long)h * HD;
-  const long long kv_off = (long long)b * s.Skv * kv_stride + (long long)kh * HD;
-  const long long st_off = ((long long)b * s.H + h) * s.Sq;
-  load_rows<HD, LD>(qs, q + q_off, q0, kRows, s.Sq, q_stride);
-  load_rows<HD, LD>(dos, dout + q_off, q0, kRows, s.Sq, q_stride);
-  const float lse0 = r0 < s.Sq ? lse[st_off + r0] * kLog2e : 0.f;
-  const float lse1 = r1 < s.Sq ? lse[st_off + r1] * kLog2e : 0.f;
-  const float dl0 = r0 < s.Sq ? delta[st_off + r0] : 0.f;
-  const float dl1 = r1 < s.Sq ? delta[st_off + r1] : 0.f;
-  const uint32_t qs_a = smem_u32(qs), dos_a = smem_u32(dos);
-  const uint32_t ks_a = smem_u32(ks), vs_a = smem_u32(vs);
-  const float sl = s.scale * kLog2e;
-
-  float dq_acc[ND][4];
+__global__ void __launch_bounds__(256) dq_cast_kernel(
+    const float4* __restrict__ ws, uint16_t* __restrict__ dq, Shape s) {
+  constexpr int kPerWg = kBM * HD / 2 / 4;   // float4s of one warpgroup
+  __shared__ float4 buf[2 * kPerWg];
+  const long long tile = blockIdx.x;
+  for (int x = threadIdx.x; x < 2 * kPerWg; x += 256)
+    buf[x] = ws[tile * (2 * kPerWg) + x];
+  __syncthreads();
+  const int qt = (int)(tile % s.n_qt);
+  const long long bh = tile / s.n_qt;
+  const int h = (int)(bh % s.H);
+  const long long b = bh / s.H;
+  for (int x = threadIdx.x; x < kBM * HD / 8; x += 256) {
+    const int row = x / (HD / 8), col = 8 * (x % (HD / 8));
+    const int q = qt * kBM + row;
+    if (q >= s.Sq) continue;
+    // Row 16w + g (+8: the float4's z, w) of warpgroup col / (HD / 2),
+    // columns 8i + 2t (+1) in thread 32w + 4g + t's float4 i.
+    const int wg = col / (HD / 2), i = (col % (HD / 2)) / 8;
+    const int hi = (row % 16) / 8;
+    const float4* src = buf + wg * kPerWg + 128 * i + 32 * (row / 16) +
+                        4 * (row % 8);
+    uint32_t out[4];
 #pragma unroll
-  for (int n = 0; n < ND; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dq_acc[n][e] = 0.f;
-
-  int n_kt = (s.Skv + KT - 1) / KT;
-  if (s.causal) n_kt = min(n_kt, (q0 + kRows - 1) / KT + 1);
-  for (int jt = 0; jt < n_kt; ++jt) {
-    const int c0 = jt * KT;
-    __syncthreads();
-    load_rows<HD, LD>(ks, k + kv_off, c0, KT, s.Skv, kv_stride);
-    load_rows<HD, LD>(vs, v + kv_off, c0, KT, s.Skv, kv_stride);
-    __syncthreads();
-
-    // S = Q K^T and dP = dO V^T: 16 rows x KT keys, over hd.
-    float p[NK][4], ds[NK][4];
-#pragma unroll
-    for (int j = 0; j < NK; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) p[j][e] = ds[j][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < HD / 16; ++kk) {
-      uint32_t aq[4], ao[4];
-      ldsm_x4(aq, frag_a<LD>(qs_a, 16 * warp, 16 * kk, lane));
-      ldsm_x4(ao, frag_a<LD>(dos_a, 16 * warp, 16 * kk, lane));
-#pragma unroll
-      for (int j = 0; j < NK / 2; ++j) {
-        uint32_t bk[4], bv[4];
-        ldsm_x4(bk, frag_b<LD>(ks_a, 16 * j, 16 * kk, lane));
-        ldsm_x4(bv, frag_b<LD>(vs_a, 16 * j, 16 * kk, lane));
-        mma(p[2 * j], aq, bk[0], bk[1]);
-        mma(p[2 * j + 1], aq, bk[2], bk[3]);
-        mma(ds[2 * j], ao, bv[0], bv[1]);
-        mma(ds[2 * j + 1], ao, bv[2], bv[3]);
-      }
+    for (int t = 0; t < 4; ++t) {
+      const float4 f = src[t];
+      out[t] = hi ? pack_bf16(f.z * s.scale, f.w * s.scale)
+                  : pack_bf16(f.x * s.scale, f.y * s.scale);
     }
-    // Fragment j holds keys c0 + 8j + 2t (+1) of rows r0 (e < 2), r1.
-#pragma unroll
-    for (int j = 0; j < NK; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int key = c0 + 8 * j + 2 * t + (e & 1);
-        const bool lo = e < 2;
-        const float pv = visible(key, lo ? r0 : r1, s)
-                             ? ex2(fmaf(p[j][e], sl, -(lo ? lse0 : lse1)))
-                             : 0.f;
-        ds[j][e] = pv * (ds[j][e] - (lo ? dl0 : dl1));
-      }
-    // dQ += dS K (scaled at the end).
-#pragma unroll
-    for (int kk = 0; kk < KT / 16; ++kk) {
-      const uint32_t a[4] = {pack_bf16(ds[2 * kk][0], ds[2 * kk][1]),
-                             pack_bf16(ds[2 * kk][2], ds[2 * kk][3]),
-                             pack_bf16(ds[2 * kk + 1][0], ds[2 * kk + 1][1]),
-                             pack_bf16(ds[2 * kk + 1][2], ds[2 * kk + 1][3])};
-#pragma unroll
-      for (int n = 0; n < ND / 2; ++n) {
-        uint32_t bk[4];
-        ldsm_x4_t(bk, frag_a<LD>(ks_a, 16 * kk, 16 * n, lane));
-        mma(dq_acc[2 * n], a, bk[0], bk[1]);
-        mma(dq_acc[2 * n + 1], a, bk[2], bk[3]);
-      }
-    }
-  }
-
-  uint16_t* dqb = dq + q_off + 2 * t;
-#pragma unroll
-  for (int n = 0; n < ND; ++n) {
-    if (r0 < s.Sq)
-      *reinterpret_cast<uint32_t*>(dqb + r0 * q_stride + 8 * n) =
-          pack_bf16(dq_acc[n][0] * s.scale, dq_acc[n][1] * s.scale);
-    if (r1 < s.Sq)
-      *reinterpret_cast<uint32_t*>(dqb + r1 * q_stride + 8 * n) =
-          pack_bf16(dq_acc[n][2] * s.scale, dq_acc[n][3] * s.scale);
+    *reinterpret_cast<uint4*>(dq + ((b * s.Sq + q) * s.H + h) * HD + col) =
+        make_uint4(out[0], out[1], out[2], out[3]);
   }
 }
 
@@ -709,49 +845,73 @@ __global__ void __launch_bounds__(kFmaThreads) dq_fma_kernel(
   }
 }
 
+
 // -------------------------------------------------------------- launches
 
 template <typename T>
-cudaError_t launch_delta(const void* o, const void* dout, float* delta,
-                         int hd, const Shape& s, cudaStream_t stream) {
-  const long long rows = (long long)s.B * s.Sq * s.H;
-  const long long blocks = (rows + 7) / 8;
+cudaError_t launch_delta(const void* o, const void* dout, const float* lse,
+                         float* delta, float* lse2, int hd, int sq_pad,
+                         const Shape& s, cudaStream_t stream) {
+  const long long rows = (long long)s.B * sq_pad * s.H;
+  const long long blocks = (rows * (hd * sizeof(T) / 16) + 255) / 256;
   if (blocks > 0x7fffffff) return cudaErrorInvalidValue;
   delta_kernel<T><<<(unsigned)blocks, 256, 0, stream>>>(
-      static_cast<const T*>(o), static_cast<const T*>(dout), delta, rows, hd,
-      s);
+      static_cast<const T*>(o), static_cast<const T*>(dout), lse, delta,
+      lse2, rows, hd, sq_pad, s);
   return cudaGetLastError();
 }
 
+// The main pass; returns a cudaError_t, or minus the CUresult of a failed
+// tensor-map encode.
 template <int HD>
-cudaError_t launch_mma(const void* q, const void* k, const void* v,
-                       const void* dout, const float* lse,
-                       const float* delta, void* dq, void* dk, void* dv,
-                       const Shape& s, cudaStream_t stream) {
-  constexpr size_t smem = mma_smem_bytes<HD>();
-  const long long kv_blocks = (long long)((s.Skv + kRows - 1) / kRows) * s.K * s.B;
-  const long long q_blocks = (long long)((s.Sq + kRows - 1) / kRows) * s.H * s.B;
-  if (kv_blocks > 0x7fffffff || q_blocks > 0x7fffffff)
-    return cudaErrorInvalidValue;
+int launch_main(const void* q, const void* k, const void* v,
+                const void* dout, const float* stats, float* dq_ws,
+                int* tickets, void* dk, void* dv, const Shape& s,
+                cudaStream_t stream) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return (int)cudaErrorSymbolNotFound;
+  CUtensorMap qm, km, vm, dom;
+  CUresult res = encode_map(encode, &qm, q, s.B, s.Sq, s.Sq, s.H, HD, kBM);
+  if (res == CUDA_SUCCESS)
+    res = encode_map(encode, &dom, dout, s.B, s.Sq, s.Sq, s.H, HD, kBM);
+  if (res == CUDA_SUCCESS)
+    res = encode_map(encode, &km, k, s.B, s.Skv, s.Skv, s.K, HD, kBN);
+  if (res == CUDA_SUCCESS)
+    res = encode_map(encode, &vm, v, s.B, s.Skv, s.Skv, s.K, HD, kBN);
+  if (res != CUDA_SUCCESS) return -(int)res;
+  constexpr size_t smem = Smem<HD>::bytes;
   cudaError_t err = cudaFuncSetAttribute(
-      dkdv_mma_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      bwd_wgmma_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
+  int dev = 0, sms = 0;
+  if (err == cudaSuccess) err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(dq_mma_kernel<HD>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
-  if (err != cudaSuccess) return err;
-  using U = const uint16_t*;
-  dkdv_mma_kernel<HD><<<(unsigned)kv_blocks, kThreads, smem, stream>>>(
-      static_cast<U>(q), static_cast<U>(k), static_cast<U>(v),
-      static_cast<U>(dout), lse, delta, static_cast<uint16_t*>(dk),
-      static_cast<uint16_t*>(dv), s);
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return (int)err;
+  bwd_wgmma_kernel<HD><<<(unsigned)min(sms, s.n_items), kThreads, smem,
+                         stream>>>(qm, km, vm, dom, stats,
+                                   static_cast<uint16_t*>(dk),
+                                   static_cast<uint16_t*>(dv), dq_ws, tickets,
+                                   s);
   err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  dq_mma_kernel<HD><<<(unsigned)q_blocks, kThreads, smem, stream>>>(
-      static_cast<U>(q), static_cast<U>(k), static_cast<U>(v),
-      static_cast<U>(dout), lse, delta, static_cast<uint16_t*>(dq), s);
-  return cudaGetLastError();
+  return (int)err;
+}
+
+// The main pass, then dQ's cast; returns a cudaError_t, or minus the
+// CUresult of a failed tensor-map encode.
+template <int HD>
+int launch_wgmma(const void* q, const void* k, const void* v,
+                 const void* dout, const float* stats, float* dq_ws,
+                 int* tickets, void* dq, void* dk, void* dv, const Shape& s,
+                 cudaStream_t stream) {
+  const int err = launch_main<HD>(q, k, v, dout, stats, dq_ws, tickets, dk,
+                                  dv, s, stream);
+  if (err != 0) return err;
+  const long long tiles = (long long)s.B * s.H * s.n_qt;
+  if (tiles > 0x7fffffff) return (int)cudaErrorInvalidValue;
+  dq_cast_kernel<HD><<<(unsigned)tiles, 256, 0, stream>>>(
+      reinterpret_cast<const float4*>(dq_ws), static_cast<uint16_t*>(dq), s);
+  return (int)cudaGetLastError();
 }
 
 template <int HD>
@@ -789,38 +949,55 @@ cudaError_t launch_fma(const void* q, const void* k, const void* v,
 
 }  // namespace
 
-// q, o, dout, dq: (B, Sq, H, hd); k, v, dk, dv: (B, Skv, K, hd); lse and
-// delta (scratch, written here): (B, H, Sq) float32; lse is B5's (the
-// forward's) for these q, k, v.  All contiguous, 16-byte aligned; dtype
-// 0 = float32, 1 = bfloat16; hd 64 or 128.  Three launches on `stream`
-// (delta, dK / dV, dQ); returns 0 or the cudaError_t of the first that
-// failed.
+// q, o, dout, dq: (B, Sq, H, hd); k, v, dk, dv: (B, Skv, K, hd); lse:
+// (B, H, Sq) float32, B5's (the forward's) for these q, k, v.  All
+// contiguous, 16-byte aligned; dtype 0 = float32, 1 = bfloat16; hd 64 or
+// 128.  Scratch, written here: with P = ceil(Sq / 64) query tiles,
+//  * bf16: `stats` 2 * B * H * 64P float32 (lse * log2(e), then delta),
+//    `dq_ws` B * H * 64P * hd float32 (dQ's workspace), `tickets` 1 + B *
+//    H * P int32, zero on entry (the item counter, then one ticket per
+//    (batch, head, query tile));
+//  * f32: `stats` B * H * Sq float32 (delta); dq_ws and tickets unused.
+// Three launches on `stream`: delta, the main pass and the dQ cast
+// (bf16); delta, dK / dV and dQ (f32).  Returns 0, the cudaError_t of the
+// first launch that failed, or minus the CUresult of a failed tensor-map
+// encode.
 extern "C" int attn_flash_attention_bwd(
     const void* q, const void* k, const void* v, const void* o,
-    const void* dout, const void* lse, void* delta, void* dq, void* dk,
-    void* dv, int B, int H, int K, int Sq, int Skv, int hd, int causal,
-    int dtype, void* stream) {
-  if (B < 1 || K < 1 || H < K || H % K != 0 || Sq < 0 || Skv < 1)
+    const void* dout, const void* lse, void* stats, void* dq_ws,
+    void* tickets, void* dq, void* dk, void* dv, int B, int H, int K, int Sq,
+    int Skv, int hd, int causal, int dtype, void* stream) {
+  if (B < 1 || K < 1 || H < K || H % K != 0 || Sq < 0 || Skv < 1 ||
+      (hd != 64 && hd != 128) || (dtype != kDtypeBF16 && dtype != kDtypeF32))
     return (int)cudaErrorInvalidValue;
   if (Sq == 0) return (int)cudaSuccess;
+  const int n_qt = (Sq + kBM - 1) / kBM;
+  const long long n_items = (long long)((Skv + kBN - 1) / kBN) * B * K;
+  if (n_items > 0x7fffffff) return (int)cudaErrorInvalidValue;
   const Shape s{B, Sq, Skv, H, K, H / K, causal ? 1 : 0,
-                (float)(1.0 / sqrt((double)hd))};
+                (float)(1.0 / sqrt((double)hd)), n_qt, (int)n_items,
+                (Skv + kBN - 1) / kBN};
   const cudaStream_t st = (cudaStream_t)stream;
   const float* l = static_cast<const float*>(lse);
-  float* dl = static_cast<float*>(delta);
-  cudaError_t err = cudaErrorInvalidValue;
-  if (dtype == kDtypeBF16 && (hd == 64 || hd == 128))
-    err = launch_delta<__nv_bfloat16>(o, dout, dl, hd, s, st);
-  if (dtype == kDtypeF32 && (hd == 64 || hd == 128))
-    err = launch_delta<float>(o, dout, dl, hd, s, st);
+  float* sf = static_cast<float*>(stats);
+  if (dtype == kDtypeF32) {
+    cudaError_t err = launch_delta<float>(o, dout, l, sf, nullptr, hd, Sq, s,
+                                          st);
+    if (err == cudaSuccess)
+      err = hd == 64
+                ? launch_fma<64>(q, k, v, dout, l, sf, dq, dk, dv, s, st)
+                : launch_fma<128>(q, k, v, dout, l, sf, dq, dk, dv, s, st);
+    return (int)err;
+  }
+  const int sq_pad = n_qt * kBM;
+  const long long plane = (long long)B * H * sq_pad;
+  const cudaError_t err = launch_delta<__nv_bfloat16>(o, dout, l, sf + plane,
+                                                      sf, hd, sq_pad, s, st);
   if (err != cudaSuccess) return (int)err;
-  if (dtype == kDtypeBF16 && hd == 64)
-    err = launch_mma<64>(q, k, v, dout, l, dl, dq, dk, dv, s, st);
-  if (dtype == kDtypeBF16 && hd == 128)
-    err = launch_mma<128>(q, k, v, dout, l, dl, dq, dk, dv, s, st);
-  if (dtype == kDtypeF32 && hd == 64)
-    err = launch_fma<64>(q, k, v, dout, l, dl, dq, dk, dv, s, st);
-  if (dtype == kDtypeF32 && hd == 128)
-    err = launch_fma<128>(q, k, v, dout, l, dl, dq, dk, dv, s, st);
-  return (int)err;
+  float* ws = static_cast<float*>(dq_ws);
+  int* tk = static_cast<int*>(tickets);
+  return hd == 64
+             ? launch_wgmma<64>(q, k, v, dout, sf, ws, tk, dq, dk, dv, s, st)
+             : launch_wgmma<128>(q, k, v, dout, sf, ws, tk, dq, dk, dv, s,
+                                 st);
 }

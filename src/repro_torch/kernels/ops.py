@@ -38,6 +38,10 @@ MAX_DEGREE = 1024  # widest tile row the kernels take (shared-memory rows)
 # What the flash-attention kernel takes: element type -> its dtype code.
 _ATTN_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _ATTN_HEAD_DIMS = (64, 128)
+# Query rows per tile of B5-bwd's bf16 kernel (kBM in
+# csrc/flash_attention_bwd.cu; a CPU test holds the two equal): the
+# padding of its scratch.
+_BWD_QROWS = 64
 
 
 def reset_launches() -> None:
@@ -336,12 +340,16 @@ def flash_attention_bwd(q, k, v, out, dout, lse, causal: bool):
 
     ``out`` is the forward's output and ``lse`` (B, H, Sq) float32 its
     per-row log-sum-exp, both from B5; the CPU path recomputes them and
-    reads neither.  On CUDA one call is three launches of B5-bwd (delta,
-    dK / dV, dQ), counted once.
+    reads neither.  On CUDA one call is three launches of B5-bwd, counted
+    once: in bf16 delta, the main pass (dK, dV and dQ's partials, added
+    into a float32 workspace in a fixed order) and dQ's cast; in float32
+    delta, dK / dV and dQ.  The scratch is allocated per call: in bf16
+    lse * log2(e) and delta per query row, the workspace (B * H * Sq
+    rounded up to 64, times hd float32) and the zeroed tickets; in float32
+    delta alone.
     """
     _check_attention(q, k, v)
     b, sq, h, hd = q.shape
-    skv, kk = k.shape[1], k.shape[2]
     for name, t in (("out", out), ("dout", dout)):
         if (tuple(t.shape) != tuple(q.shape) or t.dtype != q.dtype
                 or t.device != q.device or not t.is_contiguous()):
@@ -355,15 +363,26 @@ def flash_attention_bwd(q, k, v, out, dout, lse, causal: bool):
                     ("dout", dout)):
         if t.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned")
-    delta = torch.empty_like(lse)
     dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
-    if sq:
-        _launch("flash_attention_bwd", q.device, q.data_ptr(), k.data_ptr(),
-                v.data_ptr(), out.data_ptr(), dout.data_ptr(), lse.data_ptr(),
-                delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-                b, h, kk, sq, skv, hd, int(bool(causal)),
-                _ATTN_DTYPE_CODE[q.dtype], symbol="attn_flash_attention_bwd")
-    else:
+    if not sq:
         dk.zero_()
         dv.zero_()
+        return dq, dk, dv
+    f32 = dict(dtype=torch.float32, device=q.device)
+    if q.dtype == torch.bfloat16:
+        n_qt = -(-sq // _BWD_QROWS)
+        rows = b * h * n_qt * _BWD_QROWS
+        scratch = (torch.empty(2 * rows, **f32),
+                   torch.empty(rows * hd, **f32),
+                   torch.zeros(1 + b * h * n_qt, dtype=torch.int32,
+                               device=q.device))
+    else:
+        scratch = (torch.empty(b * h * sq, **f32),)
+    ptrs = [t.data_ptr() for t in scratch] + [None] * (3 - len(scratch))
+    _launch("flash_attention_bwd", q.device, q.data_ptr(), k.data_ptr(),
+            v.data_ptr(), out.data_ptr(), dout.data_ptr(), lse.data_ptr(),
+            *ptrs, dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, h,
+            k.shape[2], sq, k.shape[1], hd, int(bool(causal)),
+            _ATTN_DTYPE_CODE[q.dtype], symbol="attn_flash_attention_bwd")
     return dq, dk, dv
+

@@ -766,12 +766,39 @@ def test_cuda_one_rank_nccl_sharded_fit_matches_tile(tmp_path):
     assert launches["fused_move"] == launches["fused_split"] == 0
 
 
+def bwd_inputs(shape, dtype, seed):
+    """q, k, v, dout from a seed, and B5's out and lse for them."""
+    b, sq, h, k, hd, skv, causal = shape
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    q, kk, v, do = (torch.randn(s, device="cuda", generator=gen).to(dtype)
+                    for s in ((b, sq, h, hd), (b, skv, k, hd),
+                              (b, skv, k, hd), (b, sq, h, hd)))
+    out, lse = ops.flash_attention_fwd(q, kk, v, causal)
+    return q, kk, v, out, do, lse, causal
+
+
+def rel_err(got, want):
+    """Max abs difference over the plain version's max abs; the difference
+    itself where the plain version is all zeros (dq and dk over one key,
+    where softmax has no gradient)."""
+    diff = float((got.float() - want.float()).abs().max())
+    scale = float(want.float().abs().max())
+    return diff / scale if scale > 0 else diff
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("shape", [
     # (b, sq, h, k, hd, skv, causal)
     (2, 512, 32, 4, 128, 512, True),          # Yi's heads, G = 8
     (2, 300, 4, 4, 64, 200, False),           # ragged, cross, G = 1
+    # the bf16 kernel's tiles (64 query rows, 128 keys): a partial last
+    # query and KV tile at G = 8, more queries than keys, one key
+    (2, 129, 16, 2, 128, 129, True),
+    (2, 191, 16, 2, 128, 191, True),
+    (2, 200, 8, 2, 128, 130, True),
+    (2, 100, 8, 2, 64, 1, False),
+    (4, 4096, 32, 4, 128, 4096, True),        # the trainer's call
 ])
 def test_cuda_flash_attention_bwd_matches_plain_version(shape, dtype):
     """B5-bwd against autograd through the plain version: dq, dk, dv
@@ -779,12 +806,7 @@ def test_cuda_flash_attention_bwd_matches_plain_version(shape, dtype):
     launches give the same bits."""
     need_card()
     torch.backends.cuda.matmul.allow_tf32 = False
-    b, sq, h, k, hd, skv, causal = shape
-    gen = torch.Generator(device="cuda").manual_seed(11)
-    q, kk, v, do = (torch.randn(s, device="cuda", generator=gen).to(dtype)
-                    for s in ((b, sq, h, hd), (b, skv, k, hd),
-                              (b, skv, k, hd), (b, sq, h, hd)))
-    out, lse = ops.flash_attention_fwd(q, kk, v, causal)
+    q, kk, v, out, do, lse, causal = bwd_inputs(shape, dtype, 11)
     ops.reset_launches()
     got = ops.flash_attention_bwd(q, kk, v, out, do, lse, causal)
     again = ops.flash_attention_bwd(q, kk, v, out, do, lse, causal)
@@ -794,9 +816,23 @@ def test_cuda_flash_attention_bwd_matches_plain_version(shape, dtype):
     tol = 1e-4 if dtype == torch.float32 else 2e-2
     for g, a, w in zip(got, again, want):
         assert g.dtype == dtype and torch.equal(g, a)
-        err = float((g.float() - w.float()).abs().max()
-                    / w.float().abs().max())
+        err = rel_err(g, w)
         assert err < tol, err
+
+
+@pytest.mark.cuda
+def test_cuda_flash_attention_bwd_carries_nothing_between_calls():
+    """Two bf16 shapes back to back, then the first again: the same bits
+    as its first call (the workspace and the tickets are the call's
+    own)."""
+    need_card()
+    first = bwd_inputs((2, 191, 16, 2, 128, 191, True), torch.bfloat16, 13)
+    second = bwd_inputs((4, 512, 32, 4, 128, 512, True), torch.bfloat16, 14)
+    a = ops.flash_attention_bwd(*first)
+    ops.flash_attention_bwd(*second)
+    b = ops.flash_attention_bwd(*first)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
 
 
 @pytest.mark.cuda

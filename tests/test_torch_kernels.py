@@ -339,7 +339,8 @@ LPA_SOURCES = ("label_argmax.cu", "min_label.cu", "fused_move.cu",
 def test_c_entry_points_match_ctypes_signatures():
     """Every C entry point has the argument count its ctypes binding
     declares (a mismatch would pass pointers in the wrong slots); the LPA
-    sources share ``lpa_common.cuh``."""
+    sources share ``lpa_common.cuh``, B5 and B5-bwd ``hopper_common.cuh``,
+    and the build hash covers both."""
     assert set(LPA_SOURCES) < set(build.SOURCES)
     found = {}
     for src in build.SOURCES:
@@ -348,9 +349,20 @@ def test_c_entry_points_match_ctypes_signatures():
             found[name] = len([p for p in params.split(",") if p.strip()])
         if src in LPA_SOURCES:
             assert '#include "lpa_common.cuh"' in text, src
+        if src.startswith("flash_attention"):
+            assert '#include "hopper_common.cuh"' in text, src
+    assert {"lpa_common.cuh", "hopper_common.cuh"} <= set(build.HEADERS)
     assert set(found) == set(build.SIGNATURES)
     for name, argtypes in build.SIGNATURES.items():
         assert found[name] == len(argtypes), name
+
+
+def test_bwd_scratch_tile_matches_kernel():
+    """ops sizes B5-bwd's bf16 scratch by the kernel's query-tile height:
+    ``_BWD_QROWS`` is ``kBM`` of flash_attention_bwd.cu."""
+    text = (build.CSRC / "flash_attention_bwd.cu").read_text()
+    found = re.findall(r"constexpr int kBM = (\d+);", text)
+    assert found == [str(ops._BWD_QROWS)]
 
 
 def test_source_notes_name_the_tpu_kernel():
@@ -391,6 +403,12 @@ ptxas info    : Used 38 registers, used 0 barriers, 408 bytes cmem[0]
 ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_121min_label_wide_kernelEPKiPKhS1_S1_xiiPi' for 'sm_90a'
     0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
 ptxas info    : Used 32 registers, used 0 barriers, 408 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_116bwd_wgmma_kernelILi128EEEv14CUtensorMap_stS1_S1_S1_PKfPtS4_PfPiNS_5ShapeE' for 'sm_90a'
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 168 registers, used 2 barriers, 1024 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_114dq_cast_kernelILi64EEEvPK6float4PtNS_5ShapeE' for 'sm_90a'
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 26 registers, used 1 barriers, 400 bytes cmem[0]
 """
     assert build._resources(log) == {
         "min_label_narrow<4>": {"spill_store_bytes": 0,
@@ -402,6 +420,10 @@ ptxas info    : Used 32 registers, used 0 barriers, 408 bytes cmem[0]
                                         "registers": 38},
         "min_label_wide": {"spill_store_bytes": 0, "spill_load_bytes": 0,
                            "registers": 32},
+        "bwd_wgmma<128>": {"spill_store_bytes": 0, "spill_load_bytes": 0,
+                           "registers": 168},
+        "dq_cast<64>": {"spill_store_bytes": 0, "spill_load_bytes": 0,
+                        "registers": 26},
         "label_argmax": {"spill_store_bytes": 0, "spill_load_bytes": 0,
                          "registers": 30},
         "flash_wgmma<128>": {"spill_store_bytes": 20, "spill_load_bytes": 20,
