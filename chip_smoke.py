@@ -279,6 +279,25 @@ Phases, one JSON line each:
            reduced_config("yi-9b") on the card: the loss falls by 0.5 in
            30 steps; 8 steps straight and 4 + save + resume + 4 end on
            bit-equal parameters.
+  train_sharded
+           the sharded train step (train.steps on a DeviceMesh: DTensor
+           parameters on the rules' shardings, ZeRO-1 reduce-scatter,
+           AdamW on each rank's shard, the all-gather back; B5 / B5-bwd
+           on each rank's own heads).  (a) One NCCL rank, mesh (1, 1),
+           the train phase's cell (Yi-9B full width, 8 layers, remat
+           full, 4 x 4096), 3 steps from the trainer's starting state,
+           against the one-device step from the same state: losses and
+           parameters within 0.02 (bit-equal leaves counted), step
+           seconds beside the one-device step's (the DTensor dispatch
+           cost), B5 / B5-bwd launches counted.  (b) Four gloo ranks all
+           on cuda:0, mesh (2, 2) (data, model), the same width at 2
+           layers, global batch 4 x 4096, 2 steps, against a one-rank run
+           in this process: every rank's losses identical, losses and the
+           gathered parameters within 0.02, each rank's peak device bytes
+           under the share reckoned before its run, B5 / B5-bwd launched
+           on (2, 4096, 16 / 2, 128) per rank.  (c) B5 and B5-bwd at (b)'s
+           local shapes against their plain versions, timed beside their
+           bounds and SDPA.
   audit    static analysis and the plan audit (repro_torch.analysis;
            needs main).  python -m repro_torch.launch.lint --strict in a
            subprocess (exit 0 with the committed baseline); the audit
@@ -363,7 +382,7 @@ SKEW_GRAPH = "rmat(20, 16, seed=0)"
 PHASES = ("kernels", "parity", "c1", "main", "wide_fit", "dense",
           "skew_fit", "batch", "obs", "microbatch", "stream", "ingest",
           "ooc", "serve", "sharded", "timing", "trace", "flash", "lm",
-          "lm_families", "train", "audit")
+          "lm_families", "train", "train_sharded", "audit")
 # phase -> the phases whose graphs and fits it reuses
 NEEDS = {"timing": ("main", "wide_fit"), "trace": ("main",),
          "dense": ("wide_fit",), "microbatch": ("batch",),
@@ -4035,6 +4054,372 @@ def phase_train(torch, rt, dev):
     return out
 
 
+# --------------------------------------------------------- train_sharded
+
+# The sharded trainer (train.steps on a DeviceMesh).  (a) One NCCL rank,
+# mesh (1, 1): the train phase's cell (Yi-9B at full width, TRAIN_LAYERS
+# layers, remat full, TRAIN_BATCH x TRAIN_SEQ) for SHARDED_A_STEPS steps
+# from the trainer's starting state (init_from_specs(LM_SEED)), against
+# the one-device step from the same state.  (b) SHARDED_B_MESH of gloo
+# ranks sharing cuda:0 (NCCL refuses two ranks on one card): the same
+# width cut to SHARDED_B_LAYERS layers, global batch TRAIN_BATCH x
+# TRAIN_SEQ, SHARDED_B_STEPS steps, against a one-rank run of the same
+# config in this process.  SHARDED_LOCAL is (b)'s per-rank attention
+# call: (B / dp, S, H / tp, K / tp, hd, S, causal).  Both runs take step
+# indices from SHARDED_WARMUP on, past the warmup, so every step's lr is
+# the cosine's (~SHARDED_PEAK_LR) and each gated loss, norm and parameter
+# depends on the updates before it (at index 0 the warmup's lr is 0).
+# The peak is make_train_step's default.  Adam moves an element whose
+# gradient is rounding-sized by +-lr on either run, and bf16 rounds each
+# move to whole ulps (4.9e-4 for the 0.02-scale leaves' elements of 0.06
+# to 0.12), so the parameter gate (max abs diff over a leaf's max abs,
+# LM_TOL) reads a few such ulps over ~0.12: 0.0176 at this peak on an
+# H100 80GB HBM3 (700 W); a larger peak moves it past LM_TOL.
+SHARDED_A_STEPS = 3
+SHARDED_B_MESH = (2, 2)
+SHARDED_B_LAYERS, SHARDED_B_STEPS = 2, 2
+SHARDED_LOCAL = (2, 4096, 16, 2, 128, 4096, True)
+SHARDED_TRAIN_TIMEOUT_S = 420
+SHARDED_PEAK_LR, SHARDED_WARMUP = 3e-4, 5
+# (b)'s update gate: per leaf, ||sharded - one rank|| / ||one rank - start||
+# of the final parameters, the error of the sharded run's update relative
+# to the one-rank run's.  A missing update reads 1, one applied to
+# another rank's slice about sqrt(2); bf16 rounding and the gradients'
+# sign flips where a gradient is rounding-sized read far less.
+SHARDED_UPDATE_TOL = 0.25
+
+
+def _sharded_train_batches(cfg, steps):
+    """The trainer's synthetic batches (host numpy), the same on every
+    rank."""
+    from repro_torch.data import SyntheticLMDataset
+    data = SyntheticLMDataset(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                              global_batch=TRAIN_BATCH, seed=LM_SEED)
+    return [data.next_batch() for _ in range(steps)]
+
+
+def _sharded_train_steps(torch, step, params, opt, batches, dev):
+    """Run ``step`` over ``batches`` (step indices SHARDED_WARMUP, +1,
+    ...), each step ending in its loss read: (params, opt, losses, grad
+    norms, step s)."""
+    losses, norms, step_s = [], [], []
+    for i, host in enumerate(batches, start=SHARDED_WARMUP):
+        t0 = time.perf_counter()
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in host.items()}
+        params, opt, m = step(params, opt, batch, i)
+        losses.append(float(m["loss"]))
+        step_s.append(time.perf_counter() - t0)
+        norms.append(float(m["grad_norm"]))
+    return params, opt, losses, norms, step_s
+
+
+def _sharded_train_compare(torch, full, want, start) -> dict:
+    """``full`` (a gathered tree on the card) against ``want`` (host
+    tensors), both run from ``start`` (host tensors), leaf by leaf on the
+    card: max abs diff over the leaf's max abs, how many leaves are
+    bit-equal, and the update's error ||full - want|| / ||want - start||
+    (see SHARDED_UPDATE_TOL) of each leaf that ``want``'s run moved.  A
+    leaf it left as it was (a norm's ones, where an update of ~lr is under
+    half a bf16 ulp) is listed in ``unmoved``."""
+    errs, upd, unmoved, equal = {}, {}, [], 0
+    for (name, a), (_, b), (_, s0) in zip(_tree_leaves_named(full),
+                                          _tree_leaves_named(want),
+                                          _tree_leaves_named(start)):
+        a = a.detach().float()
+        b = b.to(a.device).float()
+        equal += bool(torch.equal(a, b))
+        errs[name] = float((a - b).abs().max() / b.abs().max().clamp_min(
+            1e-30))
+        moved = float(torch.linalg.vector_norm(b - s0.to(a.device).float()))
+        if moved > 0:
+            upd[name] = float(torch.linalg.vector_norm(a - b)) / moved
+        else:
+            unmoved.append(name)
+    return {"leaves": len(errs), "bit_equal_leaves": equal,
+            "max_rel_err": max(errs.values()),
+            "worst_leaf": max(errs, key=errs.get),
+            "update_rel_err": upd, "max_update_rel_err": max(upd.values()),
+            "unmoved": unmoved}
+
+
+def _sharded_train_rank_a(rank, world, tmp):
+    """(a) One NCCL rank: the one-device step and the sharded step on a
+    (1, 1) mesh, each from the trainer's starting state."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import build, ops
+    from repro_torch.models import transformer as T
+    from repro_torch.models.common import init_from_specs
+    from repro_torch.parallel import make_mesh
+    from repro_torch.train import steps as S
+    torch.backends.cuda.matmul.allow_tf32 = False
+    build.load_library()
+    dev = torch.device("cuda", torch.cuda.current_device())
+    cfg = dataclasses.replace(get_config(LM_ARCH), n_layers=TRAIN_LAYERS)
+    batches = _sharded_train_batches(cfg, SHARDED_A_STEPS)
+    kw = dict(peak_lr=SHARDED_PEAK_LR, warmup=SHARDED_WARMUP, donate=True)
+    params = init_from_specs(T.model_specs(cfg), LM_SEED, device=dev)
+    start = _tree_map(params, lambda x: x.cpu())
+    step, *_ = S.make_train_step(cfg, None, "train_4k", **kw)
+    params, opt, losses, norms, one_s = _sharded_train_steps(
+        torch, step, params, S.init_opt_state(cfg, params), batches, dev)
+    one = {"losses": losses, "grad_norms": norms, "step_s": one_s}
+    want = _tree_map(params, lambda x: x.cpu())
+    del params, opt, step
+    torch.cuda.empty_cache()
+    mesh = make_mesh((1, 1), ("data", "model"), device_type="cuda")
+    step, rules, psh, osh = S.make_train_step(cfg, mesh, "train_4k", **kw)
+    params = S.shard_tree(_tree_map(start, lambda x: x.to(dev)), psh)
+    opt = S.init_opt_state(cfg, params, osh)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    params, opt, losses, norms, sh_s = _sharded_train_steps(
+        torch, step, params, opt, batches, dev)
+    launches = {k: ops.LAUNCHES[k] for k in ("flash_attention",
+                                             "flash_attention_bwd")}
+    peak = torch.cuda.max_memory_allocated()
+    cmp = _sharded_train_compare(torch, S.gather_tree(params), want, start)
+    return {"mesh": [1, 1], "backend": "nccl", "one_device": one,
+            "sharded": {"losses": losses, "grad_norms": norms,
+                        "step_s": sh_s, "launches": launches,
+                        "peak_device_bytes": peak},
+            "params": cmp,
+            "losses_bit_equal": losses == one["losses"],
+            "grad_norms_bit_equal": norms == one["grad_norms"],
+            "median_step_s": float(np.median(sh_s[1:])),
+            "one_device_median_step_s": float(np.median(one_s[1:])),
+            "dispatch_cost_s": float(np.median(sh_s[1:])
+                                     - np.median(one_s[1:]))}
+
+
+def _sharded_train_share(cfg, psh, osh, dp, tp) -> dict:
+    """A rank's device bytes, reckoned before the run: its parameter,
+    moment and gradient shards (a gradient lives on the parameter's
+    layout, then on the moments'), the largest parameter gathered whole
+    (the all-gather's output), AdamW's float32 temporaries of the largest
+    moment shard (``optim.adamw._update_leaf`` holds six at once),
+    remat="full"'s saved group inputs, one layer's recompute and its
+    gradients, and the float32 logits of its batch rows and vocab slice
+    with their exponentials and gradients."""
+    def local(sh, shape):
+        dims = list(shape)
+        for size, p in zip((dp, tp), sh[1]):
+            if p.is_shard():
+                dims[p.dim] = -(-dims[p.dim] // size)
+        return int(np.prod(dims))
+    from repro_torch.models import transformer as T
+    from repro_torch.models.common import abstract_from_specs
+    shapes = abstract_from_specs(T.model_specs(cfg))
+    named = list(_tree_leaves_named(shapes))
+    psh_n = dict(_tree_leaves_named(psh))
+    osh_n = dict(_tree_leaves_named(osh.m))
+    p_loc = sum(local(psh_n[n], x.shape) for n, x in named)
+    z_loc = sum(local(osh_n[n], x.shape) for n, x in named)
+    largest = max(x.numel() for _, x in named)
+    largest_z = max(local(osh_n[n], x.shape) for n, x in named)
+    b, s = TRAIN_BATCH // dp, TRAIN_SEQ
+    width = max(cfg.d_ff // tp, cfg.n_heads * cfg.head_dim // tp,
+                cfg.d_model)
+    parts = {"params": 2 * p_loc, "moments": 2 * 4 * z_loc,
+             "grads": 2 * p_loc + 2 * z_loc, "gathered_leaf": 2 * largest,
+             "adamw_temporaries": 6 * 4 * largest_z,
+             "saved_inputs": cfg.n_layers * b * s * cfg.d_model * 2,
+             "layer": 8 * b * s * width * 4,
+             "logits": 5 * b * s * (cfg.vocab_padded // tp) * 4}
+    return {"bytes": sum(parts.values()), "parts": parts}
+
+
+def _sharded_train_rank_b(rank, world, tmp):
+    """(b) One of the gloo ranks sharing cuda:0, mesh SHARDED_B_MESH."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import build, ops
+    from repro_torch.models import transformer as T
+    from repro_torch.models.common import init_from_specs
+    from repro_torch.parallel import make_mesh
+    from repro_torch.train import steps as S
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    build.load_library()
+    dev = torch.device("cuda", 0)
+    dp, tp = SHARDED_B_MESH
+    cfg = dataclasses.replace(get_config(LM_ARCH),
+                              n_layers=SHARDED_B_LAYERS)
+    batches = _sharded_train_batches(cfg, SHARDED_B_STEPS)
+    mesh = make_mesh(SHARDED_B_MESH, ("data", "model"), device_type="cuda")
+    step, _rules, psh, osh = S.make_train_step(
+        cfg, mesh, "train_4k", peak_lr=SHARDED_PEAK_LR,
+        warmup=SHARDED_WARMUP, donate=True)
+    share = _sharded_train_share(cfg, psh, osh, dp, tp)
+    full = init_from_specs(T.model_specs(cfg), LM_SEED, device=dev)
+    start = _tree_map(full, lambda x: x.cpu()) if rank == 0 else None
+    params = S.shard_tree(full, psh)
+    del full
+    opt = S.init_opt_state(cfg, params, osh)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    params, opt, losses, norms, step_s = _sharded_train_steps(
+        torch, step, params, opt, batches, dev)
+    launches = {k: ops.LAUNCHES[k] for k in ("flash_attention",
+                                             "flash_attention_bwd")}
+    peak = torch.cuda.max_memory_allocated()
+    out = {"rank": rank, "losses": losses, "grad_norms": norms,
+           "step_s": step_s, "launches": launches,
+           "peak_device_bytes": peak, "reckoned_share": share,
+           "local_attention": [list(x.to_local().shape) for x in (
+               params["groups"]["0"]["attn"]["wq"],
+               params["groups"]["0"]["attn"]["wk"])],
+           "placements": {n: str(x.placements) for n, x in
+                          _tree_leaves_named(params)}}
+    full = S.gather_tree(params)
+    if rank == 0:
+        out["params"] = _sharded_train_compare(
+            torch, full, torch.load(Path(tmp) / "one_rank.pt"), start)
+    return out
+
+
+def _sharded_kernel_fields(res, which, name) -> dict:
+    """The kernels line's fields of B5 (``fwd``) or B5-bwd (``bwd``) from
+    the train_sharded phase: launches in (a) and per rank in (b), and the
+    kernel at (b)'s local shapes beside its bound, plain version and
+    SDPA."""
+    row = res["kernels"][which]
+    err = row["max_abs_err"] if which == "fwd" else max(
+        row[f"{x}_max_abs_err"] for x in ("dq", "dk", "dv"))
+    return {
+        "train_sharded_launches": {
+            "a": res["a"]["sharded"]["launches"][name],
+            "b_per_rank": [r["launches"][name] for r in res["b"]["ranks"]]},
+        "train_sharded_local": {
+            "shape": row["shape"], "causal": row["causal"],
+            "dtype": row["dtype"], "max_abs_err": err,
+            **{k: row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                   "library_ms")}}}
+
+
+def _check_moved(which, cmp) -> None:
+    """Every matrix leaf moved in the compared run (only a norm's ones may
+    stay under half a bf16 ulp)."""
+    check(all("norm" in n for n in cmp["unmoved"]),
+          f"train_sharded {which}: leaves the run did not move: "
+          f"{cmp['unmoved']}")
+
+
+def phase_train_sharded(torch, rt, dev):
+    """Sharded training on the card: (a) one NCCL rank against the
+    one-device step, (b) four gloo ranks sharing the card against a
+    one-rank run, (c) B5 and B5-bwd at (b)'s local shapes."""
+    import dataclasses
+    import gc
+    import shutil
+    import tempfile
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import spawn_ranks
+    from repro_torch.models import transformer as T
+    from repro_torch.models.common import init_from_specs
+    from repro_torch.train import steps as S
+    out = {}
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_train_sharded_"))
+    try:
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        (a,) = spawn_ranks(_sharded_train_rank_a, 1, (str(tmp),),
+                           backend="nccl", timeout=SHARDED_TRAIN_TIMEOUT_S)
+        a["wall_s"] = time.perf_counter() - t0
+        # a (1, 1) mesh's collectives are the identity: bit for bit
+        check(a["losses_bit_equal"] and a["grad_norms_bit_equal"],
+              f"train_sharded (a): losses {a['sharded']['losses']} / grad "
+              f"norms {a['sharded']['grad_norms']} against the one-device "
+              f"step's {a['one_device']['losses']} / "
+              f"{a['one_device']['grad_norms']}")
+        check(a["params"]["bit_equal_leaves"] == a["params"]["leaves"],
+              f"train_sharded (a): parameters off the one-device step's: "
+              f"{a['params']}")
+        _check_moved("(a)", a["params"])
+        want = {"flash_attention": 2 * TRAIN_LAYERS * SHARDED_A_STEPS,
+                "flash_attention_bwd": TRAIN_LAYERS * SHARDED_A_STEPS}
+        check(a["sharded"]["launches"] == want, f"train_sharded (a): "
+              f"launches {a['sharded']['launches']}, want {want}")
+        out["a"] = a
+
+        # (b): the one-rank run here, then the gloo ranks
+        cfg = dataclasses.replace(get_config(LM_ARCH),
+                                  n_layers=SHARDED_B_LAYERS)
+        batches = _sharded_train_batches(cfg, SHARDED_B_STEPS)
+        params = init_from_specs(T.model_specs(cfg), LM_SEED, device=dev)
+        step, *_ = S.make_train_step(cfg, None, "train_4k",
+                                     peak_lr=SHARDED_PEAK_LR,
+                                     warmup=SHARDED_WARMUP, donate=True)
+        torch.cuda.reset_peak_memory_stats()
+        params, opt, losses, norms, step_s = _sharded_train_steps(
+            torch, step, params, S.init_opt_state(cfg, params), batches, dev)
+        one = {"losses": losses, "grad_norms": norms, "step_s": step_s,
+               "peak_device_bytes": torch.cuda.max_memory_allocated()}
+        torch.save(_tree_map(params, lambda x: x.cpu()), tmp / "one_rank.pt")
+        del params, opt, step
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        ranks = spawn_ranks(_sharded_train_rank_b, SHARDED_B_MESH[0]
+                            * SHARDED_B_MESH[1], (str(tmp),), backend="gloo",
+                            timeout=SHARDED_TRAIN_TIMEOUT_S)
+        b_wall = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    for r in ranks:
+        check(r["losses"] == ranks[0]["losses"], f"train_sharded (b): rank "
+              f"{r['rank']}'s losses {r['losses']} differ from rank 0's")
+        check(r["peak_device_bytes"] <= r["reckoned_share"]["bytes"],
+              f"train_sharded (b): rank {r['rank']} peaked at "
+              f"{r['peak_device_bytes']} B, over its reckoned share "
+              f"{r['reckoned_share']}")
+        want = {"flash_attention": 2 * SHARDED_B_LAYERS * SHARDED_B_STEPS,
+                "flash_attention_bwd": SHARDED_B_LAYERS * SHARDED_B_STEPS}
+        check(r["launches"] == want, f"train_sharded (b): rank {r['rank']} "
+              f"launched {r['launches']}, want {want}")
+        check(r["grad_norms"] == ranks[0]["grad_norms"], f"train_sharded "
+              f"(b): rank {r['rank']}'s grad norms {r['grad_norms']} differ "
+              f"from rank 0's")
+    for what in ("losses", "grad_norms"):
+        for x, y in zip(ranks[0][what], one[what]):
+            check(abs(x - y) <= LM_TOL * abs(y), f"train_sharded (b): "
+                  f"{what} {x} against the one-rank run's {y}")
+    got = ranks[0]["params"]
+    check(got["max_rel_err"] <= LM_TOL, f"train_sharded (b): gathered "
+          f"parameters off the one-rank run's: {got}")
+    check(got["max_update_rel_err"] <= SHARDED_UPDATE_TOL, f"train_sharded "
+          f"(b): the update off the one-rank run's: {got['update_rel_err']}")
+    _check_moved("(b)", got)
+    out["b"] = {"mesh": list(SHARDED_B_MESH), "backend": "gloo",
+                "device": "cuda:0 (every rank)", "layers": SHARDED_B_LAYERS,
+                "one_rank": one, "ranks": ranks, "wall_s": b_wall,
+                "median_step_s": float(np.median(
+                    [x for r in ranks for x in r["step_s"][1:]])),
+                "one_rank_median_step_s": float(np.median(one["step_s"][1:])),
+                "params": ranks[0]["params"]}
+    gc.collect()
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device=dev).manual_seed(31)
+    out["kernels"] = {
+        "fwd": _train_lse(torch, rt, gen, SHARDED_LOCAL, torch.bfloat16,
+                          timed=True),
+        "bwd": _train_bwd_case(torch, rt, gen, SHARDED_LOCAL,
+                               torch.bfloat16, timed=True)}
+    torch.cuda.empty_cache()
+    return out
+
+
 # ----------------------------------------------------------------- audit
 
 def _audit_rows(report) -> list:
@@ -4271,6 +4656,9 @@ def main(argv=None) -> int:
     if "train" in run:
         train = phase_train(torch, rt, dev)
         emit({"phase": "train", "nvidia_smi": smi, **train})
+    if "train_sharded" in run:
+        sharded_train = phase_train_sharded(torch, rt, dev)
+        emit({"phase": "train_sharded", "nvidia_smi": smi, **sharded_train})
     if "audit" in run:
         audit_launches, res = phase_audit(torch, rt, dev, g, fused)
         emit({"phase": "audit", "nvidia_smi": smi, **res})
@@ -4330,8 +4718,15 @@ def main(argv=None) -> int:
                        "launch per attention, encoder and cross-attention "
                        "layer and call; train_launches: the train phase's "
                        "trainer, 6 steps of Yi-9B at 8 layers, two per "
-                       "layer and step (the forward, remat's recompute)",
+                       "layer and step (the forward, remat's recompute); "
+                       "train_sharded_launches: the train_sharded phase's "
+                       "(a) 3 sharded steps at 8 layers on one NCCL rank "
+                       "and (b) 2 steps at 2 layers on each of 4 gloo "
+                       "ranks, on the rank's heads; train_sharded_local: "
+                       "B5 with lse at (b)'s local shapes (q (2, 4096, 16, "
+                       "128), k/v (2, 4096, 2, 128), causal)",
         "train_launches": train["trainer"]["b5_launches"],
+        **_sharded_kernel_fields(sharded_train, "fwd", "flash_attention"),
         "max_abs_err": fm["max_abs_err"], **{k: fm[k] for k in keys}})
     tk = train["kernels"]["main"]["bwd"]  # the trainer's call, bf16
     rows.append({
@@ -4345,11 +4740,16 @@ def main(argv=None) -> int:
                        "step (B5 twice: the forward and remat's "
                        "recompute); checked and timed at the trainer's "
                        "call: B=4, S=4096, H=32, K=4, hd=128, bf16, "
-                       "causal; library_ms: SDPA's backward",
+                       "causal; library_ms: SDPA's backward; "
+                       "train_sharded_launches: one per layer and step "
+                       "of the train_sharded phase's (a) and, per rank, "
+                       "(b); train_sharded_local: at (b)'s local shapes",
         "max_abs_err": max(tk[f"{x}_max_abs_err"] for x in ("dq", "dk",
                                                             "dv")),
         "ms_by_launch": train["trainer"]["traced_step"][
-            "b5_bwd_ms_by_launch"], **{k: tk[k] for k in keys}})
+            "b5_bwd_ms_by_launch"],
+        **_sharded_kernel_fields(sharded_train, "bwd", "flash_attention_bwd"),
+        **{k: tk[k] for k in keys}})
     emit({"kernels": rows})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

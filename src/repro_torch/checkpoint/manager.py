@@ -13,7 +13,12 @@ the other bit for bit:
   * ``save(..., blocking=False)`` hands the host copy to a writer thread;
   * ``keep`` retains the newest k checkpoints;
   * ``restore(..., shardings=)`` reshards leaves onto device meshes as
-    ``DTensor`` s (the elastic restart).
+    ``DTensor`` s (the elastic restart);
+  * ``save`` of a tree with ``DTensor`` leaves (sharded train state)
+    stores the full logical arrays, as the reference's manager does: every
+    rank gathers each leaf (``full_tensor()``, a collective), rank 0
+    alone writes, and the ranks meet at a barrier once the files are
+    there (after the write, or in ``wait()`` for ``blocking=False``).
 
 Leaves are torch tensors, numpy arrays or scalars.  Types numpy cannot
 store (bfloat16) are saved as their raw unsigned bits and viewed
@@ -90,8 +95,23 @@ def _host(leaf) -> np.ndarray:
     return v
 
 
-def _flatten_named(tree) -> dict[str, np.ndarray]:
-    return {"/".join(path): _host(leaf) for path, leaf in _walk(tree)}
+def _is_dtensor(x) -> bool:
+    from torch.distributed.tensor import DTensor
+    return isinstance(x, DTensor)
+
+
+def _flatten_named(tree, keep: bool = True) -> dict[str, np.ndarray]:
+    """Host copies of the leaves by path; a ``DTensor`` leaf as its full
+    array (``full_tensor()``, a collective every rank joins).  With
+    ``keep=False`` (a sharded save's ranks other than 0) each gathered
+    leaf is dropped at once and nothing is copied to the host."""
+    out = {}
+    for path, leaf in _walk(tree):
+        if _is_dtensor(leaf):
+            leaf = leaf.full_tensor()
+        if keep:
+            out["/".join(path)] = _host(leaf)
+    return out
 
 
 def _restore_leaf(name: str, arr: np.ndarray, ref, device) -> torch.Tensor:
@@ -154,16 +174,24 @@ class CheckpointManager:
         self.dir.mkdir(parents=True, exist_ok=True)
         self.keep = keep
         self._thread: threading.Thread | None = None
+        self._barrier = False   # a sharded save's ranks still to meet
 
     # ------------------------------------------------------------- save ----
     def save(self, step: int, tree, extra: dict | None = None,
              blocking: bool = True) -> None:
-        named = _flatten_named(tree)   # the host copy is taken here
-        if self._thread is not None:
-            self._thread.join()        # one write in flight at a time
-            self._thread = None
+        sharded = any(_is_dtensor(leaf) for _, leaf in _walk(tree))
+        writer = not sharded or torch.distributed.get_rank() == 0
+        named = _flatten_named(tree, keep=writer)  # the host copy
+        self.wait()                    # one write in flight at a time
+        if sharded:
+            self._barrier = True
+            if not writer:
+                if blocking:
+                    self.wait()
+                return
         if blocking:
             self._write(step, named, extra or {})
+            self.wait()
         else:
             self._thread = threading.Thread(
                 target=self._write, args=(step, named, extra or {}),
@@ -171,9 +199,15 @@ class CheckpointManager:
             self._thread.start()
 
     def wait(self) -> None:
+        """Until the write in flight is done (and, after a sharded save,
+        until every rank has called ``wait``)."""
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        if self._barrier:
+            import torch.distributed as dist
+            self._barrier = False
+            dist.barrier()
 
     def _write(self, step: int, named: dict, extra: dict) -> None:
         tmp = self.dir / f"tmp-{step}"

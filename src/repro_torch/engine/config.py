@@ -25,16 +25,18 @@ QUALITY = ("off", "basic", "full")
 
 # Option -> the ROADMAP item that ports it.  The attention cases wait for
 # B5 (and B5-bwd, for training) to cover them (Queue B) and raise on CUDA
-# only, where nothing falls back to the plain attention; a training mesh
-# of more than one device waits for parallel/ (Queue A, A15.3).
+# only, where nothing falls back to the plain attention; prefill and decode
+# on a mesh of more than one device wait for sharded serving (Queue A,
+# A15.3; the train step runs on a mesh).
 _B5_LATER = "Queue B, later kernel work: B5 with a window and an int8 cache"
 UNPORTED = {
     "sliding-window attention on CUDA": _B5_LATER,
     "int8 KV cache on CUDA": _B5_LATER,
     "attention head dims other than 64 and 128 on CUDA":
         "Queue B, later kernel work: B5 at other head dims",
-    "parallel/ (ZeRO-1, tensor parallel)":
-        "Queue A, A15.3: parallel/ over DTensor, on 4 chips",
+    "parallel/ serving (prefill and decode on a mesh)":
+        "Queue A, A15.3: sharded serving (head_dim-sharded caches, "
+        "sequence-parallel decode)",
 }
 
 

@@ -8,6 +8,7 @@ live metrics endpoint top-style.
     python -m repro_torch.launch.obs --graph web.mtx  # profile a real graph
     python -m repro_torch.launch.obs --trace trace.json   # chrome://tracing
     python -m repro_torch.launch.obs --json obs.json  # machine-readable
+    python -m repro_torch.launch.obs --workload audit --device cpu
     python -m repro_torch.launch.obs --workload top \\
         --endpoint http://127.0.0.1:9100              # live snapshot loop
 
@@ -17,9 +18,9 @@ loads into ``chrome://tracing`` or Perfetto; the registry dump is the
 polls a :class:`repro_torch.obs.MetricsServer`'s ``/metrics.json`` (or
 the in-process registry) and renders the busiest metrics sorted by
 activity — histograms by observation count, counters/gauges by value.
-``--workload audit`` (the JAX package's every-dispatch-family sweep) is
-not wired to this CLI yet: the workload itself is
-``repro_torch.analysis.run_workload`` (ROADMAP A14).
+``--workload audit`` runs the JAX package's every-dispatch-family sweep
+(``repro_torch.analysis.audit_workload``) on ``--device`` and prints its
+coverage.
 """
 from __future__ import annotations
 
@@ -66,10 +67,13 @@ def _fit_workload(a) -> dict:
 
 
 def _audit_workload(a) -> dict:
-    raise NotImplementedError(
-        "--workload audit is not wired to this CLI yet; run "
-        "repro_torch.analysis.audit_workload(device=...) instead (ROADMAP "
-        "Queue A, A14 (static analysis), CLI follow-up)")
+    """The audit workload (``analysis.audit_workload``) on ``--device``:
+    the JAX package's coverage line and dict."""
+    from repro_torch.analysis import audit_workload
+    coverage = audit_workload(device=a.device).coverage
+    print("[obs] audit workload coverage: "
+          + " ".join(f"{k}={v}" for k, v in sorted(coverage.items())))
+    return {"coverage": coverage}
 
 
 def _activity(value) -> float:
@@ -137,9 +141,9 @@ def main(argv=None) -> int:
         description=__doc__.splitlines()[0])
     ap.add_argument("--workload", choices=("fit", "audit", "top"),
                     default="fit",
-                    help="fit: one profiled detection; audit: not wired "
-                         "yet (A14); top: live metric snapshots from --endpoint "
-                         "(or the in-process registry)")
+                    help="fit: one profiled detection; audit: the plan-audit "
+                         "workload (its coverage); top: live metric snapshots "
+                         "from --endpoint (or the in-process registry)")
     ap.add_argument("--graph", default=None, metavar="PATH",
                     help="fit workload: real graph file (.mtx / SNAP edge "
                          "list) instead of a synthetic one")
@@ -150,7 +154,7 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--backend", default="auto")
     ap.add_argument("--device", default=None,
-                    help="fit workload: torch device (default: cuda; "
+                    help="fit and audit workloads: torch device (default: cuda; "
                          "'cpu' runs the plain kernel versions)")
     ap.add_argument("--split", default="lp",
                     choices=("none", "lp", "lpp", "bfs_host"))

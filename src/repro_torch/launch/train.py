@@ -10,6 +10,15 @@ CUDA unless ``device`` (``--device``) says otherwise; on the card every
 attention runs the flash-attention kernel and its gradient the
 flash-attention backward.
 
+On a mesh (``mesh=``, or with a process group up and no mesh a
+(world, 1) ``data`` x ``model`` mesh over the world, as the reference
+builds one over its devices) every rank runs ``run`` with the same
+arguments: the parameters and the optimizer state are placed on the
+rules' shardings, the step is the sharded one (``train.steps``), a
+checkpoint holds the full arrays (rank 0 writes) and ``--resume``
+restores onto the mesh's shardings.  With no process group it runs on
+one device.
+
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.train --arch yi-9b \
       --steps 50 --ckpt-dir /tmp/ckpt --save-every 20 [--resume] \
@@ -22,6 +31,7 @@ import dataclasses
 import time
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs import get_config, reduced_config
@@ -64,13 +74,19 @@ def run(arch: str, reduced: bool = True, steps: int = 50,
     if layers is not None:
         cfg = dataclasses.replace(cfg, n_layers=layers)
     dev = torch.device("cuda" if device is None else device)
+    if mesh is None and dist.is_initialized():
+        from repro_torch.parallel import make_mesh
+        mesh = make_mesh((dist.get_world_size(), 1), ("data", "model"),
+                         device_type=dev.type)
     shape = build_small_shape(cfg, seq_len, global_batch)
 
-    step_fn, _rules, _psh, _osh = S.make_train_step(
+    step_fn, _rules, psh, osh = S.make_train_step(
         cfg, mesh, shape, peak_lr=peak_lr, warmup=5,
         total_steps=max(steps, 100), donate=True)
     params = init_from_specs(T.model_specs(cfg), seed, device=dev)
-    opt_state = S.init_opt_state(cfg, params)
+    if psh is not None:
+        params = S.shard_tree(params, psh)
+    opt_state = S.init_opt_state(cfg, params, osh)
 
     data = SyntheticLMDataset(vocab=cfg.vocab, seq_len=seq_len,
                               global_batch=global_batch, seed=seed)
@@ -78,7 +94,9 @@ def run(arch: str, reduced: bool = True, steps: int = 50,
     start_step = 0
     if resume and mgr and mgr.latest_step() is not None:
         state = {"params": params, "opt": opt_state}
-        restored, ck_step, extra = mgr.restore(state)
+        restored, ck_step, extra = mgr.restore(
+            state, shardings=None if psh is None else
+            {"params": psh, "opt": osh})
         params, opt_state = restored["params"], restored["opt"]
         data.restore(extra["data"])
         start_step = ck_step

@@ -35,6 +35,7 @@ import torch.nn.functional as F
 from repro_torch.kernels import ops
 from repro_torch.models.common import ParamSpec, beinsum
 from repro_torch.models.layers import apply_rope, rope_frequencies
+from repro_torch.parallel.api import shard_hint
 
 __all__ = ["KVCache", "NEG_INF", "attention_decode", "attention_prefill",
            "attention_specs", "attention_train", "chunked_attention",
@@ -199,8 +200,77 @@ def _project_qkv(params, x, positions, rope_theta):
     return q, k, v
 
 
+class _ContiguousGrad(torch.autograd.Function):
+    """The identity, whose backward makes the gradient contiguous."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.contiguous()
+
+
+def _local_heads(fn, q, k, v):
+    """``fn(q, k, v)`` on each rank's own heads of DTensors q (B, S, H, hd)
+    and k / v (B, S, K, hd), and its output as a DTensor laid out as q.
+
+    Attention is independent per batch row and head: each rank runs ``fn``
+    on its local shards (B5 and B5-bwd on the card), and nothing moves
+    between ranks.  Query head h reads KV head h // G (G = H / K).  When
+    the rules shard the KV heads with the query heads, a rank's KV shard
+    is what its query heads read.  When they leave the KV heads replicated
+    (K not divisible by the mesh dimension), the rank slices out the KV
+    heads its query heads read, possibly part of a group (4 query heads of
+    one KV head); their gradients are then partial sums over that mesh
+    dimension, as each rank's is nonzero only on its slice."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    from repro_torch.parallel.compat import shard_map
+    mesh = q.device_mesh
+    h, kk = q.shape[2], k.shape[2]
+    qp, kp, kg = [], [], []
+    head_dim = None
+    for i, p in enumerate(q.placements):
+        if p == Shard(2):
+            head_dim = i
+            split = k.placements[i] == Shard(2) and kk % mesh.size(i) == 0
+            qp.append(p)
+            kp.append(Shard(2) if split else Replicate())
+            kg.append(Shard(2) if split else Partial())
+        else:
+            keep = Shard(0) if p == Shard(0) else Replicate()
+            qp.append(keep)
+            kp.append(keep)
+            kg.append(keep)
+    slice_kv = head_dim is not None and kp[head_dim] == Replicate()
+
+    def local(ql, kl, vl):
+        # DTensor's views of these gradients need them contiguous
+        ql, kl, vl = (_ContiguousGrad.apply(t) for t in (ql, kl, vl))
+        if slice_kv:
+            g, hl = h // kk, ql.shape[2]
+            lo = mesh.get_local_rank(head_dim) * hl
+            if g % hl == 0:                    # part of one group
+                idx = slice(lo // g, lo // g + 1)
+            else:                              # heads of several groups
+                idx = torch.arange(lo, lo + hl, device=ql.device) // g
+            kl, vl = kl[:, :, idx], vl[:, :, idx]
+        return fn(ql, kl.contiguous(), vl.contiguous())
+
+    return shard_map(local, mesh=mesh, in_specs=(qp, kp, kp), out_specs=qp,
+                     in_grad_specs=(qp, kg, kg))(q, k, v)
+
+
 def _self_attention(q, k, v, positions, *, causal, chunk, window,
                     quantized=False):
+    from torch.distributed.tensor import DTensor
+    if isinstance(q, DTensor):
+        return _local_heads(
+            lambda ql, kl, vl: _self_attention(
+                ql, kl, vl, positions, causal=causal, chunk=chunk,
+                window=window, quantized=quantized), q, k, v)
     if _on_card(q, window, quantized):
         return ops.flash_attention(q.contiguous(), k.contiguous(),
                                    v.contiguous(), causal=causal)
@@ -287,6 +357,16 @@ def attention_decode(params, x, cache: KVCache, *, rope_theta=10000.0,
         cache.v_scale[:, pos_l:pos_l + 1] = vs
     cache.k[:, pos_l:pos_l + 1] = k
     cache.v[:, pos_l:pos_l + 1] = v
+    if quant:
+        cache = cache._replace(
+            k_scale=shard_hint(cache.k_scale, "batch", "seq_kv", "kv_heads",
+                               None),
+            v_scale=shard_hint(cache.v_scale, "batch", "seq_kv", "kv_heads",
+                               None))
+    # pin the cache's layout (the reference's hint against resharding it)
+    cache = cache._replace(
+        k=shard_hint(cache.k, "batch", "seq_kv", "kv_heads", "head_dim"),
+        v=shard_hint(cache.v, "batch", "seq_kv", "kv_heads", "head_dim"))
     if card:
         out = ops.flash_attention(q.contiguous(), cache.k, cache.v,
                                   causal=False, kv_len=pos_l + 1)

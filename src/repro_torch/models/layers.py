@@ -106,7 +106,46 @@ def embedding_specs(vocab_padded: int, d: int) -> dict:
 
 
 def embed(params, tokens):
-    return params["table"][tokens.long()]
+    table = params["table"]
+    from torch.distributed.tensor import DTensor
+    if isinstance(table, DTensor):
+        return _sharded_embed(table, tokens)
+    return table[tokens.long()]
+
+
+def _sharded_embed(table, tokens):
+    """The lookup of a DTensor table (V, d), its vocab sharded where the
+    rules put it: each rank looks up the tokens in its own vocab slice and
+    gives zeros for the rest, a partial sum over the vocab's mesh
+    dimension (the gradient of its slice then stays on the rank).  The
+    tokens keep their batch sharding."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    from repro_torch.parallel.compat import shard_map
+    mesh, vocab = table.device_mesh, table.shape[0]
+    tab = [Shard(0) if p == Shard(0) else Replicate()
+           for p in table.placements]
+    tok_pl = (tokens.placements if isinstance(tokens, DTensor)
+              else [Replicate()] * mesh.ndim)
+    rows = [Shard(0) if p == Shard(0) and t != Shard(0) else Replicate()
+            for p, t in zip(tok_pl, tab)]
+    out = [Partial() if t == Shard(0) else r for t, r in zip(tab, rows)]
+    # a rank's own tokens give a partial gradient of a replicated table
+    grad = [Partial() if r == Shard(0) else t for t, r in zip(tab, rows)]
+
+    def local(tl, tok):
+        off = 0
+        for i, t in enumerate(tab):
+            if t == Shard(0):
+                off = mesh.get_local_rank(i) * -(-vocab // mesh.size(i))
+        n = tl.shape[0]
+        rel = tok.long() - off
+        hit = (rel >= 0) & (rel < n)
+        got = tl[rel.clamp(0, max(n - 1, 0))]
+        return torch.where(hit[..., None], got, torch.zeros_like(got))
+
+    return shard_map(local, mesh=mesh, in_specs=(tab, rows), out_specs=out,
+                     in_grad_specs=(grad, rows))(table, tokens)
 
 
 def unembed(params, x):

@@ -7,7 +7,9 @@ autograd), the encoder, prefill and one-token decode.  The parameter tree
 keeps the reference's layout, layers stacked into ``groups`` with a
 leading ``n_groups`` dimension (the encoder's into ``enc_groups``, one
 layer a group); a Python loop over the groups takes the place of
-``lax.scan`` (the sharding hints have no counterpart on one card).  Under
+``lax.scan``.  The reference's sharding hints stand at its places
+(``parallel.api.shard_hint``: a no-op on plain tensors or with no rules
+active; a redistribute of a DTensor under the train step's rules).  Under
 grad, each group runs under the config's remat policy, as the reference's
 ``_scan_groups`` applies it: ``"full"`` keeps only the group's input and
 recomputes the rest in the backward (``torch.utils.checkpoint``,
@@ -39,6 +41,7 @@ from repro_torch.models import mamba as mb
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import rwkv as rk
 from repro_torch.models.common import ParamSpec, stack_specs
+from repro_torch.parallel.api import shard_hint
 
 __all__ = ["NEG", "decode_step", "encode", "forward_train", "group_specs",
            "init_decode_caches", "loss_fn", "model_specs", "prefill"]
@@ -234,7 +237,7 @@ def _scan_groups(cfg, groups, n: int, x, body):
 def forward_train(cfg: ArchConfig, params, batch) -> torch.Tensor:
     """Token logits (B, S, vocab_padded) of the training forward; the
     VLM's S counts its ``frontend_len`` prefix."""
-    x = _embed_inputs(cfg, params, batch)
+    x = shard_hint(_embed_inputs(cfg, params, batch), "batch", None, "embed")
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
     memory = (encode(cfg, params, batch["frames"]) if cfg.kind == "encdec"
               else None)
@@ -244,11 +247,11 @@ def forward_train(cfg: ArchConfig, params, batch) -> torch.Tensor:
         for pos, kinds in enumerate(pattern):
             xc = _apply_layer_train(cfg, kinds, gp[str(pos)], xc, positions,
                                     memory)
-        return xc
+        return shard_hint(xc, "batch", None, "embed")
 
     x = _scan_groups(cfg, params["groups"], cfg.n_groups, x, body)
     x = _norm(cfg, params["final_norm"], x)
-    return _logits(cfg, params, x)
+    return shard_hint(_logits(cfg, params, x), "batch", None, "vocab")
 
 
 def encode(cfg: ArchConfig, params, frames) -> torch.Tensor:
@@ -281,9 +284,69 @@ def loss_fn(cfg: ArchConfig, params, batch) -> torch.Tensor:
         vmask = torch.arange(cfg.vocab_padded, device=logits.device) \
             < cfg.vocab
         logits = torch.where(vmask, logits, NEG)
+    return _mean_xent(logits, batch["targets"].long())
+
+
+def _mean_xent(logits, targets) -> torch.Tensor:
+    """Mean of ``logsumexp - gold logit`` over the tokens; a plain 0-d
+    tensor, the same on every rank, for DTensor ``logits``."""
+    if _is_dtensor(logits):
+        loss = torch.mean(_sharded_xent(logits, targets))
+        from torch.distributed.tensor import Replicate
+        rep = [Replicate()] * loss.device_mesh.ndim
+        return loss.redistribute(placements=rep).to_local(
+            grad_placements=rep)
     logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, batch["targets"].long()[..., None])[..., 0]
+    gold = torch.gather(logits, -1, targets[..., None])[..., 0]
     return torch.mean(logz - gold)
+
+
+def _is_dtensor(x) -> bool:
+    from torch.distributed.tensor import DTensor
+    return isinstance(x, DTensor)
+
+
+def _sharded_xent(logits, targets):
+    """Per-token ``logsumexp - gold logit`` of DTensor ``logits`` (B, S,
+    V), the vocab sharded where the rules put it, without gathering the
+    vocab: a DTensor laid out as the logits' leading dims and replicated
+    over the vocab's mesh dimensions.  One per-shard function computes it:
+    the max and the sum of exponentials reduce over the vocab's shards by
+    explicit all-reduces (this reorders the sum against
+    ``torch.logsumexp``), and so does the gold logit, picked on the rank
+    whose vocab slice holds it.  (Written as DTensor operations, the same
+    sums gave wrong gradients on a two-dimensional mesh under torch 2.11.)
+    With one vocab shard it is ``torch.logsumexp`` and a gather: the
+    one-device sums, bit for bit."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    from repro_torch.parallel.compat import mesh_max, mesh_sum, shard_map
+    mesh, lp = logits.device_mesh, tuple(logits.placements)
+    vocab = logits.shape[-1]
+    vdims = [i for i, p in enumerate(lp)
+             if p == Shard(logits.ndim - 1) and mesh.size(i) > 1]
+    tp = [p if p.is_shard() and p.dim < targets.ndim else Replicate()
+          for p in lp]
+
+    def local(lg, tg):
+        if not vdims:
+            gold = torch.gather(lg, -1, tg[..., None])[..., 0]
+            return torch.logsumexp(lg, dim=-1) - gold
+        off = 0
+        for i in vdims:   # chunked as torch.chunk splits: ceil(V / n) rows
+            off = mesh.get_local_rank(i) * -(-vocab // mesh.size(i))
+        m = mesh_max(lg.amax(dim=-1, keepdim=True), mesh, vdims)
+        logz = torch.log(mesh_sum(torch.exp(lg - m).sum(dim=-1), mesh,
+                                  vdims)) + m[..., 0]
+        n = lg.shape[-1]
+        rel = tg - off
+        hit = (rel >= 0) & (rel < n)
+        got = torch.gather(lg, -1, rel.clamp(0, max(n - 1, 0))[..., None])
+        gold = torch.where(hit, got[..., 0], torch.zeros_like(got[..., 0]))
+        return logz - mesh_sum(gold, mesh, vdims)
+
+    return shard_map(local, mesh=mesh, in_specs=(lp, tp),
+                     out_specs=tp)(logits, targets)
 
 
 # =============================================================== serving ====
@@ -389,7 +452,8 @@ def decode_step(cfg: ArchConfig, params, caches, batch):
     """One-token decode: batch['tokens'] (B, 1) -> (logits (B, 1,
     vocab_padded), caches).  The caches are written in place and returned
     with the KV caches' lengths advanced by one."""
-    x = L.embed(params["embed"], batch["tokens"])
+    x = shard_hint(L.embed(params["embed"], batch["tokens"]), "batch", None,
+                   "embed")
     pattern = cfg.group_kinds()
     g = cfg.n_groups
     is_encdec = cfg.kind == "encdec"
@@ -424,7 +488,7 @@ def prefill(cfg: ArchConfig, params, batch, s_max: int):
     """Populate decode caches from a prompt (behind the VLM's prefix; the
     encoder-decoder encodes ``batch["frames"]``); returns (last logits (B,
     vocab_padded), caches)."""
-    x = _embed_inputs(cfg, params, batch)
+    x = shard_hint(_embed_inputs(cfg, params, batch), "batch", None, "embed")
     b, s = x.shape[:2]
     positions = torch.arange(s, dtype=torch.int32, device=x.device)
     pattern = cfg.group_kinds()
@@ -476,6 +540,7 @@ def prefill(cfg: ArchConfig, params, batch, s_max: int):
             else:
                 x = _apply_mlp(cfg, mlp, p, x)
             _store(c, new_c)
+        x = shard_hint(x, "batch", None, "embed")
     x = _norm(cfg, params["final_norm"], x)
     caches = _advance(caches, s)
     if is_encdec:

@@ -1,0 +1,127 @@
+"""Logical-axis sharding hints usable from plain model code.
+
+The port's ``repro.parallel.api``.  Model code calls
+``shard_hint(x, "batch", None, "embed")`` with *logical* axis names; the
+active :class:`MeshRules` (installed by the step builders in
+``repro_torch.train``) translates them to a physical layout.  With no
+rules installed, or on a plain tensor, the hint returns ``x`` itself, so
+model code runs unchanged on one device.
+
+A physical spec is a tuple with one entry per tensor dimension: a mesh
+axis name, a tuple of several, or None (replicated), trailing Nones
+dropped (as the reference's ``PartitionSpec`` spells it).  On a ``DeviceMesh`` it becomes
+``torch.distributed.tensor`` placements: mesh dimension ``a`` is
+``Shard(i)`` when tensor dimension ``i`` names ``a``, else
+``Replicate()``.  A dimension over several axes is split over them in
+the order of the mesh's dimensions.
+"""
+from __future__ import annotations
+
+import contextlib
+import contextvars
+import dataclasses
+
+from repro_torch.parallel.compat import axis_names
+
+__all__ = ["MeshRules", "Sharding", "active_rules", "normalize_spec",
+           "placements", "shard_hint", "use_rules"]
+
+_ACTIVE: contextvars.ContextVar = contextvars.ContextVar("mesh_rules",
+                                                         default=None)
+
+
+def placements(mesh, spec: tuple) -> list:
+    """``torch.distributed.tensor`` placements of physical ``spec`` on
+    ``mesh``, one per mesh dimension."""
+    from torch.distributed.tensor import Replicate, Shard
+    out = []
+    for name in axis_names(mesh):
+        dim = next((i for i, s in enumerate(spec)
+                    if s == name or (isinstance(s, tuple) and name in s)),
+                   None)
+        out.append(Replicate() if dim is None else Shard(dim))
+    return out
+
+
+def normalize_spec(spec) -> tuple:
+    """``spec`` as ``PartitionSpec`` spells it: an entry of one axis is
+    that axis's name, trailing Nones are dropped."""
+    out = [e[0] if isinstance(e, tuple) and len(e) == 1 else e
+           for e in spec]
+    while out and out[-1] is None:
+        out.pop()
+    return tuple(out)
+
+
+class Sharding(tuple):
+    """``(mesh, placements)``, the pair ``checkpoint.manager.restore(
+    shardings=)`` takes, with the physical ``spec`` it came from."""
+
+    def __new__(cls, mesh, spec: tuple):
+        out = super().__new__(cls, (mesh, placements(mesh, spec)))
+        out.spec = tuple(spec)
+        return out
+
+    @property
+    def mesh(self):
+        return self[0]
+
+    @property
+    def placements(self) -> list:
+        return self[1]
+
+    def __reduce__(self):
+        return Sharding, (self[0], self.spec)
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshRules:
+    """Logical -> physical axis mapping."""
+    mesh: object
+    mapping: dict
+
+    def spec(self, logical: tuple) -> tuple:
+        phys = []
+        used: set = set()
+        for ax in logical:
+            m = self.mapping.get(ax) if ax is not None else None
+            # an axis may be claimed at most once per spec
+            if m is None or (isinstance(m, str) and m in used) or (
+                    isinstance(m, tuple) and any(a in used for a in m)):
+                phys.append(None)
+            else:
+                phys.append(m)
+                used.update(m if isinstance(m, tuple) else (m,))
+        return normalize_spec(phys)
+
+    def sharding(self, logical: tuple) -> Sharding:
+        return Sharding(self.mesh, self.spec(tuple(logical)))
+
+
+@contextlib.contextmanager
+def use_rules(rules: MeshRules | None):
+    token = _ACTIVE.set(rules)
+    try:
+        yield
+    finally:
+        _ACTIVE.reset(token)
+
+
+def active_rules() -> MeshRules | None:
+    return _ACTIVE.get()
+
+
+def shard_hint(x, *logical):
+    """``x`` laid out as the active rules place ``logical``: a DTensor is
+    redistributed (a layout, never a change of value); anything else, or
+    no active rules, returns ``x``."""
+    rules = _ACTIVE.get()
+    if rules is None:
+        return x
+    from torch.distributed.tensor import DTensor
+    if not isinstance(x, DTensor):
+        return x
+    mesh, pl = rules.sharding(tuple(logical))
+    if tuple(x.placements) == tuple(pl):
+        return x
+    return x.redistribute(mesh, pl)

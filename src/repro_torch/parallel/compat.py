@@ -1,0 +1,170 @@
+"""Meshes and the per-shard map, over ``torch.distributed``.
+
+The port's ``repro.parallel.compat``: every mesh and every per-shard
+function in the port is made here.
+
+  * :func:`make_mesh`: a :class:`~torch.distributed.device_mesh.DeviceMesh`
+    of ``shape`` with its dimensions named ``axes``
+    (``init_device_mesh``), on the initialised process group;
+  * :func:`abstract_mesh`: a shape-only mesh (``.shape`` maps a name to
+    its size, ``.axis_names``), so the sharding rules run with no process
+    group, as the reference's ``AbstractMesh`` lets them;
+  * :func:`shard_map`: the counterpart of ``shard_map``, over
+    ``torch.distributed.tensor.experimental.local_map``: ``f`` runs on
+    each rank's local shards, and its outputs are taken as DTensors of
+    the placements given;
+  * :func:`axis_sizes`: ``name -> size`` of either kind of mesh;
+  * :func:`mesh_sum` / :func:`mesh_max`: explicit all-reduces over mesh
+    dimensions for use inside a per-shard function;
+  * :func:`stage_gloo_all_gather`: gloo ranks on CUDA tensors stage the
+    all-gather through host memory (see there).
+
+The reference's ``auto_axis_types`` and ``cost_analysis_dict`` are
+XLA's (axis types of ``jax.make_mesh``, a compiled program's cost
+table) and have no counterpart here; ``cost_analysis_dict`` belongs to
+the dry run (``launch/dryrun.py``, ROADMAP A15.4, still to be ported).
+"""
+from __future__ import annotations
+
+import dataclasses
+
+__all__ = ["AbstractMesh", "abstract_mesh", "axis_sizes", "make_mesh",
+           "mesh_max", "mesh_sum", "shard_map", "stage_gloo_all_gather"]
+
+
+@dataclasses.dataclass(frozen=True)
+class AbstractMesh:
+    """A mesh's axis names and sizes, with no devices behind them."""
+    axis_names: tuple
+    sizes: tuple
+
+    @property
+    def shape(self) -> dict:
+        return dict(zip(self.axis_names, self.sizes))
+
+    def size(self) -> int:
+        n = 1
+        for s in self.sizes:
+            n *= s
+        return n
+
+
+def abstract_mesh(shape, axes) -> AbstractMesh:
+    """A shape-only mesh of ``shape`` with dimensions named ``axes``."""
+    if len(shape) != len(axes):
+        raise ValueError(f"mesh shape {shape} and axes {axes} differ in rank")
+    return AbstractMesh(tuple(axes), tuple(int(s) for s in shape))
+
+
+def axis_sizes(mesh) -> dict:
+    """``name -> size`` of a ``DeviceMesh`` or an :class:`AbstractMesh`."""
+    if isinstance(mesh, AbstractMesh):
+        return mesh.shape
+    return dict(zip(mesh.mesh_dim_names, mesh.shape))
+
+
+def axis_names(mesh) -> tuple:
+    if isinstance(mesh, AbstractMesh):
+        return mesh.axis_names
+    return tuple(mesh.mesh_dim_names)
+
+
+def make_mesh(shape, axes, *, device_type: str | None = None):
+    """A ``DeviceMesh`` of ``shape`` over the initialised group's ranks in
+    order, its dimensions named ``axes``.  ``device_type`` defaults to
+    ``"cuda"`` when a card is there and ``"cpu"`` otherwise; gloo ranks
+    that share a card pass ``"cuda"``: their collectives then run over
+    gloo on CUDA tensors, the all-gather staged through host memory
+    (:func:`stage_gloo_all_gather`)."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    if device_type is None:
+        device_type = "cuda" if torch.cuda.is_available() else "cpu"
+    if device_type == "cuda" and dist.get_backend() == "gloo":
+        stage_gloo_all_gather()
+    return init_device_mesh(device_type, tuple(shape),
+                            mesh_dim_names=tuple(axes))
+
+
+_STAGED: list = []
+
+
+def stage_gloo_all_gather() -> None:
+    """Route the functional all-gather of CUDA tensors (what DTensor's
+    Shard -> Replicate and ``full_tensor`` issue) through pinned host
+    memory and gloo's all-gather of host tensors, in this process.
+
+    Under gloo, that op on CUDA tensors kills the process (SIGSEGV, torch
+    2.11 on an H100) while gloo's all-reduce, reduce-scatter and
+    all-to-all of CUDA tensors run; ranks that share a card must use gloo
+    (NCCL refuses two ranks on one device).  A transport choice for gloo
+    only: the values are the all-gather's, every other collective stays
+    as it is, and NCCL's path is never touched (only gloo processes call
+    this)."""
+    if _STAGED:
+        return
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.distributed_c10d import _resolve_process_group
+
+    def staged(inp, group_size, group_name):
+        host = torch.empty(inp.shape, dtype=inp.dtype, pin_memory=True)
+        host.copy_(inp)
+        out = torch.empty((group_size * inp.shape[0], *inp.shape[1:]),
+                          dtype=inp.dtype, pin_memory=True)
+        dist.all_gather_into_tensor(out, host,
+                                    group=_resolve_process_group(group_name))
+        return out.to(inp.device)
+
+    lib = torch.library.Library("_c10d_functional", "IMPL")
+    lib.impl("all_gather_into_tensor", staged, "CUDA")
+    _STAGED.append(lib)
+
+
+def shard_map(f, *, mesh, in_specs, out_specs, in_grad_specs=None):
+    """``f`` over each rank's local shards of DTensor arguments.
+
+    ``in_specs`` / ``out_specs`` hold a placements list per argument /
+    output (None for a non-tensor argument); a DTensor argument is
+    redistributed to its placements first, and each output of ``f`` (a
+    plain tensor) becomes a DTensor of its placements.  Autograd runs
+    through: the backward of ``f`` sees local gradient shards too.
+    """
+    from torch.distributed.tensor.experimental import local_map
+    return local_map(f, out_placements=out_specs, in_placements=in_specs,
+                     in_grad_placements=in_grad_specs, device_mesh=mesh,
+                     redistribute_inputs=True)
+
+
+def mesh_sum(x, mesh, dims):
+    """``x`` summed over the ranks of the mesh dimensions ``dims`` (one
+    all-reduce each), inside a per-shard function whose ranks then use
+    the sum alike: its gradient passes to each rank's ``x`` unchanged
+    (every rank's part of the sum takes the sum's gradient)."""
+    import torch
+
+    class _MeshSum(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, t):
+            return _all_reduce(t.clone(), mesh, dims, "sum")
+
+        @staticmethod
+        def backward(ctx, g):
+            return g
+
+    return _MeshSum.apply(x)
+
+
+def mesh_max(x, mesh, dims):
+    """``x``'s elementwise max over the ranks of the mesh dimensions
+    ``dims``, with no gradient."""
+    return _all_reduce(x.detach().clone(), mesh, dims, "max")
+
+
+def _all_reduce(t, mesh, dims, op: str):
+    import torch.distributed as dist
+    red = dist.ReduceOp.SUM if op == "sum" else dist.ReduceOp.MAX
+    for d in dims:
+        dist.all_reduce(t, op=red, group=mesh.get_group(d))
+    return t

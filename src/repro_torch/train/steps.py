@@ -1,18 +1,41 @@
-"""Train / prefill / decode step builders on one device.
+"""Train / prefill / decode step builders, on one device or a mesh.
 
 The port of ``repro.train.steps``.  Each builder returns the reference's
-tuple, ``(step function, rules, param shardings, state shardings)``, with
-``None`` for the three sharding entries: the port runs on one card, and
-``state_shardings``, ``batch_shardings`` and the sharding rules wait for
-``parallel/`` (ROADMAP Queue A).  A mesh of more than one device raises
-``unported``.
+tuple, ``(step function, rules, param shardings, state shardings)``.
+
+With ``mesh=None`` (or a mesh-like object of one device that is not a
+``DeviceMesh``) the step runs on one device on plain tensors, and the
+three sharding entries are None.  With a ``DeviceMesh`` (``data`` and
+``model`` axes, and ``pod`` where given; ``parallel.make_mesh``) the
+train step is the reference's sharded step, one process per rank:
+
+  * parameters are DTensors placed by the sharding rules
+    (``state_shardings``: TP over ``model`` for heads, ff and vocab);
+    ``shard_tree`` places a tree that every rank holds in full;
+  * the batch is split over the data axes (``batch_shardings``), from
+    the full batch every rank is given;
+  * the loss and the gradients come from autograd on DTensors under the
+    rules (``use_rules``): every attention call runs on the rank's own
+    heads (B5 / B5-bwd on the card, ``models.attention``), the MoE
+    dispatches per data shard;
+  * the gradients are redistributed onto the ZeRO-1 shardings (the
+    reduce-scatter); ``optim.adamw_update`` then takes the norm of the
+    whole gradient, runs AdamW on each rank's 1/DP of the state, and
+    redistributes the parameters back to their shardings (the
+    all-gather).  One step function serves both cases: on a mesh it
+    places the batch, moves the gradients and runs under the rules.
+
+``make_prefill_step`` and ``make_decode_step`` run on one device; a mesh
+of more than one device raises ``unported`` (sharded serving comes in a
+later slice).
 
 Train step semantics (the reference's):
   * the loss in float32, parameters and gradients in the parameters'
     dtype (bf16 for the configs); gradients from autograd;
   * optional microbatch gradient accumulation: a float32 accumulator,
     each microbatch's gradient divided by k and added, cast back to the
-    parameters' dtype; the loss is the microbatches' mean;
+    parameters' dtype; the loss is the microbatches' mean (on a mesh each
+    microbatch's gradient is reduce-scattered before it is added);
   * remat comes from the arch config (``models.transformer``'s groups);
   * AdamW (``optim.adamw_update``) with the cosine lr.  ``donate``
     updates the parameters and the optimizer state in place (the
@@ -20,6 +43,9 @@ Train step semantics (the reference's):
     each.
 """
 from __future__ import annotations
+
+import contextlib
+import functools
 
 import torch
 
@@ -31,22 +57,98 @@ from repro_torch.optim import (
     adamw_update,
     cosine_schedule,
 )
-from repro_torch.optim.adamw import tree_leaves, tree_map, tree_unflatten
+from repro_torch.optim.adamw import (
+    _redistribute,
+    tree_leaves,
+    tree_map,
+    tree_unflatten,
+)
 
-__all__ = ["abstract_opt_state", "init_opt_state", "make_decode_step",
-           "make_prefill_step", "make_train_step"]
+__all__ = ["abstract_opt_state", "batch_shardings", "gather_tree",
+           "init_opt_state", "make_decode_step", "make_prefill_step",
+           "make_train_step", "shard_tree", "state_shardings"]
 
 
-def _check_mesh(mesh) -> None:
+def _mesh_size(mesh) -> int:
+    size = mesh.size
+    return size() if callable(size) else size
+
+
+def _is_device_mesh(mesh) -> bool:
+    from torch.distributed.device_mesh import DeviceMesh
+    return isinstance(mesh, DeviceMesh)
+
+
+def _check_serving_mesh(mesh) -> None:
     """None, or a mesh of one device (a ``DeviceMesh`` or anything with a
     ``size``); more raises ``unported``."""
-    if mesh is None:
-        return
-    size = mesh.size
-    n = size() if callable(size) else size
-    if n != 1:
+    if mesh is not None and _mesh_size(mesh) != 1:
         from repro_torch.engine.config import unported
-        raise unported("parallel/ (ZeRO-1, tensor parallel)")
+        raise unported("parallel/ serving (prefill and decode on a mesh)")
+
+
+def state_shardings(cfg: ArchConfig, mesh, shape: str):
+    """(rules, param shardings, optimizer-state shardings, abstract params
+    on the ``meta`` device).  The state's ``m`` and ``v`` take the ZeRO-1
+    shardings, its ``count`` is replicated."""
+    from repro_torch.models.common import abstract_from_specs, logical_axes
+    from repro_torch.parallel import (
+        Sharding,
+        make_rules,
+        param_shardings,
+        zero1_shardings,
+    )
+    specs = T.model_specs(cfg)
+    axes = logical_axes(specs)
+    rules = make_rules(mesh, cfg, shape)
+    psh = param_shardings(rules, axes)
+    abstract = abstract_from_specs(specs)
+    zsh = zero1_shardings(rules, axes, abstract)
+    osh = AdamWState(m=zsh, v=zsh, count=Sharding(mesh, ()))
+    return rules, psh, osh, abstract
+
+
+def batch_shardings(cfg: ArchConfig, mesh, shape: str, batch_tree):
+    """Batch arrays shard on the leading (batch) dim over the data axes
+    when the cell's global batch divides them, else replicate."""
+    from repro_torch.parallel import Sharding, data_axes
+    from repro_torch.parallel.rules import dp_size
+    lead = data_axes(mesh) if SHAPES[shape].global_batch % dp_size(mesh) \
+        == 0 else None
+    return tree_map(lambda x: Sharding(mesh, (lead,) if lead else ()),
+                    batch_tree)
+
+
+def shard_tree(tree, shardings):
+    """Tensors that every rank holds in full as DTensors of their
+    shardings: each rank keeps a copy of its own part (the full tensor can
+    then be freed, and is never written), with no collective.  A None
+    sharding leaves its tensor as it is.  Works on dicts and on an
+    ``AdamWState``."""
+    from torch.distributed.tensor import DTensor, distribute_tensor
+    if isinstance(tree, AdamWState):
+        return AdamWState(*(shard_tree(t, s)
+                            for t, s in zip(tree, shardings)))
+    if isinstance(tree, dict):
+        return {k: shard_tree(tree[k], shardings[k]) for k in tree}
+    if shardings is None:
+        return tree
+    mesh, pl = shardings
+    dt = distribute_tensor(tree.to(mesh.device_type), mesh, list(pl),
+                           src_data_rank=None)
+    return DTensor.from_local(dt.to_local().clone(), mesh, list(pl),
+                              shape=dt.shape, stride=dt.stride())
+
+
+def gather_tree(tree):
+    """DTensor leaves as the full tensors (``full_tensor()``, a collective
+    on every rank); other leaves as they are."""
+    from torch.distributed.tensor import DTensor
+    if isinstance(tree, AdamWState):
+        return AdamWState(*(gather_tree(t) for t in tree))
+    if isinstance(tree, dict):
+        return {k: gather_tree(v) for k, v in tree.items()}
+    return tree.full_tensor() if isinstance(tree, DTensor) else tree
 
 
 def _check_shape(shape: str) -> None:
@@ -73,7 +175,8 @@ def make_train_step(cfg: ArchConfig, mesh=None, shape: str = "train_4k",
                     peak_lr: float = 3e-4, warmup: int = 100,
                     total_steps: int = 10000, microbatch: int | None = None,
                     donate: bool = True, keep_grads: bool = False):
-    """Returns (step, None, None, None).
+    """Returns (step, rules, psh, osh): None for the last three on one
+    device.
 
     step(params, opt_state, batch, step_idx) ->
         (params, opt_state, {"loss", "grad_norm", "lr"})
@@ -86,43 +189,107 @@ def make_train_step(cfg: ArchConfig, mesh=None, shape: str = "train_4k",
     given.  ``keep_grads`` adds ``grads`` to the metrics: the gradients
     AdamW was given, in the parameters' tree (for checks against another
     device).
+
+    On a ``DeviceMesh``, ``params`` and ``opt_state`` are DTensors on
+    ``psh`` / ``osh`` (``shard_tree``, ``init_opt_state(..., osh)``) and
+    ``batch`` is the full batch, the same on every rank, or DTensors;
+    ``loss`` and ``grad_norm`` are plain 0-d tensors, the same on every
+    rank, and ``grads`` DTensors on the ZeRO-1 shardings.
     """
-    _check_mesh(mesh)
     _check_shape(shape)
+    rules = psh = osh = None
+    place = on_grads = _identity
+    context = contextlib.nullcontext
+    if mesh is not None and _is_device_mesh(mesh):
+        rules, psh, osh, _abstract = state_shardings(cfg, mesh, shape)
+        place = functools.partial(_place_batch, cfg, mesh, shape)
+        on_grads = functools.partial(_onto, shardings=osh.m)  # reduce-scatter
+        context = functools.partial(_sharded_context, rules)
+    elif mesh is not None and _mesh_size(mesh) != 1:
+        raise ValueError("a mesh of more than one device must be a "
+                         "DeviceMesh (parallel.make_mesh)")
+
+    def grads_of(params, batch):
+        loss, g = _loss_and_grads(cfg, params, place(batch))
+        return loss, on_grads(g)
 
     def compute_grads(params, batch):
-        if microbatch and microbatch > 1:
-            acc = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                                 device=p.device), params)
-            losses = []
-            parts = {k: v.reshape((microbatch, -1) + tuple(v.shape[1:]))
-                     for k, v in batch.items()}
-            for i in range(microbatch):
-                loss, g = _loss_and_grads(cfg, params,
-                                          {k: v[i] for k, v in parts.items()})
-                tree_map(lambda a, gg: a.add_(gg.to(torch.float32)
-                                              / microbatch), acc, g)
-                losses.append(loss)
-            return torch.mean(torch.stack(losses)), tree_map(
-                lambda a, p: a.to(p.dtype), acc, params)
-        return _loss_and_grads(cfg, params, batch)
+        if not (microbatch and microbatch > 1):
+            return grads_of(params, batch)
+        acc, losses = None, []
+        parts = {k: v.reshape((microbatch, -1) + tuple(v.shape[1:]))
+                 for k, v in batch.items()}
+        for i in range(microbatch):
+            loss, g = grads_of(params, {k: v[i] for k, v in parts.items()})
+            if acc is None:
+                acc = tree_map(lambda gg: torch.zeros_like(
+                    gg, dtype=torch.float32), g)
+            tree_map(lambda a, gg: a.add_(gg.to(torch.float32) / microbatch),
+                     acc, g)
+            losses.append(loss)
+        return torch.mean(torch.stack(losses)), tree_map(
+            lambda a, p: a.to(p.dtype), acc, params)
 
     def step_fn(params, opt_state, batch, step_idx):
-        loss, grads = compute_grads(params, batch)
-        lr = cosine_schedule(step_idx, peak_lr=peak_lr, warmup_steps=warmup,
-                             total_steps=total_steps)
-        new_params, new_opt, metrics = adamw_update(
-            grads, opt_state, params, float(lr), in_place=donate)
+        with context():
+            loss, grads = compute_grads(params, batch)
+            lr = cosine_schedule(step_idx, peak_lr=peak_lr,
+                                 warmup_steps=warmup,
+                                 total_steps=total_steps)
+            new_params, new_opt, metrics = adamw_update(
+                grads, opt_state, params, float(lr), in_place=donate)
         metrics.update(loss=loss, lr=lr)
         if keep_grads:
             metrics["grads"] = grads
         return new_params, new_opt, metrics
 
-    return step_fn, None, None, None
+    return step_fn, rules, psh, osh
 
 
-def init_opt_state(cfg: ArchConfig, params) -> AdamWState:
-    return adamw_init(params, _state_dtype(cfg))
+def _identity(x):
+    return x
+
+
+def _place_batch(cfg, mesh, shape, batch):
+    """The full batch (plain tensors or DTensors) split over the data axes
+    (``batch_shardings``)."""
+    from torch.distributed.tensor import DTensor
+    full = {k: v.full_tensor() if isinstance(v, DTensor) else v
+            for k, v in batch.items()}
+    return shard_tree(full, batch_shardings(cfg, mesh, shape, full))
+
+
+def _onto(tree, shardings):
+    """DTensor leaves of ``tree`` redistributed onto ``shardings``."""
+    return tree_map(lambda x, sh: _redistribute(x, sh[1]), tree, shardings)
+
+
+@contextlib.contextmanager
+def _sharded_context(rules):
+    """The rules active, plain tensors taken as replicated beside
+    DTensors."""
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.parallel import use_rules
+    with use_rules(rules), implicit_replication():
+        yield
+
+
+def init_opt_state(cfg: ArchConfig, params, osh=None) -> AdamWState:
+    """Zero moments in the config's state dtype and a zero count; with
+    ``osh`` (``state_shardings``' third entry) DTensors on it."""
+    if osh is None:
+        return adamw_init(params, _state_dtype(cfg))
+    from torch.distributed.tensor import zeros
+
+    def z(p, sh):
+        return zeros(tuple(p.shape), dtype=_state_dtype(cfg),
+                     device_mesh=sh[0], placements=list(sh[1]))
+    return AdamWState(m=tree_map(z, params, osh.m),
+                      v=tree_map(z, params, osh.v),
+                      count=zeros((), dtype=torch.int32,
+                                  device_mesh=osh.count[0],
+                                  placements=list(osh.count[1])))
 
 
 def abstract_opt_state(cfg: ArchConfig, abstract_params) -> AdamWState:
@@ -137,7 +304,7 @@ def abstract_opt_state(cfg: ArchConfig, abstract_params) -> AdamWState:
 def make_prefill_step(cfg: ArchConfig, mesh=None, shape: str = "prefill_32k"):
     """Returns (prefill, None, None, None): prefill(params, batch) -> (last
     logits, caches) with caches of ``SHAPES[shape].seq_len`` rows."""
-    _check_mesh(mesh)
+    _check_serving_mesh(mesh)
     _check_shape(shape)
     s_max = SHAPES[shape].seq_len
 
@@ -152,7 +319,7 @@ def make_decode_step(cfg: ArchConfig, mesh=None, shape: str = "decode_32k"):
     (logits, caches); the caches are written in place, always (what the
     reference's ``donate`` buys).  ``shape`` names the cell, as in
     ``make_train_step``."""
-    _check_mesh(mesh)
+    _check_serving_mesh(mesh)
     _check_shape(shape)
 
     def fn(params, caches, batch):

@@ -514,10 +514,24 @@ def test_obs_cli_fit_on_the_cpu(tmp_path, capsys):
     assert {"engine.fit", "engine.dispatch"} <= {e["name"] for e in events}
 
 
-def test_obs_cli_audit_names_its_roadmap_item():
+def test_obs_cli_audit_names_its_roadmap_item(capsys):
+    """``--workload audit`` runs the port's audit workload (A14's CLI
+    hook): the coverage line and dict the reference's CLI prints."""
+    from repro.launch.obs import main as jmain
     from repro_torch.launch.obs import main
-    with pytest.raises(NotImplementedError, match="A14"):
-        main(["--workload", "audit", "--device", "cpu"])
+
+    def coverage_line(run):
+        assert run() == 0
+        lines = [ln for ln in capsys.readouterr().out.splitlines()
+                 if ln.startswith("[obs] audit workload coverage:")]
+        assert len(lines) == 1
+        return lines[0]
+
+    want = coverage_line(lambda: jmain(["--workload", "audit"]))
+    assert coverage_line(lambda: main(["--workload", "audit", "--device",
+                                       "cpu"])) == want
+    assert want == "[obs] audit workload coverage: fits=25 ooc=True " \
+        "sharded=True"
 
 
 def test_obs_top_renders_frames_and_polls_a_server():

@@ -211,6 +211,9 @@ def test_remat_rejects_an_unknown_policy():
 
 
 def test_multi_device_mesh_raises_unported():
+    """Prefill and decode on a mesh of more than one device wait for
+    sharded serving; one device's mesh runs (the train step takes a
+    ``DeviceMesh`` of any size: tests/test_torch_train_sharded.py)."""
     class Mesh:            # a DeviceMesh's size(), without a process group
         def __init__(self, n):
             self.n = n
@@ -219,11 +222,11 @@ def test_multi_device_mesh_raises_unported():
             return self.n
     cfg = configs("yi-9b")[1]
     TS.make_train_step(cfg, Mesh(1))
-    for make in (TS.make_train_step, TS.make_prefill_step,
-                 TS.make_decode_step):
-        with pytest.raises(NotImplementedError, match="parallel/"):
+    for make in (TS.make_prefill_step, TS.make_decode_step):
+        make(cfg, Mesh(1))
+        with pytest.raises(NotImplementedError, match="parallel/ serving"):
             make(cfg, Mesh(4))
-    assert "parallel/ (ZeRO-1, tensor parallel)" in UNPORTED
+    assert "parallel/ serving (prefill and decode on a mesh)" in UNPORTED
 
 
 def test_opt_state_init_and_abstract():

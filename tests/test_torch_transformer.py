@@ -229,13 +229,13 @@ def test_init_decode_caches_match_reference(name):
 
 
 def test_unported_names_each_roadmap_item():
-    """Every family is ported and trains on one device: what stays
-    unported is B5's (Queue B), on CUDA only, and a training mesh of more
-    than one device (parallel/, A15.3)."""
+    """Every family is ported and trains on one device or a mesh: what
+    stays unported is B5's (Queue B), on CUDA only, and prefill / decode
+    on a mesh of more than one device (sharded serving, A15.3)."""
     assert set(UNPORTED) == {
         "sliding-window attention on CUDA", "int8 KV cache on CUDA",
         "attention head dims other than 64 and 128 on CUDA",
-        "parallel/ (ZeRO-1, tensor parallel)"}
+        "parallel/ serving (prefill and decode on a mesh)"}
     for k, item in UNPORTED.items():
         if k.startswith("parallel/"):
             assert "A15.3" in item and "Queue A" in item, k
