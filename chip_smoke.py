@@ -298,6 +298,49 @@ Phases, one JSON line each:
            on (2, 4096, 16 / 2, 128) per rank.  (c) B5 and B5-bwd at (b)'s
            local shapes against their plain versions, timed beside their
            bounds and SDPA.
+  serve_sharded
+           serving on a mesh (train.steps.make_prefill_step /
+           make_decode_step on a DeviceMesh: DTensor parameters and caches
+           on the rules' shardings, B5 on each rank's heads and cache
+           shard) and B5's window and int8 cases.  Gloo ranks all on
+           cuda:0, each case against a one-device run of the same model
+           in this process first (freed before the ranks start): its bf16
+           greedy tokens, then its float32 replay (the bf16 weights read
+           in float32, float32_replay) teacher forced on them, which the
+           ranks repeat on their shards, after a bf16 run of some steps
+           where the case says: (a) qwen1.5-32b at full width, 16 of 64
+           layers, its int8 cache, decode_32k's rules on (2, 2) (KV heads
+           over model, batch over data), 4 prompts of 2,048 tokens, a
+           4,096-row cache, 8 bf16 steps and 32 float32 steps; (c)
+           jamba-v0.1-52b at 8 of 32 layers under long_500k's rules on
+           (2, 2) (batch 1, the 16,384 rows over data), an 8,176-token
+           prompt and 32 float32 steps that cross into data rank 1's
+           rows; (hd) yi-9b at full width, 2 of 48 layers, on (1, 8)
+           (eight ranks; its 4 KV heads do not divide 8, so the cache
+           splits head_dim), 4 prompts of 4,088 tokens, a 4,096-row cache,
+           8 steps in bf16 and in float32.  Gates: every step's float32
+           logits within 2e-3 of the largest; every bf16 step within
+           twice the one-device bf16 run's own distance from float32 over
+           the same steps (or 0.02 where larger); every rank's logits
+           identical; each rank's peak device bytes under the share
+           reckoned before its run; B5 launched on every rank each step
+           ((c): data rank 1 only from the step whose token is its first
+           row); the bytes each (hd) rank receives through the head_dim
+           all-to-all each step (counted in parallel.compat.EXCHANGED)
+           equal to the visible rows of the KV head it reads, and none in
+           the other cases or in a prefill.  (b) starcoder2-15b at full
+           width and depth on one device: 2 prompts of 6,144 tokens (past
+           its 4,096 window), an 8,192-row cache, 32 steps: B5 launches
+           (40 a step), the key rows each launch's blocks load, counted
+           by the kernel (ops.count_kv_rows) and each decode launch's
+           held to the window's tiles, prefill and step times, finite
+           logits; its reduced config with the window cut to 64 on the
+           card against the CPU within 0.02.  B5's cases at the phase's
+           calls against the plain version, timed beside their bounds and
+           SDPA with the boolean band mask where one call computes the
+           same function: window prefill and decode, int8 decode, the
+           sequence-parallel ranks' calls with lse, and the head_dim
+           case's call after its all-to-all.
   audit    static analysis and the plan audit (repro_torch.analysis;
            needs main).  python -m repro_torch.launch.lint --strict in a
            subprocess (exit 0 with the committed baseline); the audit
@@ -315,7 +358,8 @@ Phases, one JSON line each:
            bin, the excess count and the walls in one line.
 
 The build fails the run if ptxas reports a spill in the flash kernel
-(flash_wgmma<64|128>), in B5-bwd's bf16 main pass (bwd_wgmma<64|128>) or
+(flash_wgmma<64|128, false|true>: bf16 K / V or the int8 cache), in
+B5-bwd's bf16 main pass (bwd_wgmma<64|128>) or
 in any instance of min_label or fused_split, or serialised wgmma in
 either of the first two.
 
@@ -343,7 +387,8 @@ LPA_KERNELS = ("label_argmax", "min_label", "fused_move", "fused_split")
 FLASH_MAIN = {"b": 1, "s": 4096, "h": 32, "k": 4, "hd": 128}
 # More timed calls at that width: (S, causal).
 FLASH_TIMED = ((4096, False), (16384, True))
-FLASH_KERNELS = ("flash_wgmma<64>", "flash_wgmma<128>")
+FLASH_KERNELS = ("flash_wgmma<64, false>", "flash_wgmma<128, false>",
+                 "flash_wgmma<64, true>", "flash_wgmma<128, true>")
 # B5-bwd's bf16 main pass, held to the same gate as FLASH_KERNELS.
 BWD_KERNELS = ("bwd_wgmma<64>", "bwd_wgmma<128>")
 # The lm phase: Yi-9B served at full width and depth from random weights
@@ -382,7 +427,8 @@ SKEW_GRAPH = "rmat(20, 16, seed=0)"
 PHASES = ("kernels", "parity", "c1", "main", "wide_fit", "dense",
           "skew_fit", "batch", "obs", "microbatch", "stream", "ingest",
           "ooc", "serve", "sharded", "timing", "trace", "flash", "lm",
-          "lm_families", "train", "train_sharded", "audit")
+          "lm_families", "train", "train_sharded", "serve_sharded",
+          "audit")
 # phase -> the phases whose graphs and fits it reuses
 NEEDS = {"timing": ("main", "wide_fit"), "trace": ("main",),
          "dense": ("wide_fit",), "microbatch": ("batch",),
@@ -3103,8 +3149,9 @@ def phase_lm(torch, rt, dev):
 
 class _b5_recorder:
     """While active, keeps a copy of the inputs of the first B5 call of
-    each shape in `record` (name -> (q, k, v, causal, kv_len)), named by
-    its role in `stage` ("prefill" or "decode"); launches still count."""
+    each shape in `record` (name -> (q, k, v, causal, kv_len, the other
+    keywords)), named by its role in `stage` ("prefill" or "decode");
+    launches still count."""
 
     def __init__(self, ops, record, stage):
         self.ops, self.record, self.stage = ops, record, stage
@@ -3114,7 +3161,7 @@ class _b5_recorder:
             return self
         self.orig = self.ops.flash_attention
 
-        def wrapped(q, k, v, causal=True, kv_len=None):
+        def wrapped(q, k, v, causal=True, kv_len=None, **kw):
             if self.stage == "decode":
                 name = "decode" if kv_len is not None else "cross_decode"
             elif causal:
@@ -3124,9 +3171,9 @@ class _b5_recorder:
             key = (name, tuple(q.shape), tuple(k.shape))
             if name not in self.record and key not in self.record:
                 self.record[name] = tuple(x.clone() for x in (q, k, v)) \
-                    + (causal, kv_len)
+                    + (causal, kv_len, kw)
                 self.record[key] = True
-            return self.orig(q, k, v, causal=causal, kv_len=kv_len)
+            return self.orig(q, k, v, causal=causal, kv_len=kv_len, **kw)
         self.ops.flash_attention = wrapped
         return self
 
@@ -3417,9 +3464,15 @@ def _family_b5_rows(torch, rt, record):
     for name in ("prefill", "decode", "encoder", "cross", "cross_decode"):
         if name not in record:
             continue
-        q, k, v, causal, kv_len = record[name]
-        got = ops.flash_attention(q, k, v, causal=causal, kv_len=kv_len)
-        want = ref.flash_attention_ref(q, k, v, causal, kv_len)
+        q, k, v, causal, kv_len, kw = record[name]
+        # the families' calls have no window and no int8 cache: a decode
+        # call's q_offset changes nothing there, and SDPA below is the
+        # same function
+        check(kw.get("window") is None and kw.get("k_scale") is None,
+              f"lm_families {name}: a window or int8 call recorded")
+        got = ops.flash_attention(q, k, v, causal=causal, kv_len=kv_len,
+                                  **kw)
+        want = ref.flash_attention_ref(q, k, v, causal, kv_len, **kw)
         abs_err, rel = _rel(got, want)
         check(got.shape == q.shape and bool(torch.isfinite(got).all()),
               f"lm_families {name}: malformed B5 output")
@@ -4420,6 +4473,699 @@ def phase_train_sharded(torch, rt, dev):
     return out
 
 
+# ---------------------------------------------------------- serve_sharded
+
+# Three mesh cases, each held to a one-device run of the port in this
+# process: (a) qwen1.5-32b (int8 cache) at full width and 16 of 64
+# layers, layout (a) under decode_32k's rules; (c) jamba-v0.1-52b at 8 of
+# 32 layers (as in lm_families), layout (c) under long_500k's: the
+# prompt ends 16 rows before the data ranks' boundary, so the decode
+# crosses into rank 1's rows, which start with none visible; (hd) yi-9b
+# at full width and 2 of 48 layers on (1, 8), layout (b): its 4 KV heads
+# do not divide 8, so the cache splits head_dim, and each rank's 4 query
+# heads read one KV head, whose visible rows an all-to-all makes whole.
+# Each case runs `bf16_steps` in bf16 (the serving dtype's B5 bodies on
+# the mesh, timed), then `steps` in float32 over the bf16 weights
+# (float32_replay), the run its gate reads.
+# The ranks make their shards in turn where `init_in_turns` (the whole
+# leaves' float32 draws of four ranks at once outgrow the card at
+# qwen1.5-32b: 8.4 GB for its largest), else all at once.
+SS_A = {"arch": "qwen1.5-32b", "layers": 16, "mesh": (2, 2), "batch": 4,
+        "prompt": 2048, "s_max": 4096, "steps": 32, "bf16_steps": 8,
+        "shape": "decode_32k", "init_in_turns": True}
+SS_C = {"arch": "jamba-v0.1-52b", "layers": 8, "mesh": (2, 2), "batch": 1,
+        "prompt": 8176, "s_max": 16384, "steps": 32, "bf16_steps": 0,
+        "shape": "long_500k", "init_in_turns": True}
+SS_HD = {"arch": "yi-9b", "layers": 2, "mesh": (1, 8), "batch": 4,
+         "prompt": 4088, "s_max": 4096, "steps": 8, "bf16_steps": 8,
+         "shape": "decode_32k", "init_in_turns": False}
+SS_CASES = {"a": SS_A, "c": SS_C, "hd": SS_HD}
+# the float32 mesh runs against the one-device float32 run: a few times
+# what an H100 reads at (a) and (c) (7.4e-4 and 5.1e-5)
+SS_F32_TOL = 2e-3
+# a bf16 mesh run against the one-device float32 run: no further than
+# this many times the one-device bf16 run's own distance from it over the
+# same steps, or LM_TOL where that is larger
+SS_BF16_NOISE_FACTOR = 2.0
+# (b) starcoder2-15b at full width and depth on one device, past its
+# window; its reduced config with the window cut to 64 against the CPU.
+SS_B = {"arch": "starcoder2-15b", "batch": 2, "prompt": 6144,
+        "s_max": 8192, "steps": 32}
+SS_B_SMALL = {"window": 64, "batch": 2, "prompt": 96, "s_max": 128,
+              "steps": 8}
+SS_TIMEOUT_S = 600
+SS_BK = 128        # keys per KV tile of B5's bf16 body (kBK)
+
+
+def _ss_cfg(spec):
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    cfg = get_config(spec["arch"])
+    return (dataclasses.replace(cfg, n_layers=spec["layers"])
+            if spec.get("layers") else cfg)
+
+
+def _ss_prompts(cfg, spec, seed):
+    rng = np.random.default_rng(seed)
+    return rng.integers(0, cfg.vocab, (spec["batch"], spec["prompt"])
+                        ).astype(np.int32)
+
+
+def _ss_one_device(torch, T, cfg, spec, prompts, dev):
+    """The one-device run of a mesh case in this process: prefill and
+    SS greedy steps in bf16, its tokens; then the same tokens through the
+    same weights in float32 (``float32_replay``), teacher forced, the
+    logits the mesh run is held to (host, real vocab), and the bf16
+    run's distance from them at each step."""
+    import gc
+
+    from repro_torch.kernels import ops
+    from repro_torch.models.common import float32_replay
+    from repro_torch.train import steps as S
+    params, init_s = _lm_model(torch, T, cfg, LM_SEED, dev)
+    pre, *_ = S.make_prefill_step(cfg, None, spec["shape"],
+                                  s_max=spec["s_max"])
+    dec, *_ = S.make_decode_step(cfg, None, spec["shape"])
+    ops.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lg, caches = pre(params, {"tokens": torch.from_numpy(prompts).to(dev)})
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    logits, toks, step_s = [lg[:, :cfg.vocab].float().cpu()], [], []
+    for _ in range(spec["steps"]):
+        tok = logits[-1].argmax(-1).to(torch.int32)
+        toks.append(tok)
+        t0 = time.perf_counter()
+        lg, caches = dec(params, caches, {"tokens": tok[:, None].to(dev)})
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        logits.append(lg[:, 0, :cfg.vocab].float().cpu())
+    out = {"init_s": init_s, "prefill_s": prefill_s,
+           "median_step_s": float(np.median(step_s[1:])),
+           "launches": ops.LAUNCHES["flash_attention"],
+           "peak_device_bytes": torch.cuda.max_memory_allocated()}
+    del caches, lg
+    toks = torch.stack(toks, 1)
+    f32 = float32_replay(params)
+    lg, caches = pre(f32, {"tokens": torch.from_numpy(prompts).to(dev)})
+    f32_logits = [lg[:, :cfg.vocab].float().cpu()]
+    for i in range(spec["steps"]):
+        lg, caches = dec(f32, caches, {"tokens": toks[:, i:i + 1].to(dev)})
+        f32_logits.append(lg[:, 0, :cfg.vocab].float().cpu())
+    out["bf16_vs_float32_by_step"] = [
+        _lm_rel(a, b, None) for a, b in zip(f32_logits, logits)]
+    out["bf16_vs_float32"] = max(out["bf16_vs_float32_by_step"])
+    del params, f32, caches, lg
+    gc.collect()
+    torch.cuda.empty_cache()
+    return toks, torch.stack(f32_logits), out
+
+
+def _ss_share(cfg, spec, psh, csh) -> dict:
+    """A rank's device bytes, reckoned before its run: its parameter and
+    cache shards, the largest parameter whole three times over (the
+    sharded init makes one leaf at a time: its float32 draw, its bf16
+    cast and the rank's shard), and the prefill's activations of its
+    batch rows: the residual stream, the MLP's hidden of its ff slice in
+    float32 and its heads' q / k / v."""
+    from repro_torch.models import transformer as T
+    from repro_torch.models.common import abstract_from_specs
+    dp, tp = spec["mesh"]
+
+    def local(tensor, sh):
+        dims = list(tensor.shape)
+        for size, p in zip((dp, tp), sh[1]):
+            if p.is_shard():
+                dims[p.dim] = -(-dims[p.dim] // size)
+        return int(np.prod(dims)) * tensor.element_size()
+
+    from repro_torch.models.common import PRODUCT_SUBTREES
+    shapes = dict(_tree_leaves_named(abstract_from_specs(T.model_specs(cfg))))
+    psh_n = dict(_tree_leaves_named(psh))
+    # float32_replay's upcast copies: every leaf outside the groups'
+    # product sub-trees
+    upcast = [n for n in shapes if not (n.startswith("/groups/") and
+                                        n.split("/")[3] in PRODUCT_SUBTREES)]
+    caches = T.init_decode_caches(cfg, spec["batch"], spec["s_max"],
+                                  abstract=True)
+    cache_n = {n: x for n, x in _tree_named_any(caches)
+               if hasattr(x, "shape")}
+    csh_n = dict(_tree_named_any(csh))
+    b = -(-spec["batch"] // dp) if spec["batch"] % dp == 0 else spec["batch"]
+    tokens = b * spec["prompt"]
+    width = max(cfg.d_ff // tp, cfg.n_heads_padded * cfg.head_dim // tp,
+                2 * cfg.d_inner // tp if cfg.d_inner else 0, cfg.d_model)
+    parts = {
+        "params": sum(local(x, psh_n[n]) for n, x in shapes.items()),
+        "float32_replay": sum(2 * local(shapes[n], psh_n[n])
+                              for n in upcast),
+        "caches": sum(local(x, csh_n[n]) for n, x in cache_n.items()),
+        "init_leaf": 3 * max(x.numel() * x.element_size()
+                             for x in shapes.values()),
+        "prefill_activations": 8 * tokens * width * 4}
+    return {"bytes": sum(parts.values()), "parts": parts}
+
+
+def _tree_named_any(tree, prefix=""):
+    """(name, leaf) of a tree of dicts and named tuples (a cache tree)."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _tree_named_any(tree[k], f"{prefix}{k}/")
+    elif isinstance(tree, tuple) and hasattr(type(tree), "_fields"):
+        for f in tree._fields:
+            yield from _tree_named_any(getattr(tree, f), f"{prefix}{f}/")
+    else:
+        yield prefix.rstrip("/"), tree
+
+
+def _ss_mesh_run(torch, cfg, pre, dec, params, want, steps, dev) -> dict:
+    """On this rank: the prefill of the one-device run's prompts and
+    `steps` of its tokens fed back (teacher forced); each step's logits
+    against the one-device float32 replay's, its time, its B5 launches
+    and the bytes this rank received through the head_dim all-to-all
+    (``parallel.compat.EXCHANGED``)."""
+    import hashlib
+
+    from repro_torch.kernels import ops
+    from repro_torch.parallel.compat import EXCHANGED, reset_exchanged
+    prompts = want["prompts"].to(dev)
+    ops.reset_launches()
+    reset_exchanged()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lg, caches = pre(params, {"tokens": prompts})
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    launches = [ops.LAUNCHES["flash_attention"]]
+    moved = [EXCHANGED["bytes_received"]]
+    logits, step_s = [lg[:, :cfg.vocab].float().cpu()], []
+    for i in range(steps):
+        tok = want["tokens"][:, i:i + 1].to(dev)
+        t0 = time.perf_counter()
+        lg, caches = dec(params, caches, {"tokens": tok})
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        logits.append(lg[:, 0, :cfg.vocab].float().cpu())
+        launches.append(ops.LAUNCHES["flash_attention"])
+        moved.append(EXCHANGED["bytes_received"])
+    got = torch.stack(logits)
+    errs = [float((g - w).abs().max() / w.abs().max())
+            for g, w in zip(got, want["logits"])]
+    kv = [c for n, c in _tree_named_any(caches) if n.endswith("/k")]
+    return {"prefill_s": prefill_s, "step_s": step_s,
+            "median_step_s": float(np.median(step_s[1:])),
+            "launches_total": launches[-1], "launches_prefill": launches[0],
+            "launches_per_step": [b - a for a, b in zip(launches,
+                                                        launches[1:])],
+            "exchanged_bytes_prefill": moved[0],
+            "exchanged_bytes_per_step": [b - a for a, b in
+                                         zip(moved, moved[1:])],
+            "max_rel_err": max(errs), "rel_err_by_step": errs,
+            "logits_sha256": hashlib.sha256(got.numpy().tobytes())
+            .hexdigest(),
+            "kv_dtype": str(kv[0].dtype).replace("torch.", "") if kv
+            else None,
+            "kv_placements": str(tuple(kv[0].placements)) if kv else None,
+            "kv_local_shape": list(kv[0].to_local().shape) if kv else None}
+
+
+def _ss_rank_case(torch, cfg, spec, mesh, tmp, tag, dev):
+    """One mesh case on this rank: the sharded init (the ranks in turn
+    where the case says),
+    `bf16_steps` in bf16, then `steps` in float32 over the bf16 shards
+    (``float32_replay``)."""
+    import gc
+
+    import torch.distributed as dist
+
+    from repro_torch.models import transformer as T
+    from repro_torch.models.common import float32_replay, init_from_specs
+    from repro_torch.train import steps as S
+    pre, rules, psh, csh = S.make_prefill_step(cfg, mesh, spec["shape"],
+                                               s_max=spec["s_max"])
+    dec, *_ = S.make_decode_step(cfg, mesh, spec["shape"])
+    share = _ss_share(cfg, spec, psh, csh)
+    want = torch.load(Path(tmp) / f"{tag}.pt")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    turns = spec["init_in_turns"]
+    t0 = time.perf_counter()
+    for turn in range(mesh.size() if turns else 1):
+        if turn == mesh.get_rank() or not turns:
+            params = init_from_specs(T.model_specs(cfg), LM_SEED,
+                                     device=dev, shardings=psh)
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+        dist.barrier()
+    init_s = time.perf_counter() - t0
+    out = {"rank": mesh.get_rank(), "init_s": init_s}
+    if spec["bf16_steps"]:
+        out["bf16"] = _ss_mesh_run(torch, cfg, pre, dec, params, want,
+                                   spec["bf16_steps"], dev)
+        gc.collect()
+        torch.cuda.empty_cache()
+    params = float32_replay(params)
+    out["float32"] = _ss_mesh_run(torch, cfg, pre, dec, params, want,
+                                  spec["steps"], dev)
+    out.update(peak_device_bytes=torch.cuda.max_memory_allocated(),
+               reckoned_share=share)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _ss_rank(rank, world, tmp, tags):
+    """One of the gloo ranks sharing cuda:0: the cases `tags`, which
+    share one mesh shape."""
+    import os
+
+    # the processes' caching allocators share one card
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
+                          "expandable_segments:True")
+    import torch
+
+    from repro_torch.kernels import build
+    from repro_torch.parallel import make_mesh
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    build.load_library()
+    dev = torch.device("cuda", 0)
+    mesh = make_mesh(SS_CASES[tags[0]]["mesh"], ("data", "model"),
+                     device_type="cuda")
+    return {tag: _ss_rank_case(torch, _ss_cfg(SS_CASES[tag]),
+                               SS_CASES[tag], mesh, tmp, tag, dev)
+            for tag in tags}
+
+
+def _ss_tile_rows(kv_len, window, bk=SS_BK) -> int:
+    """Key rows a decode block of B5 loads with its query at kv_len - 1:
+    whole KV tiles from the one that holds its oldest visible key, up to
+    kv_len (the kernel's first_tile / end_tile)."""
+    first = 0 if window is None else max(0, kv_len - window) // bk * bk
+    return kv_len - first
+
+
+def _ss_starcoder(torch, T, dev):
+    """(b) starcoder2-15b at full width and depth on one device; every
+    B5 launch counts the key rows its blocks load (``ops.count_kv_rows``,
+    a zeroed 3-int64 buffer a launch), each decode launch's held to the
+    window's tiles."""
+    import gc
+
+    from repro_torch.kernels import ops
+    from repro_torch.train import steps as S
+    cfg = _ss_cfg(SS_B)
+    params, init_s = _lm_model(torch, T, cfg, LM_SEED, dev)
+    prompts = torch.from_numpy(_ss_prompts(cfg, SS_B, 21)).to(dev)
+    pre, *_ = S.make_prefill_step(cfg, None, "decode_32k",
+                                  s_max=SS_B["s_max"])
+    dec, *_ = S.make_decode_step(cfg, None, "decode_32k")
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    torch.cuda.synchronize()
+    with ops.count_kv_rows() as counted:
+        t0 = time.perf_counter()
+        lg, caches = pre(params, {"tokens": prompts})
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        prefill_launches = ops.LAUNCHES["flash_attention"]
+        finite = bool(torch.isfinite(lg[:, :cfg.vocab]).all())
+        step_s, per_step = [], []
+        for _ in range(SS_B["steps"]):
+            tok = lg[..., :cfg.vocab].reshape(lg.shape[0], -1).argmax(-1)
+            before = ops.LAUNCHES["flash_attention"]
+            t0 = time.perf_counter()
+            lg, caches = dec(params, caches,
+                             {"tokens": tok.to(torch.int32)[:, None]})
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+            per_step.append(ops.LAUNCHES["flash_attention"] - before)
+            finite &= bool(torch.isfinite(lg[..., :cfg.vocab]).all())
+    check(finite, "serve_sharded (b): non-finite logits")
+    check(per_step == [cfg.n_layers] * SS_B["steps"], f"serve_sharded (b): "
+          f"B5 launches per decode step {per_step}, want {cfg.n_layers}")
+    check(prefill_launches == cfg.n_layers, f"serve_sharded (b): prefill "
+          f"launched {prefill_launches}, want {cfg.n_layers}")
+    check(len(counted) == cfg.n_layers * (1 + SS_B["steps"]),
+          f"serve_sharded (b): {len(counted)} launches counted their rows")
+    prefill_c, decode_c = counted[:cfg.n_layers], counted[cfg.n_layers:]
+    for c in decode_c:
+        want = _ss_tile_rows(c["kv_len"], cfg.window)
+        check(c["max_rows"] == want and c["rows"] == want * c["blocks"],
+              f"serve_sharded (b): a decode launch at kv_len {c['kv_len']} "
+              f"loaded {c}, want {want} rows a block")
+    first, last = decode_c[0], decode_c[-1]
+    out = {"layers": cfg.n_layers, "window": cfg.window,
+           "batch": SS_B["batch"], "prompt": SS_B["prompt"],
+           "s_max": SS_B["s_max"], "init_s": init_s,
+           "prefill_s": prefill_s, "step_s": step_s,
+           "median_step_s": float(np.median(step_s[1:])),
+           "launches_prefill": prefill_launches,
+           "launches_per_step": per_step,
+           "rows_loaded_per_decode_block": {
+               "first_step": {"kv_len": first["kv_len"],
+                              "rows": first["max_rows"]},
+               "last_step": {"kv_len": last["kv_len"],
+                             "rows": last["max_rows"]}},
+           "rows_loaded_per_prefill_launch": {
+               "rows": prefill_c[0]["rows"],
+               "blocks": prefill_c[0]["blocks"],
+               "max_rows": prefill_c[0]["max_rows"]},
+           "peak_device_bytes": torch.cuda.max_memory_allocated()}
+    del params, caches, lg
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+def _ss_starcoder_small(torch, T, dev):
+    """(b)'s gate: reduced starcoder2-15b, its window cut to 64, prefill
+    and decode on the card (B5 with the window) against the CPU's plain
+    path on the same weights."""
+    import dataclasses
+
+    from repro_torch.configs import reduced_config
+    from repro_torch.kernels import ops
+    sp = SS_B_SMALL
+    cfg = dataclasses.replace(reduced_config(SS_B["arch"]),
+                              window=sp["window"])
+    cpu, _ = _lm_model(torch, T, cfg, LM_SEED, torch.device("cpu"))
+    toks = torch.from_numpy(np.random.default_rng(23).integers(
+        0, cfg.vocab, (sp["batch"], sp["prompt"] + sp["steps"]))
+        .astype(np.int32))
+    runs = []
+    ops.reset_launches()
+    for d in (torch.device("cpu"), dev):
+        params = _tree_map(cpu, lambda x: x.to(d))
+        with torch.inference_mode():
+            lg, caches = T.prefill(cfg, params, {
+                "tokens": toks[:, :sp["prompt"]].to(d)}, sp["s_max"])
+            seq = [lg]
+            for i in range(sp["prompt"], sp["prompt"] + sp["steps"]):
+                lg, caches = T.decode_step(cfg, params, caches, {
+                    "tokens": toks[:, i:i + 1].to(d)})
+                seq.append(lg[:, 0])
+        runs.append([x.float().cpu() for x in seq])
+    err = max(_lm_rel(w, g, cfg.vocab) for w, g in zip(*runs))
+    check(err <= LM_TOL, f"serve_sharded (b): reduced starcoder2-15b with "
+          f"window {sp['window']} on the card off the CPU's by {err}")
+    want = cfg.n_layers * (1 + sp["steps"])
+    check(ops.LAUNCHES["flash_attention"] == want, f"serve_sharded (b): "
+          f"the reduced run launched {ops.LAUNCHES['flash_attention']} "
+          f"B5, want {want}")
+    return {"window": sp["window"], "prompt": sp["prompt"],
+            "steps": sp["steps"], "max_rel_err": err, "tol": LM_TOL,
+            "launches": want}
+
+
+def _ss_kernel_row(torch, rt, case, q, k, v, kw, *, lse=False,
+                   library=None, library_null=None):
+    """B5 at one of the phase's calls against its plain version (on the
+    same card tensors), both timed, with its bound: the bytes (q, the
+    visible K / V rows it reads and their scales, the output and lse,
+    each once) and the operations (QK^T and PV over its visible (query,
+    key) pairs), the larger time; SDPA's time where one call computes
+    the same function."""
+    ops, ref = rt.ops, rt.ref
+    b, sq, h, hd = q.shape
+    kk = k.shape[2]
+    call = ((lambda: ops.flash_attention_fwd(q, k, v, **kw)) if lse
+            else (lambda: ops.flash_attention(q, k, v, **kw)))
+    got = call()
+    got = got[0] if lse else got
+    plain = lambda: ref.flash_attention_ref(  # noqa: E731
+        q, k, v, kw["causal"], kw.get("kv_len"), window=kw.get("window"),
+        q_offset=kw.get("q_offset", 0), k_scale=kw.get("k_scale"),
+        v_scale=kw.get("v_scale"))
+    want = plain()
+    diff, rel = _rel(got, want)
+    tol = LM_KERNEL_TOL if q.dtype == torch.bfloat16 else 1e-5
+    check(rel <= tol, f"serve_sharded kernels {case}: B5 off its plain "
+          f"version by {rel} (max abs {diff})")
+    kv_len = kw.get("kv_len") or k.shape[1]
+    q_off, window = kw.get("q_offset", 0), kw.get("window")
+    pos = np.arange(sq)[:, None] + q_off
+    key = np.arange(kv_len)[None, :]
+    vis = key <= pos if kw["causal"] else np.ones((sq, kv_len), bool)
+    if window is not None:
+        vis &= pos - key < window
+    pairs = int(vis.sum())
+    read_rows = int(vis.any(0).sum())
+    elem = 1 if k.dtype == torch.int8 else q.element_size()
+    scales = 2 * 2 if k.dtype == torch.int8 else 0
+    bytes_ = (2 * q.numel() * q.element_size()
+              + b * read_rows * kk * (2 * hd * elem + scales)
+              + (b * h * sq * 4 if lse else 0))
+    operations = 4 * b * h * hd * pairs
+    ops_ms = operations / BF16_OPS_PER_S * 1e3
+    bytes_ms = bytes_ / HBM_BYTES_PER_S * 1e3
+    row = {"case": case, "q": list(q.shape), "kv": list(k.shape),
+           "kv_dtype": str(k.dtype).replace("torch.", ""),
+           "kw": {n: x for n, x in kw.items() if not torch.is_tensor(x)},
+           "max_abs_err": diff, "rel_err": rel, "tol": tol,
+           "visible_rows": read_rows, "operations": operations,
+           "bytes": bytes_, "bound_ms": max(ops_ms, bytes_ms),
+           "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+           "ms": _time_ms(torch, call, reps=10, warmup=2),
+           "plain_ms": _time_ms(torch, plain, reps=2, warmup=1)}
+    row["library_ms"] = (None if library is None
+                         else _time_ms(torch, library, reps=10, warmup=2))
+    if library_null is not None:
+        row["library_null_reason"] = library_null
+    return row
+
+
+def _ss_sdpa_band(torch, q, k, v, kv_len, q_off, window, causal=True):
+    """SDPA over the visible prefix with the boolean band mask (query i at
+    q_off + i sees keys p <= it, fewer than ``window`` back)."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    sq = q.shape[1]
+    qt = q.transpose(1, 2).contiguous()
+    kt, vt = (x[:, :kv_len].transpose(1, 2).contiguous() for x in (k, v))
+    pos = torch.arange(sq, device=q.device)[:, None] + q_off
+    key = torch.arange(kv_len, device=q.device)[None, :]
+    mask = key <= pos if causal else torch.ones_like(pos - key, dtype=bool)
+    if window is not None:
+        mask = mask & (pos - key < window)
+    return lambda: sdpa(qt, kt, vt, attn_mask=mask, enable_gqa=True)
+
+
+def _ss_kernels(torch, rt, dev):
+    """B5's cases at the phase's calls: the window prefill and decode of
+    (b), the int8 decode of (a)'s ranks, the sequence-parallel ranks'
+    local calls of (c) with lse, and the local call of the head_dim case
+    after its all-to-all."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.attention import quantize_kv
+    gen = torch.Generator(device=dev).manual_seed(32)
+    bf16 = torch.bfloat16
+    rows = []
+    sc = get_config(SS_B["arch"])
+    h, kk, hd, w = sc.n_heads_padded, sc.n_kv_padded, sc.head_dim, sc.window
+    b, s = SS_B["batch"], SS_B["prompt"]
+    q, k, v = _qkv(torch, gen, b, s, h, kk, hd, s, bf16)
+    rows.append(_ss_kernel_row(
+        torch, rt, "window_prefill", q, k, v, dict(causal=True, window=w),
+        library=_ss_sdpa_band(torch, q, k, v, s, 0, w)))
+    del q, k, v
+    L = SS_B["prompt"] + SS_B["steps"]
+    q, k, v = _qkv(torch, gen, b, 1, h, kk, hd, SS_B["s_max"], bf16)
+    rows.append(_ss_kernel_row(
+        torch, rt, "window_decode", q, k, v,
+        dict(causal=True, kv_len=L, window=w, q_offset=L - 1),
+        library=_ss_sdpa_band(torch, q, k, v, L, L - 1, w)))
+    qc = _ss_cfg(SS_A)
+    dp, tp = SS_A["mesh"]
+    ha, ka = qc.n_heads_padded // tp, qc.n_kv_padded // tp
+    ba, L = SS_A["batch"] // dp, SS_A["prompt"] + SS_A["steps"]
+    q, k, v = _qkv(torch, gen, ba, 1, ha, ka, qc.head_dim, SS_A["s_max"],
+                   bf16)
+    (k8, ks), (v8, vs) = quantize_kv(k), quantize_kv(v)
+    rows.append(_ss_kernel_row(
+        torch, rt, "int8_decode", q, k8, v8,
+        dict(causal=True, kv_len=L, q_offset=L - 1, k_scale=ks, v_scale=vs),
+        library_null="no PyTorch call reads int8 K / V with per-token "
+                     "scales"))
+    jc = _ss_cfg(SS_C)
+    dp, tp = SS_C["mesh"]
+    hc, kc = jc.n_heads_padded // tp, jc.n_kv_padded // tp
+    half = SS_C["s_max"] // dp
+    L = SS_C["prompt"] + SS_C["steps"]
+    q, k, v = _qkv(torch, gen, 1, 1, hc, kc, jc.head_dim, half, bf16)
+    for r in range(dp):
+        kv_len = min(L, (r + 1) * half) - r * half
+        rows.append(_ss_kernel_row(
+            torch, rt, f"sp_rank{r}_decode_lse", q, k, v,
+            dict(causal=True, kv_len=kv_len, q_offset=L - 1 - r * half),
+            lse=True, library_null="no PyTorch call returns the "
+            "log-sum-exp beside the output"))
+    yc = _ss_cfg(SS_HD)
+    hb = yc.n_heads // SS_HD["mesh"][1]
+    L = SS_HD["prompt"] + SS_HD["steps"]
+    q, k, v = _qkv(torch, gen, SS_HD["batch"], 1, hb,
+                   _ss_kv_asked(yc, SS_HD), yc.head_dim, SS_HD["s_max"],
+                   bf16)
+    rows.append(_ss_kernel_row(
+        torch, rt, "head_dim_exchange_decode", q, k, v,
+        dict(causal=True, kv_len=L, q_offset=L - 1),
+        library=_ss_sdpa_band(torch, q, k, v, L, L - 1, None)))
+    del q, k, v
+    torch.cuda.empty_cache()
+    return rows
+
+
+def _ss_kv_asked(cfg, spec) -> int:
+    """The KV heads a rank's query heads read in the head_dim case (the
+    model's ``attention._kv_index``): one when they lie in one group."""
+    hl = cfg.n_heads_padded // spec["mesh"][1]
+    g = cfg.n_heads_padded // cfg.n_kv_padded
+    return 1 if g % hl == 0 else hl // g if hl % g == 0 else hl
+
+
+def _ss_exchange_bytes(cfg, spec, kv_len, elem) -> int:
+    """What a rank receives through the head_dim all-to-all at a decode
+    step over kv_len rows: per attention layer, K and V, the other ranks'
+    head dims of the visible rows of the KV heads it reads."""
+    tp = spec["mesh"][1]
+    attn = sum(1 for m, _ in cfg.layer_kinds() if m == "attn")
+    return (attn * 2 * (tp - 1) * spec["batch"] * kv_len
+            * _ss_kv_asked(cfg, spec) * (cfg.head_dim // tp) * elem)
+
+
+def _ss_kernel_fields(res) -> dict:
+    """The kernels line's fields of B5 from the serve_sharded phase:
+    launches on each run's path, the rows its decode blocks loaded, the
+    head_dim all-to-all's bytes and the cases at its calls."""
+    keys = ("case", "q", "kv", "kv_dtype", "kw", "max_abs_err", "ms",
+            "plain_ms", "bound_ms", "bound_by", "library_ms")
+    hd = res["hd"]["ranks"][0]["bf16"]
+    return {
+        "serve_sharded_launches": {
+            **{f"{tag}_{run}_per_rank": [r[run]["launches_total"]
+                                         for r in res[tag]["ranks"]]
+               for tag in ("a", "c", "hd") for run in ("bf16", "float32")
+               if run in res[tag]["ranks"][0]},
+            "b": res["b"]["launches_prefill"]
+            + sum(res["b"]["launches_per_step"])},
+        "serve_sharded_rows_loaded": res["b"]["rows_loaded_per_decode_block"],
+        "serve_sharded_exchange": {
+            "bytes_per_rank_step": hd["exchanged_bytes_per_step"],
+            "layers": res["hd"]["layers"], "kv_dtype": hd["kv_dtype"]},
+        "serve_sharded_cases": [
+            {**{k: row.get(k) for k in keys},
+             **{k: row[k] for k in row if k.endswith("_reason")}}
+            for row in res["kernels"]]}
+
+
+def _ss_gate(tag, spec, one, rs) -> dict:
+    """The gates of mesh case `tag` on its ranks' results `rs`, and its
+    summary."""
+    cfg = _ss_cfg(spec)
+    attn = sum(1 for m, _ in cfg.layer_kinds() if m == "attn")
+    dp = spec["mesh"][0]
+    for r in rs:
+        check(r["peak_device_bytes"] <= r["reckoned_share"]["bytes"],
+              f"serve_sharded ({tag}): rank {r['rank']} peaked at "
+              f"{r['peak_device_bytes']} B, over its reckoned share "
+              f"{r['reckoned_share']}")
+        for run in ("bf16", "float32"):
+            if run not in r:
+                continue
+            got = r[run]
+            steps = len(got["launches_per_step"])
+            if run == "float32":
+                bound = SS_F32_TOL
+            else:
+                noise = one["bf16_vs_float32_by_step"][:steps + 1]
+                bound = max(LM_TOL, SS_BF16_NOISE_FACTOR * max(noise))
+            got["bound"] = bound
+            check(got["max_rel_err"] <= bound, f"serve_sharded ({tag}) "
+                  f"{run}: rank {r['rank']}'s logits off the one-device "
+                  f"float32 run's by {got['max_rel_err']} (bound {bound})")
+            check(got["logits_sha256"] == rs[0][run]["logits_sha256"],
+                  f"serve_sharded ({tag}) {run}: rank {r['rank']}'s logits "
+                  f"differ from rank 0's")
+            check(got["launches_total"] > 0, f"serve_sharded ({tag}) "
+                  f"{run}: rank {r['rank']} launched no B5")
+            # (c): data rank 1 starts with no visible row and launches
+            # only once the decode crosses into its rows
+            cross = spec["s_max"] // dp - spec["prompt"]
+            want = ([0] * cross + [attn] * (steps - cross)
+                    if tag == "c" and r["rank"] // spec["mesh"][1] else
+                    [attn] * steps)
+            check(got["launches_per_step"] == want, f"serve_sharded ({tag}) "
+                  f"{run}: rank {r['rank']} per-step launches "
+                  f"{got['launches_per_step']}, want {want}")
+            elem = {"bfloat16": 2, "float32": 4, "int8": 1}[got["kv_dtype"]]
+            moved = [_ss_exchange_bytes(cfg, spec, spec["prompt"] + i + 1,
+                                        elem) if tag == "hd" else 0
+                     for i in range(steps)]
+            check(got["exchanged_bytes_prefill"] == 0
+                  and got["exchanged_bytes_per_step"] == moved,
+                  f"serve_sharded ({tag}) {run}: rank {r['rank']} received "
+                  f"{got['exchanged_bytes_per_step']} B a step through the "
+                  f"head_dim all-to-all, want {moved}")
+    return {**spec, "layers": cfg.n_layers, "one_device": one, "ranks": rs,
+            **{f"{run}_max_rel_err": max(r[run]["max_rel_err"] for r in rs)
+               for run in ("bf16", "float32") if run in rs[0]},
+            **{f"{run}_median_step_s": float(np.median(
+                [x for r in rs for x in r[run]["step_s"][1:]]))
+               for run in ("bf16", "float32") if run in rs[0]}}
+
+
+def phase_serve_sharded(torch, rt, dev):
+    """Serving on a mesh and B5's window / int8 cases at full width."""
+    import gc
+    import shutil
+    import tempfile
+
+    from repro_torch.launch.mesh import spawn_ranks
+    from repro_torch.models import transformer as T
+    out = {"backend": "gloo", "device": "cuda:0 (every rank)"}
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_serve_sharded_"))
+    one, ranks, wall = {}, {}, {}
+    try:
+        for seed, (tag, spec) in enumerate(SS_CASES.items(), 11):
+            cfg = _ss_cfg(spec)
+            prompts = _ss_prompts(cfg, spec, seed)
+            torch.cuda.reset_peak_memory_stats()
+            toks, logits, one[tag] = _ss_one_device(
+                torch, T, cfg, spec, prompts, dev)
+            torch.save({"prompts": torch.from_numpy(prompts),
+                        "tokens": toks, "logits": logits},
+                       tmp / f"{tag}.pt")
+        gc.collect()
+        torch.cuda.empty_cache()
+        for tags in (("a", "c"), ("hd",)):
+            dp, tp = SS_CASES[tags[0]]["mesh"]
+            t0 = time.perf_counter()
+            res = spawn_ranks(_ss_rank, dp * tp, (str(tmp), tags),
+                              backend="gloo", timeout=SS_TIMEOUT_S)
+            wall["+".join(tags)] = time.perf_counter() - t0
+            for tag in tags:
+                ranks[tag] = [r[tag] for r in res]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    emit({"phase": "serve_sharded_ranks", "one_device": one,
+          "ranks": {tag: [{"rank": r["rank"], "peak_device_bytes":
+                           r["peak_device_bytes"],
+                           **{run: {k: r[run][k] for k in (
+                               "max_rel_err", "rel_err_by_step",
+                               "launches_per_step", "median_step_s",
+                               "exchanged_bytes_per_step", "kv_placements")}
+                              for run in ("bf16", "float32") if run in r}}
+                          for r in rs] for tag, rs in ranks.items()}})
+    for tag, spec in SS_CASES.items():
+        out[tag] = _ss_gate(tag, spec, one[tag], ranks[tag])
+    out["ranks_wall_s"] = wall
+    out["b"] = _ss_starcoder(torch, T, dev)
+    out["b"]["reduced_vs_cpu"] = _ss_starcoder_small(torch, T, dev)
+    out["kernels"] = _ss_kernels(torch, rt, dev)
+    return out
+
+
 # ----------------------------------------------------------------- audit
 
 def _audit_rows(report) -> list:
@@ -4659,6 +5405,9 @@ def main(argv=None) -> int:
     if "train_sharded" in run:
         sharded_train = phase_train_sharded(torch, rt, dev)
         emit({"phase": "train_sharded", "nvidia_smi": smi, **sharded_train})
+    if "serve_sharded" in run:
+        serve_sharded = phase_serve_sharded(torch, rt, dev)
+        emit({"phase": "serve_sharded", "nvidia_smi": smi, **serve_sharded})
     if "audit" in run:
         audit_launches, res = phase_audit(torch, rt, dev, g, fused)
         emit({"phase": "audit", "nvidia_smi": smi, **res})
@@ -4724,9 +5473,29 @@ def main(argv=None) -> int:
                        "and (b) 2 steps at 2 layers on each of 4 gloo "
                        "ranks, on the rank's heads; train_sharded_local: "
                        "B5 with lse at (b)'s local shapes (q (2, 4096, 16, "
-                       "128), k/v (2, 4096, 2, 128), causal)",
+                       "128), k/v (2, 4096, 2, 128), causal); "
+                       "serve_sharded_launches: the serve_sharded phase's "
+                       "mesh runs per rank, bf16 (flash_wgmma) and "
+                       "float32 (flash_fma): (a) qwen1.5-32b on (2, 2), "
+                       "16 layers, int8 cache, a prefill and 8 / 32 "
+                       "steps; (c) jamba on (2, 2), sequence-parallel, "
+                       "data rank 1 from its first row, float32; (hd) "
+                       "yi-9b on (1, 8), 2 layers, head_dim split, a "
+                       "prefill and 8 steps each; and (b) starcoder2-15b "
+                       "on one device (40 layers, window 4096, a prefill "
+                       "and 32 steps); serve_sharded_rows_loaded: the key "
+                       "rows each of (b)'s decode blocks loaded, counted "
+                       "by the kernel (ops.count_kv_rows); "
+                       "serve_sharded_exchange: the bytes each (hd) rank "
+                       "received a decode step through the head_dim "
+                       "all-to-all (parallel.compat.EXCHANGED), bf16; "
+                       "serve_sharded_cases: B5 at that phase's calls "
+                       "(window prefill and decode, int8 decode, the SP "
+                       "ranks' calls with lse, the head_dim case's call "
+                       "after its all-to-all)",
         "train_launches": train["trainer"]["b5_launches"],
         **_sharded_kernel_fields(sharded_train, "fwd", "flash_attention"),
+        **_ss_kernel_fields(serve_sharded),
         "max_abs_err": fm["max_abs_err"], **{k: fm[k] for k in keys}})
     tk = train["kernels"]["main"]["bwd"]  # the trainer's call, bf16
     rows.append({

@@ -25,18 +25,13 @@ QUALITY = ("off", "basic", "full")
 
 # Option -> the ROADMAP item that ports it.  The attention cases wait for
 # B5 (and B5-bwd, for training) to cover them (Queue B) and raise on CUDA
-# only, where nothing falls back to the plain attention; prefill and decode
-# on a mesh of more than one device wait for sharded serving (Queue A,
-# A15.3; the train step runs on a mesh).
-_B5_LATER = "Queue B, later kernel work: B5 with a window and an int8 cache"
+# only, where nothing falls back to the plain attention.
 UNPORTED = {
-    "sliding-window attention on CUDA": _B5_LATER,
-    "int8 KV cache on CUDA": _B5_LATER,
     "attention head dims other than 64 and 128 on CUDA":
         "Queue B, later kernel work: B5 at other head dims",
-    "parallel/ serving (prefill and decode on a mesh)":
-        "Queue A, A15.3: sharded serving (head_dim-sharded caches, "
-        "sequence-parallel decode)",
+    "B5-bwd with a sliding window (training under a window on CUDA)":
+        "Queue B, later kernel work: B5-bwd with a window (starcoder2-15b "
+        "training)",
 }
 
 

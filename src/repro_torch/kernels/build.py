@@ -39,10 +39,12 @@ SIGNATURES = {
     "lpa_fused_move": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _LL, _I, _I, _P,
                        _P, _P),
     "lpa_fused_split": (_P, _P, _P, _P, _P, _I, _LL, _I, _P, _P),
-    # q, k, v, out, lse (or null); B, H, K, Sq, Skv (visible keys), KV
-    # rows, hd, causal, dtype code; stream
-    "attn_flash_attention": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                             _I, _I, _P),
+    # q, k, v, out, lse (or null), k / v scales (int8 K / V, or null),
+    # the rows-read count (or null); B, H, K, Sq, Skv (visible keys), KV
+    # rows, hd, causal, window (0: none), query row 0's key position,
+    # dtype code; stream
+    "attn_flash_attention": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                             _I, _I, _I, _I, _I, _I, _I, _P),
     # q, k, v, out, dout, lse, stats, dq workspace, tickets (scratch), dq,
     # dk, dv; B, H, K, Sq, Skv, hd, causal, dtype code; stream
     "attn_flash_attention_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,

@@ -18,17 +18,28 @@ its plain version.  On CUDA, when grad mode is on and q, k or v requires
 grad, the call is a ``torch.autograd.Function``: its forward launches B5
 with the per-row log-sum-exp (``lse``) and saves q, k, v, the output and
 ``lse``; its backward launches B5-bwd (``flash_attention_bwd``).  Without
-grad the launch is the serving one, which writes no ``lse``.
+grad the launch is the serving one, which writes no ``lse``.  B5 also
+takes a sliding window and an int8 K / V cache with its per-(row, KV
+head) scales (serving only: B5-bwd has neither), and
+``flash_attention_fwd`` returns ``lse`` beside the output for any of
+them (a sequence-parallel decode combines its ranks by it).
+
+``count_kv_rows()`` makes the B5 launches inside it also count the key
+rows their blocks load (what a window or ``kv_len`` leaves out of the
+reads shows there); the output is the same either way.
 """
 from __future__ import annotations
+
+import contextlib
 
 import torch
 
 from repro_torch.kernels import build, ref
 
-__all__ = ["LAUNCHES", "MAX_DEGREE", "flash_attention", "flash_attention_bwd",
-           "flash_attention_fwd", "fused_move", "fused_split", "label_argmax",
-           "min_label", "reset_launches", "resolve_fuse"]
+__all__ = ["LAUNCHES", "MAX_DEGREE", "count_kv_rows", "flash_attention",
+           "flash_attention_bwd", "flash_attention_fwd", "fused_move",
+           "fused_split", "label_argmax", "min_label", "reset_launches",
+           "resolve_fuse"]
 
 # Kernel launches per op since the last reset (CUDA path only).
 LAUNCHES: dict[str, int] = {"label_argmax": 0, "min_label": 0,
@@ -47,6 +58,35 @@ _BWD_QROWS = 64
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+# The B5 launches' row counts while ``count_kv_rows`` is active, else None.
+_KV_ROWS: list | None = None
+
+
+@contextlib.contextmanager
+def count_kv_rows():
+    """Count the key rows each B5 launch inside the block loads.
+
+    Yields a list that gets one dict per launch on leaving the block:
+    ``rows`` (summed over the launch's blocks, one per batch, query head
+    and query tile), ``blocks`` and ``max_rows`` (the most one block
+    loads), as the kernel counted them; its shape and masks beside
+    (``B``, ``H``, ``K``, ``Sq``, ``kv_len``, ``window``, ``q_offset``).
+    A block loads whole KV tiles from the one that holds its oldest
+    visible key, and nothing at or past ``kv_len``.  CPU calls add
+    nothing."""
+    global _KV_ROWS
+    outer, _KV_ROWS = _KV_ROWS, []
+    got = []
+    try:
+        yield got
+    finally:
+        mine, _KV_ROWS = _KV_ROWS, outer
+        for counts, shape in mine:
+            rows, blocks, most = (int(x) for x in counts.tolist())
+            got.append({**shape, "rows": rows, "blocks": blocks,
+                        "max_rows": most})
 
 
 def resolve_fuse(fuse_sweeps: str, device) -> bool:
@@ -218,9 +258,11 @@ def fused_split(nbr, nmask, labels, comm, chg, prune: bool):
     return out
 
 
-def _check_attention(q, k, v) -> None:
-    """q (B, Sq, H, hd) and k / v (B, Skv, K, hd): one dtype B5 takes, hd
-    64 or 128, H % K == 0, contiguous, on one CPU or CUDA device."""
+def _check_attention(q, k, v, k_scale=None, v_scale=None) -> None:
+    """q (B, Sq, H, hd) and k / v (B, Skv, K, hd): one dtype B5 takes (k /
+    v int8 with bf16 ``k_scale`` / ``v_scale`` (B, Skv, K, 1) when those
+    are given), hd 64 or 128, H % K == 0, contiguous, on one CPU or CUDA
+    device."""
     if q.dim() != 4 or k.dim() != 4:
         raise ValueError(f"q and k must be 4-D, got {tuple(q.shape)} and "
                          f"{tuple(k.shape)}")
@@ -229,10 +271,13 @@ def _check_attention(q, k, v) -> None:
     if tuple(k.shape) != (b, skv, kk, hd) or tuple(v.shape) != tuple(k.shape):
         raise ValueError(f"k and v must be (B, Skv, K, hd) = (b, ., ., {hd}) "
                          f"alike, got {tuple(k.shape)} and {tuple(v.shape)}")
-    if q.dtype not in _ATTN_DTYPE_CODE or not (q.dtype == k.dtype == v.dtype):
-        raise ValueError(f"q, k, v must share one dtype of "
-                         f"{list(_ATTN_DTYPE_CODE)}, got {q.dtype}, "
-                         f"{k.dtype}, {v.dtype}")
+    quant = k_scale is not None or v_scale is not None
+    kv_dtype = torch.int8 if quant else q.dtype
+    if q.dtype not in _ATTN_DTYPE_CODE or not (k.dtype == v.dtype
+                                               == kv_dtype):
+        raise ValueError(f"q must be one of {list(_ATTN_DTYPE_CODE)} and k, "
+                         f"v {'int8' if quant else 'of its dtype'}, got "
+                         f"{q.dtype}, {k.dtype}, {v.dtype}")
     if hd not in _ATTN_HEAD_DIMS:
         raise ValueError(f"head dim {hd} not in {_ATTN_HEAD_DIMS}")
     if kk < 1 or h % kk or skv < 1:
@@ -242,41 +287,95 @@ def _check_attention(q, k, v) -> None:
     if not (k.device == v.device == dev) or dev.type not in ("cpu", "cuda"):
         raise ValueError(f"q, k, v must lie on one CPU or CUDA device, got "
                          f"{q.device}, {k.device}, {v.device}")
-    for name, t in (("q", q), ("k", k), ("v", v)):
+    tensors = [("q", q), ("k", k), ("v", v)]
+    if quant:
+        for name, t in (("k_scale", k_scale), ("v_scale", v_scale)):
+            if t is None:
+                raise ValueError("k_scale and v_scale come together")
+            _check_tile(name, t, torch.bfloat16, (b, skv, kk, 1), dev)
+            tensors.append((name, t))
+    for name, t in tensors:
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
 
 
-def _flash_launch(q, k, v, causal: bool, kv_len: int, lse=None):
+def _host_int(name: str, x, lo: int, hi: int | None = None) -> int:
+    """``x`` as a host int in [lo, hi]; a device scalar here would cost a
+    sync per launch."""
+    if (isinstance(x, (bool, torch.Tensor)) or not hasattr(x, "__index__")
+            or x.__index__() < lo or (hi is not None and x.__index__() > hi)):
+        raise ValueError(f"{name} must be a host int in [{lo}, "
+                         f"{'inf' if hi is None else hi}], got {x!r}")
+    return x.__index__()
+
+
+def _mask_args(q, k, kv_len, window, q_offset):
+    """(kv_len, window or None, q_offset) checked: every query row must
+    see at least one key."""
+    skv, sq = k.shape[1], q.shape[1]
+    kv_len = _host_int("kv_len", skv if kv_len is None else kv_len, 1, skv)
+    q_offset = _host_int("q_offset", q_offset, 0)
+    if window is not None:
+        window = _host_int("window", window, 1)
+        # the last row's oldest visible key must lie below kv_len
+        if sq and q_offset + sq - window >= kv_len:
+            raise ValueError(f"query rows {q_offset}..{q_offset + sq - 1} "
+                             f"see no key under window {window} and "
+                             f"kv_len {kv_len}")
+    return kv_len, window, q_offset
+
+
+def _flash_launch(q, k, v, causal: bool, kv_len: int, lse=None,
+                  window=None, q_offset: int = 0, k_scale=None,
+                  v_scale=None):
     """One B5 launch into a new output; ``lse`` (B, H, Sq) float32, if
     given, takes each query row's log-sum-exp."""
     b, sq, h, hd = q.shape
     skv, kk = k.shape[1], k.shape[2]
+    # TMA reads q, k and v; the scales are read element by element
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned")
     out = torch.empty_like(q)
+    counts = None
+    if _KV_ROWS is not None and sq and b:
+        counts = torch.zeros(3, dtype=torch.int64, device=q.device)
+        _KV_ROWS.append((counts, {"B": b, "H": h, "K": kk, "Sq": sq,
+                                  "kv_len": kv_len, "window": window,
+                                  "q_offset": q_offset}))
     if sq and b:
         _launch("flash_attention", q.device, q.data_ptr(), k.data_ptr(),
                 v.data_ptr(), out.data_ptr(),
-                None if lse is None else lse.data_ptr(), b, h, kk, sq,
-                kv_len, skv, hd, int(bool(causal)), _ATTN_DTYPE_CODE[q.dtype],
+                None if lse is None else lse.data_ptr(),
+                None if k_scale is None else k_scale.data_ptr(),
+                None if v_scale is None else v_scale.data_ptr(),
+                None if counts is None else counts.data_ptr(), b, h, kk,
+                sq, kv_len, skv, hd, int(bool(causal)), window or 0,
+                q_offset, _ATTN_DTYPE_CODE[q.dtype],
                 symbol="attn_flash_attention")
     return out
 
 
-def flash_attention_fwd(q, k, v, causal: bool = True):
-    """``flash_attention`` over every key, with each query row's
-    log-sum-exp of its scaled scores: (out, lse (B, H, Sq) float32), what
-    ``flash_attention_bwd`` reads (see ``ref.attention_lse_ref``).  Not
+def flash_attention_fwd(q, k, v, causal: bool = True, kv_len=None,
+                        window=None, q_offset: int = 0, k_scale=None,
+                        v_scale=None):
+    """``flash_attention`` with each query row's log-sum-exp of its
+    scaled, masked scores: (out, lse (B, H, Sq) float32), what
+    ``flash_attention_bwd`` reads and what a sequence-parallel decode
+    combines its ranks by (see ``ref.attention_lse_ref``).  Not
     differentiable itself."""
-    _check_attention(q, k, v)
+    _check_attention(q, k, v, k_scale, v_scale)
+    kv_len, window, q_offset = _mask_args(q, k, kv_len, window, q_offset)
+    mask = dict(window=window, q_offset=q_offset)
     if q.device.type == "cpu":
-        return (ref.flash_attention_ref(q, k, v, causal),
-                ref.attention_lse_ref(q, k, causal))
+        return (ref.flash_attention_ref(q, k, v, causal, kv_len, **mask,
+                                        k_scale=k_scale, v_scale=v_scale),
+                ref.attention_lse_ref(q, k, causal, kv_len, **mask,
+                                      k_scale=k_scale))
     b, sq, h, _hd = q.shape
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
-    return _flash_launch(q, k, v, causal, k.shape[1], lse), lse
+    return _flash_launch(q, k, v, causal, kv_len, lse, **mask,
+                         k_scale=k_scale, v_scale=v_scale), lse
 
 
 class _FlashAttention(torch.autograd.Function):
@@ -297,40 +396,50 @@ class _FlashAttention(torch.autograd.Function):
         return dq, dk, dv, None
 
 
-def flash_attention(q, k, v, causal: bool = True, kv_len: int | None = None):
+def flash_attention(q, k, v, causal: bool = True, kv_len: int | None = None,
+                    window: int | None = None, q_offset: int = 0,
+                    k_scale=None, v_scale=None):
     """GQA attention of q (B, Sq, H, hd) over k/v (B, Skv, K, hd), the
     models' layout in and out (see ``ref.flash_attention_ref``).
 
-    Query head h reads KV head ``h // (H // K)``; under ``causal`` query i
-    sees keys 0..i, both counted from 0.  ``kv_len`` (a host int, default
-    Skv) is the count of visible keys: keys at and past it are masked and,
-    on the card, never read, while batches stay Skv rows apart (a decode
-    step over the first L + 1 rows of a cache).  bfloat16 or float32, hd
-    64 or 128, contiguous.  Returns (B, Sq, H, hd) in q's dtype.
+    Query head h reads KV head ``h // (H // K)``; query row i sits at key
+    position ``q_offset + i`` (a host int, default 0; a decode step's
+    query at ``kv_len - 1``), keys counted from 0.  ``causal`` hides the
+    keys after a row's position, ``window`` (a host int) those ``window``
+    or more positions before it (the reference's sliding window; on the
+    card its tiles are not read), and ``kv_len`` (a host int, default
+    Skv) the keys at and past it: they are never read on the card, while
+    batches stay Skv rows apart (a decode step over the first L + 1 rows
+    of a cache).  Every query row must see a key.  bfloat16 or float32,
+    hd 64 or 128, contiguous; k / v int8 with their bf16 (B, Skv, K, 1)
+    ``k_scale`` / ``v_scale`` (an int8 cache, ``models.attention.
+    quantize_kv``), dequantised in float32.  Returns (B, Sq, H, hd) in
+    q's dtype.
 
     Differentiable: on CUDA under grad (q, k or v requiring it) the call
-    runs B5 with ``lse`` and its backward B5-bwd; ``kv_len < Skv`` then
-    raises ``ValueError``.
+    runs B5 with ``lse`` and its backward B5-bwd over every key; there
+    ``kv_len < Skv``, a ``q_offset`` or int8 K / V raise ``ValueError``
+    and a window raises ``unported`` (B5-bwd has no window yet).
     """
-    _check_attention(q, k, v)
-    skv = k.shape[1]
-    kv_len = skv if kv_len is None else kv_len
-    # a host int: a device scalar here would cost a sync per launch
-    if (isinstance(kv_len, (bool, torch.Tensor))
-            or not hasattr(kv_len, "__index__")
-            or not 1 <= kv_len.__index__() <= skv):
-        raise ValueError(f"kv_len must be a host int in [1, Skv={skv}], got "
-                         f"{kv_len!r}")
-    kv_len = kv_len.__index__()
+    _check_attention(q, k, v, k_scale, v_scale)
+    kv_len, window, q_offset = _mask_args(q, k, kv_len, window, q_offset)
+    mask = dict(window=window, q_offset=q_offset)
     if q.device.type == "cpu":
-        return ref.flash_attention_ref(q, k, v, causal, kv_len)
+        return ref.flash_attention_ref(q, k, v, causal, kv_len, **mask,
+                                       k_scale=k_scale, v_scale=v_scale)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
-        if kv_len < skv:
-            raise ValueError("kv_len < Skv under grad: B5-bwd takes every "
-                             "key (training never masks keys)")
+        if window is not None:
+            from repro_torch.engine.config import unported
+            raise unported("B5-bwd with a sliding window (training under a "
+                           "window on CUDA)")
+        if kv_len < k.shape[1] or q_offset or k_scale is not None:
+            raise ValueError("kv_len < Skv, a q_offset or int8 K / V under "
+                             "grad: B5-bwd takes every key of a bf16 or "
+                             "float32 K / V from row 0")
         return _FlashAttention.apply(q, k, v, bool(causal))
-    return _flash_launch(q, k, v, causal, kv_len)
+    return _flash_launch(q, k, v, causal, kv_len, **mask, k_scale=k_scale,
+                         v_scale=v_scale)
 
 
 def flash_attention_bwd(q, k, v, out, dout, lse, causal: bool):

@@ -138,31 +138,46 @@ def fused_split_ref(nbr, nmask, labels, comm, chg, prune: bool):
     return torch.where(wake, mres, labels[:rows])
 
 
-def flash_attention_ref(q, k, v, causal: bool, kv_len: int | None = None):
-    """Attention of q (B, Sq, H, hd) over k/v (B, Skv, K, hd), positions
-    counted from 0 on both sides: ``chunked_attention`` in chunks of
-    ``min(512, Skv)``, returned in q's dtype.  ``kv_len`` masks the keys at
-    and past it (``chunked_attention``'s ``kv_valid_len``)."""
-    pos_q = torch.arange(q.shape[1], dtype=torch.int32, device=q.device)
+def flash_attention_ref(q, k, v, causal: bool, kv_len: int | None = None,
+                        window: int | None = None, q_offset: int = 0,
+                        k_scale=None, v_scale=None):
+    """Attention of q (B, Sq, H, hd) over k/v (B, Skv, K, hd), keys at
+    positions 0.., query row i at ``q_offset + i``: ``chunked_attention``
+    in chunks of ``min(512, Skv)``, returned in q's dtype.  ``kv_len``
+    masks the keys at and past it (``chunked_attention``'s
+    ``kv_valid_len``), ``window`` the keys ``window`` or more positions
+    before a query; int8 k / v are dequantised by ``k_scale`` /
+    ``v_scale`` chunk by chunk."""
+    pos_q = torch.arange(q.shape[1], dtype=torch.int32,
+                         device=q.device) + q_offset
     pos_k = torch.arange(k.shape[1], dtype=torch.int32, device=q.device)
     return _attention.chunked_attention(q, k, v, pos_q, pos_k,
                                         causal=causal,
                                         chunk=min(512, k.shape[1]),
-                                        kv_valid_len=kv_len)
+                                        window=window, kv_valid_len=kv_len,
+                                        k_scale=k_scale, v_scale=v_scale)
 
 
-def attention_lse_ref(q, k, causal: bool):
+def attention_lse_ref(q, k, causal: bool, kv_len: int | None = None,
+                      window: int | None = None, q_offset: int = 0,
+                      k_scale=None):
     """Each query row's log-sum-exp of its scaled, masked scores (B, H,
-    Sq) float32, positions from 0: the statistics B5 writes for its
-    backward."""
+    Sq) float32, under ``flash_attention_ref``'s masks (-inf for a row
+    that sees no key): the statistics B5 writes for its backward and for
+    a sequence-parallel decode's combine."""
     b, sq, h, hd = q.shape
     kk = k.shape[2]
+    kf = k.float() if k_scale is None else k.float() * k_scale.float()
     qg = q.reshape(b, sq, kk, h // kk, hd).float() * (1.0 / (hd ** 0.5))
-    s = torch.einsum("bqkgd,bckd->bkgqc", qg, k.float())
+    s = torch.einsum("bqkgd,bckd->bkgqc", qg, kf)
+    pos_q = torch.arange(sq, device=q.device)[:, None] + q_offset
+    pos_k = torch.arange(k.shape[1], device=q.device)[None, :]
+    hide = pos_k >= (k.shape[1] if kv_len is None else kv_len)
     if causal:
-        pos_q = torch.arange(sq, device=q.device)
-        pos_k = torch.arange(k.shape[1], device=q.device)
-        s = s.masked_fill(pos_q[:, None] < pos_k[None, :], float("-inf"))
+        hide = hide | (pos_q < pos_k)
+    if window is not None:
+        hide = hide | (pos_q - pos_k >= window)
+    s = s.masked_fill(hide, float("-inf"))
     return torch.logsumexp(s, dim=-1).reshape(b, h, sq)
 
 

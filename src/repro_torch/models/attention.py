@@ -10,13 +10,15 @@ Where the attention runs:
   * a CUDA tensor goes through B5 (``ops.flash_attention``): training and
     prefill causal over positions 0..S-1 (the kernel counts positions from
     0, as the models' callers do), decode with ``kv_len = L + 1`` over the
-    cache in place, cross attention non-causal.  Under grad (training, the
-    encoder and cross attention included) the call is differentiable: B5
-    also writes each query row's log-sum-exp, and the backward runs B5's
-    hand-written backward (B5-bwd) from it.  What B5 does not cover (a
-    sliding window, an int8 cache, head dims other than 64 and 128) raises
-    ``unported``: nothing falls back to the plain attention on the card, so
-    ``starcoder2-15b`` (window) neither serves nor trains there yet;
+    cache in place (int8 with its scales, dequantised in the kernel), the
+    query at position L, cross attention non-causal; a sliding window
+    goes to the kernel too.  Under grad (training, the encoder and cross
+    attention included) the call is differentiable: B5 also writes each
+    query row's log-sum-exp, and the backward runs B5's hand-written
+    backward (B5-bwd) from it.  What B5 does not cover (head dims other
+    than 64 and 128; under grad, a window) raises ``unported``: nothing
+    falls back to the plain attention on the card, so ``starcoder2-15b``
+    serves there but does not train yet;
   * a CPU tensor goes through ``chunked_attention`` with the reference's
     arguments (``chunk``; decode and cross ``min(2048, Skv)``), so its
     float32 sums fold in the reference's order, every case included.
@@ -24,6 +26,28 @@ Where the attention runs:
 ``KVCache.length`` is a host ``int``: the serving loop knows it, and a
 device scalar would cost a host read per step.  Decode writes the new K/V
 into the cache in place and returns it (the reference returns a new one).
+
+On a mesh (serving under ``make_prefill_step`` / ``make_decode_step``'s
+rules) the activations are DTensors and a cache's fields are DTensors on
+the rules' shardings; ``_attend_on_mesh`` runs each rank's B5 call on its
+own query heads and cache shard (or encoder memory) in one of the three
+layouts the rules give (``parallel.rules.make_rules``):
+
+  (a) KV heads over ``model``, batch over the data axes: the rank's
+      shard is what its heads read, and nothing moves;
+  (b) ``head_dim`` over ``model`` (the KV heads do not divide it): one
+      all-to-all over ``model`` (``parallel.compat.exchange_dim``) makes
+      the visible rows of the KV heads that the rank's query heads read
+      whole on their head dims for the call, the stored cache stays
+      split (the K / V projections are whole on every rank:
+      ``parallel.rules.serving_param_shardings``);
+  (c) ``seq_kv`` over the data axes (a batch that does not divide them):
+      each rank attends over its own visible rows with ``lse``, and the
+      outputs combine by it (``parallel.compat.lse_combine``); only the
+      rank that owns row L writes the token's K/V.
+
+The int8 cache and the window compose with all three; a cache write is
+made in local terms (``parallel.compat.write_rows``).
 """
 from __future__ import annotations
 
@@ -57,25 +81,28 @@ class KVCache(NamedTuple):
     v_scale: torch.Tensor | None = None
 
 
-def _on_card(q: torch.Tensor, window=None, quantized: bool = False) -> bool:
+def _on_card(q: torch.Tensor) -> bool:
     """True when the attention of ``q`` runs in B5 (q on CUDA); raises
-    there for a case B5 does not cover.  False on the CPU."""
+    there for a head dim B5 does not cover.  False on the CPU."""
     if q.device.type != "cuda":
         return False
     from repro_torch.engine.config import unported   # the engine imports us
-    if window is not None:
-        raise unported("sliding-window attention on CUDA")
-    if quantized:
-        raise unported("int8 KV cache on CUDA")
     if q.shape[-1] not in _KERNEL_HEAD_DIMS:
         raise unported("attention head dims other than 64 and 128 on CUDA")
     return True
 
 
-def quantize_kv(x: torch.Tensor):
-    """Symmetric per-(token, head) int8: (B, S, K, hd) -> (q8, bf16 scale)."""
+def quantize_kv(x: torch.Tensor, reduce_amax=None):
+    """Symmetric per-(token, head) int8: (B, S, K, hd) -> (q8, bf16 scale).
+
+    ``reduce_amax`` (optional) takes the per-(token, head) max magnitude
+    of x's head dims to the whole head's, where x holds a rank's part of
+    them (an all-reduce over the ranks that split ``head_dim``), so each
+    part rounds by the whole head's scale: the one-device values."""
     xf = x.float()
     amax = xf.abs().amax(dim=-1, keepdim=True)
+    if reduce_amax is not None:
+        amax = reduce_amax(amax)
     scale = amax.clamp_min(1e-6) / 127.0
     q = torch.round(xf / scale).clamp(-127, 127)
     return q.to(torch.int8), scale.to(torch.bfloat16)
@@ -212,6 +239,19 @@ class _ContiguousGrad(torch.autograd.Function):
         return g.contiguous()
 
 
+def _kv_index(h: int, kk: int, h0: int, hl: int, device):
+    """The KV heads that query heads h0 .. h0 + hl - 1 of h read (head i
+    reads KV head i // (h / kk)), as an index of the heads' dimension: a
+    slice (part of one group, or whole groups), else one per query
+    head."""
+    g = h // kk
+    if g % hl == 0:
+        return slice(h0 // g, h0 // g + 1)
+    if h0 % g == 0 and hl % g == 0:
+        return slice(h0 // g, (h0 + hl) // g)
+    return torch.arange(h0, h0 + hl, device=device) // g
+
+
 def _local_heads(fn, q, k, v):
     """``fn(q, k, v)`` on each rank's own heads of DTensors q (B, S, H, hd)
     and k / v (B, S, K, hd), and its output as a DTensor laid out as q.
@@ -250,12 +290,9 @@ def _local_heads(fn, q, k, v):
         # DTensor's views of these gradients need them contiguous
         ql, kl, vl = (_ContiguousGrad.apply(t) for t in (ql, kl, vl))
         if slice_kv:
-            g, hl = h // kk, ql.shape[2]
-            lo = mesh.get_local_rank(head_dim) * hl
-            if g % hl == 0:                    # part of one group
-                idx = slice(lo // g, lo // g + 1)
-            else:                              # heads of several groups
-                idx = torch.arange(lo, lo + hl, device=ql.device) // g
+            hl = ql.shape[2]
+            idx = _kv_index(h, kk, mesh.get_local_rank(head_dim) * hl, hl,
+                            ql.device)
             kl, vl = kl[:, :, idx], vl[:, :, idx]
         return fn(ql, kl.contiguous(), vl.contiguous())
 
@@ -263,17 +300,17 @@ def _local_heads(fn, q, k, v):
                      in_grad_specs=(qp, kg, kg))(q, k, v)
 
 
-def _self_attention(q, k, v, positions, *, causal, chunk, window,
-                    quantized=False):
+def _self_attention(q, k, v, positions, *, causal, chunk, window):
     from torch.distributed.tensor import DTensor
     if isinstance(q, DTensor):
         return _local_heads(
             lambda ql, kl, vl: _self_attention(
                 ql, kl, vl, positions, causal=causal, chunk=chunk,
-                window=window, quantized=quantized), q, k, v)
-    if _on_card(q, window, quantized):
+                window=window), q, k, v)
+    if _on_card(q):
         return ops.flash_attention(q.contiguous(), k.contiguous(),
-                                   v.contiguous(), causal=causal)
+                                   v.contiguous(), causal=causal,
+                                   window=window)
     return chunked_attention(q, k, v, positions, positions, causal=causal,
                              chunk=chunk, window=window)
 
@@ -319,20 +356,167 @@ def attention_prefill(params, x, positions, s_max, *, rope_theta=10000.0,
     if s > s_max:
         raise ValueError(f"prompt of {s} tokens over a cache of {s_max}")
     q, k, v = _project_qkv(params, x, positions, rope_theta)
+    # the prompt attends over its fresh K / V, never over the cache
     out = _self_attention(q, k, v, positions, causal=True, chunk=chunk,
-                          window=window, quantized=quantize)
+                          window=window)
     if cache is None:
         cache = new_cache((b,), s_max, k.shape[2], k.shape[3], k.dtype,
                           x.device, quantize)
-    if quantize:
-        kq, ks = quantize_kv(k)
-        vq, vs = quantize_kv(v)
-        cache.k[:, :s], cache.v[:, :s] = kq, vq
-        cache.k_scale[:, :s], cache.v_scale[:, :s] = ks, vs
-    else:
-        cache.k[:, :s], cache.v[:, :s] = k, v
+    _write_kv(cache, k, v, 0)
     return beinsum("bshk,hkd->bsd", out, params["wo"]), \
         cache._replace(length=s)
+
+
+def _write_kv(cache: KVCache, k, v, row0: int) -> None:
+    """K / V (B, n, K, hd) into the cache's rows row0 .. row0 + n - 1 in
+    place, quantised when the cache is int8.  On a mesh (DTensor fields)
+    each rank writes the rows of its own shard, in local terms."""
+    from torch.distributed.tensor import DTensor
+    quant = cache.k_scale is not None
+    if not isinstance(cache.k, DTensor):
+        n = k.shape[1]
+        if quant:
+            k, ks = quantize_kv(k)
+            v, vs = quantize_kv(v)
+            cache.k_scale[:, row0:row0 + n] = ks
+            cache.v_scale[:, row0:row0 + n] = vs
+        cache.k[:, row0:row0 + n] = k
+        cache.v[:, row0:row0 + n] = v
+        return
+    from repro_torch.parallel.compat import write_rows
+    mesh, pl = cache.k.device_mesh, list(cache.k.placements)
+    rows = cache.k.shape[1]
+    kl, vl = (_local_as(t, mesh, pl, seq_dim=1) for t in (k, v))
+    dst = [(cache.k, kl), (cache.v, vl)]
+    if quant:
+        from repro_torch.parallel.compat import mesh_max
+        hd_dims = _dims_of(pl, 3)
+        whole = ((lambda amax: mesh_max(amax, mesh, hd_dims)) if hd_dims
+                 else None)
+        kl, ks = quantize_kv(kl, whole)
+        vl, vs = quantize_kv(vl, whole)
+        dst = [(cache.k, kl), (cache.v, vl), (cache.k_scale, ks),
+               (cache.v_scale, vs)]
+    for t, src in dst:
+        write_rows(t.to_local(), src, mesh, list(t.placements), 1, row0,
+                   rows)
+
+
+def _attend_on_mesh(q, k, v, k_scale, v_scale, *, kv_len: int, q_pos: int,
+                    causal: bool, window):
+    """Attention of DTensor q (B, Sq, H, hd) over DTensors k / v (B, S, K,
+    hd) (a cache, or the encoder memory), keys 0 .. kv_len - 1 visible,
+    query row i at position q_pos + i; a DTensor laid out as q's heads.
+
+    Per mesh dimension, q takes the K / V's split of the batch or of the
+    heads (of the query heads when K / V split head_dim and H divides
+    it), else stays whole.  Each rank then calls B5 (or its plain version
+    on the CPU) on its own shards: the K / V in place in layout (a); in
+    layout (b) the visible rows of the KV heads its query heads read, made
+    whole on their head dims first by one all-to-all over the head_dim's
+    mesh dimension (``parallel.compat.exchange_dim``: each rank sends each
+    other rank its head dims of the KV heads that rank reads); in layout
+    (c) over its own visible rows with ``lse``, the outputs then combined
+    over the rows' mesh dimensions by ``lse`` (a rank with no visible row
+    adds nothing and launches nothing).  Query heads whose KV heads lie whole on the rank read
+    their slice of them, as ``_local_heads`` does."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    from repro_torch.parallel.compat import (
+        exchange_dim,
+        local_range,
+        lse_combine,
+    )
+    mesh, pl = k.device_mesh, list(k.placements)
+    b, sq, h, hd = q.shape
+    rows, kk = k.shape[1], k.shape[2]
+    qpl = []
+    for i, p in enumerate(pl):
+        if p in (Shard(0), Shard(2)):
+            qpl.append(p)
+        elif p == Shard(3) and h % mesh.size(i) == 0:
+            qpl.append(Shard(2))
+        else:
+            qpl.append(Replicate())
+    ql = _local_as(q, mesh, qpl, seq_dim=-1).contiguous()
+    kl, vl = k.to_local(), v.to_local()
+    ksl = None if k_scale is None else k_scale.to_local()
+    vsl = None if v_scale is None else v_scale.to_local()
+    lo, n_loc = local_range(mesh, pl, 1, rows)
+    # the oldest key row 0 sees
+    first = max(0, q_pos + 1 - window) if window is not None else 0
+    a = max(first, lo) - lo                 # this rank's visible rows
+    e = min(kv_len, lo + n_loc) - lo
+    q_off = q_pos - lo
+    hd_dims, seq_dims = _dims_of(pl, 3), _dims_of(pl, 1)
+    hl = ql.shape[2]
+    h0 = local_range(mesh, qpl, 2, h)[0]
+    if hd_dims:       # layout (b): the visible rows, whole head dims
+        (d,) = hd_dims                   # the rules split it over `model`
+        a, e = max(a, 0), max(e, a)
+        # the first query head of each rank of d (all alike when d leaves
+        # the query heads whole)
+        step = hl if qpl[d] == Shard(2) else 0
+        head0 = h0 - mesh.get_local_rank(d) * step
+        asks = [_kv_index(h, kk, head0 + r * step, hl, kl.device)
+                for r in range(mesh.size(d))]
+        kl, vl = (exchange_dim([t[:, a:e][:, :, i] for i in asks], mesh, d,
+                               3) for t in (kl, vl))
+        if ksl is not None:     # the scales lie whole on every rank
+            own = asks[mesh.get_local_rank(d)]
+            ksl, vsl = (t[:, a:e][:, :, own].contiguous()
+                        for t in (ksl, vsl))
+        q_off, e, a = q_off - a, e - a, 0
+    elif kl.shape[2] * h != kk * hl:
+        # the KV heads of this rank's query heads
+        idx = _kv_index(h, kk, h0, hl, kl.device)
+        kl, vl = kl[:, :, idx].contiguous(), vl[:, :, idx].contiguous()
+        if ksl is not None:
+            ksl = ksl[:, :, idx].contiguous()
+            vsl = vsl[:, :, idx].contiguous()
+    kw = dict(causal=causal, window=window, k_scale=ksl, v_scale=vsl)
+    if not seq_dims:
+        out = ops.flash_attention(ql, kl, vl, kv_len=e, q_offset=q_off, **kw)
+    else:             # layout (c): this rank's rows, combined by lse
+        if e > a:
+            out, lse = ops.flash_attention_fwd(ql, kl, vl, kv_len=e,
+                                               q_offset=q_off, **kw)
+        else:
+            out = torch.zeros_like(ql)
+            lse = torch.full((ql.shape[0], ql.shape[2], sq), float("-inf"),
+                             dtype=torch.float32, device=ql.device)
+        out = lse_combine(out, lse, mesh, seq_dims)
+    return DTensor.from_local(out, mesh, qpl, run_check=False,
+                              shape=q.shape,
+                              stride=_contiguous_stride(q.shape))
+
+
+def _contiguous_stride(shape) -> tuple:
+    out, n = [], 1
+    for d in reversed(tuple(shape)):
+        out.append(n)
+        n *= d
+    return tuple(reversed(out))
+
+
+def _dims_of(placements, dim: int) -> list:
+    """The mesh dimensions that shard tensor dimension ``dim``."""
+    return [i for i, p in enumerate(placements)
+            if p.is_shard() and p.dim == dim]
+
+
+def _local_as(t, mesh, placements, seq_dim: int):
+    """This rank's shard of DTensor ``t`` laid out as ``placements`` with
+    dimension ``seq_dim`` whole (a token's or a prompt's rows, written
+    into a cache split on its rows): no communication when ``t`` already
+    lies so (layout (a): the projections' heads and batch are the
+    cache's)."""
+    from torch.distributed.tensor import Replicate
+    want = [Replicate() if p.is_shard() and p.dim == seq_dim else p
+            for p in placements]
+    if list(t.placements) != want:
+        t = t.redistribute(mesh, want)
+    return t.to_local()
 
 
 def attention_decode(params, x, cache: KVCache, *, rope_theta=10000.0,
@@ -349,14 +533,18 @@ def attention_decode(params, x, cache: KVCache, *, rope_theta=10000.0,
     quant = cache.k_scale is not None
     pos = torch.full((1,), pos_l, dtype=torch.int32, device=x.device)
     q, k, v = _project_qkv(params, x, pos, rope_theta)
-    card = _on_card(q, window, quant)
-    if quant:
-        k, ks = quantize_kv(k)
-        v, vs = quantize_kv(v)
-        cache.k_scale[:, pos_l:pos_l + 1] = ks
-        cache.v_scale[:, pos_l:pos_l + 1] = vs
-    cache.k[:, pos_l:pos_l + 1] = k
-    cache.v[:, pos_l:pos_l + 1] = v
+    from torch.distributed.tensor import DTensor
+    if isinstance(cache.k, DTensor):
+        # the rank that owns row L writes the token's K / V; then each
+        # rank's B5 call on its own heads and cache shard
+        _write_kv(cache, k, v, pos_l)
+        out = _attend_on_mesh(q, cache.k, cache.v, cache.k_scale,
+                              cache.v_scale, kv_len=pos_l + 1, q_pos=pos_l,
+                              causal=True, window=window)
+        y = beinsum("bshk,hkd->bsd", out, params["wo"])
+        return y, cache._replace(length=pos_l + 1)
+    card = _on_card(q)
+    _write_kv(cache, k, v, pos_l)
     if quant:
         cache = cache._replace(
             k_scale=shard_hint(cache.k_scale, "batch", "seq_kv", "kv_heads",
@@ -369,7 +557,10 @@ def attention_decode(params, x, cache: KVCache, *, rope_theta=10000.0,
         v=shard_hint(cache.v, "batch", "seq_kv", "kv_heads", "head_dim"))
     if card:
         out = ops.flash_attention(q.contiguous(), cache.k, cache.v,
-                                  causal=False, kv_len=pos_l + 1)
+                                  causal=False, kv_len=pos_l + 1,
+                                  window=window, q_offset=pos_l,
+                                  k_scale=cache.k_scale,
+                                  v_scale=cache.v_scale)
     else:
         kv_pos = torch.arange(s_max, dtype=torch.int32, device=x.device)
         out = chunked_attention(
@@ -391,7 +582,13 @@ def cross_attention(params, x, memory_k, memory_v,
     ``memory_valid_len`` (a host int) masks memory rows at and past it."""
     q = beinsum("bsd,dhk->bshk", x, params["wq"])
     sm = memory_k.shape[1]
-    if _on_card(q):
+    from torch.distributed.tensor import DTensor
+    if isinstance(memory_k, DTensor):
+        out = _attend_on_mesh(q, memory_k, memory_v, None, None,
+                              kv_len=sm if memory_valid_len is None
+                              else memory_valid_len, q_pos=0, causal=False,
+                              window=None)
+    elif _on_card(q):
         out = ops.flash_attention(q.contiguous(), memory_k.contiguous(),
                                   memory_v.contiguous(), causal=False,
                                   kv_len=memory_valid_len)

@@ -61,7 +61,7 @@ def set_leaf(tree: dict, path: tuple, value) -> None:
     tree[path[-1]] = value
 
 
-def init_from_specs(specs, seed: int, device=None):
+def init_from_specs(specs, seed: int, device=None, shardings=None):
     """Materialise parameters on ``device`` (``None``: CUDA).
 
     Leaf ``i`` (flatten order) draws from its own ``torch.Generator`` on
@@ -70,6 +70,11 @@ def init_from_specs(specs, seed: int, device=None):
     the same weights on one device type; the CPU's and the card's
     generators differ, and neither reproduces ``jax.random`` (parity tests
     carry the reference's weights over with ``convert.params_from_numpy``).
+    With ``shardings`` (a tree of ``(mesh, placements)``, e.g. a step's
+    ``psh``), each rank keeps its shard of each leaf as a DTensor and
+    frees the whole leaf before the next: the same values as
+    ``parallel.api.shard_tree`` of the whole tree, one whole leaf at a
+    time on the device.
     """
     dev = torch.device("cuda" if device is None else device)
     out: dict = {}
@@ -85,6 +90,12 @@ def init_from_specs(specs, seed: int, device=None):
             v = v.mul_(s.scale).to(s.dtype)
         if not path:
             return v
+        if shardings is not None:
+            from repro_torch.parallel.api import shard_tree
+            sh = shardings
+            for k in path:
+                sh = sh[k]
+            v = shard_tree(v, sh)
         set_leaf(out, path, v)
     return out
 

@@ -17,6 +17,14 @@ The causal conv's tail is bf16 whatever the activations' dtype, as the
 reference stores it (so decode rounds the conv input to bf16).  Nothing
 here is a Pallas kernel in the reference, so the port is plain PyTorch on
 the card too.
+
+On a mesh (DTensor activations and parameters) the projections are
+DTensor products, and the selective scan (prefill's chunk loop, decode's
+one step) runs on each rank's own batch rows and ``d_inner`` slice as
+plain tensors (``_on_shards``): the recurrence is independent per
+channel, B and C are whole on every rank, so no rank needs another's
+state, and the chunk loop's thousands of small ops stay off DTensor's
+dispatch.
 """
 from __future__ import annotations
 
@@ -89,26 +97,41 @@ def _scan_chunk(decay, inc):
     return decay, inc
 
 
-def mamba_train(params, x, *, d_state: int, dt_rank: int, chunk: int = 64,
-                return_state: bool = False):
-    """x: (B, S, d) -> (B, S, d); S is padded to a chunk multiple with
-    dt = 0 steps (decay 1, increment 0: the state is inert there)."""
-    b, s, _ = x.shape
-    xz = beinsum("bsd,de->bse", x, params["in_proj"])
-    x_in, z = xz.chunk(2, dim=-1)
-    x_conv, conv_tail = _causal_conv(params, x_in)
-    x_conv = F.silu(x_conv.float()).to(x.dtype)
-    dt, b_mat, c_mat = _ssm_inputs(params, x_conv, d_state, dt_rank)
+def _on_shards(fn, x, a_log, args, kinds, out_kinds):
+    """``fn(*args)`` on plain tensors, or, for DTensor ``x``, on each
+    rank's shards: ``kinds`` / ``out_kinds`` spell each tensor's dims,
+    ``b`` the batch (split where ``x``'s batch is), ``f`` d_inner (split
+    where ``a_log``'s is), ``.`` whole."""
+    from torch.distributed.tensor import DTensor
+    if not isinstance(x, DTensor):
+        return fn(*args)
+    from torch.distributed.tensor import Replicate, Shard
 
-    a = -torch.exp(params["a_log"].float())                # (di, ds)
-    xf = x_conv.float()
-    d_inner = xf.shape[-1]
+    from repro_torch.parallel.compat import shard_map
+    split = [("b" if p == Shard(0) else "") + ("f" if q == Shard(0) else "")
+             for p, q in zip(x.placements, a_log.placements)]
+
+    def placements(kind):
+        return [next((Shard(kind.index(c)) for c in roles if c in kind),
+                     Replicate()) for roles in split]
+    return shard_map(fn, mesh=x.device_mesh,
+                     in_specs=tuple(placements(k) for k in kinds),
+                     out_specs=tuple(placements(k) for k in out_kinds))(
+        *args)
+
+
+def _selective_scan(dt, b_mat, c_mat, xf, a, d_skip, *, chunk: int):
+    """The chunked scan over (B, S) from a zero state: (y (B, S, di) with
+    the skip term, last state (B, di, ds)); S is padded to a chunk
+    multiple with dt = 0 steps (decay 1, increment 0: the state is inert
+    there)."""
+    b, s, d_inner = xf.shape
     s_pad = -(-s // chunk) * chunk
     if s_pad != s:
         dt, b_mat, c_mat, xf = (F.pad(v, (0, 0, 0, s_pad - s))
                                 for v in (dt, b_mat, c_mat, xf))
-    h = torch.zeros((b, d_inner, d_state), dtype=torch.float32,
-                    device=x.device)
+    h = torch.zeros((b, d_inner, a.shape[1]), dtype=torch.float32,
+                    device=xf.device)
     ys = []
     for c0 in range(0, s_pad, chunk):
         sl = slice(c0, c0 + chunk)
@@ -120,8 +143,31 @@ def mamba_train(params, x, *, d_state: int, dt_rank: int, chunk: int = 64,
         ys.append(torch.einsum("bcis,bcs->bci", hs, c_c))
         h = hs[:, -1]
     y = torch.cat(ys, dim=1)[:, :s]
-    xf = xf[:, :s]
-    y = y + xf * params["d_skip"].float()
+    return y + xf[:, :s] * d_skip, h
+
+
+def _ssm_step(dt0, b0, c0, xf, h_prev, a, d_skip):
+    """One decode step of the recurrence: (y (B, di) with the skip term,
+    new state (B, di, ds))."""
+    decay = torch.exp(dt0[..., None] * a)                  # (B, di, ds)
+    h = decay * h_prev + (dt0 * xf)[..., None] * b0[:, None, :]
+    return torch.einsum("bis,bs->bi", h, c0) + xf * d_skip, h
+
+
+def mamba_train(params, x, *, d_state: int, dt_rank: int, chunk: int = 64,
+                return_state: bool = False):
+    """x: (B, S, d) -> (B, S, d)."""
+    xz = beinsum("bsd,de->bse", x, params["in_proj"])
+    x_in, z = xz.chunk(2, dim=-1)
+    x_conv, conv_tail = _causal_conv(params, x_in)
+    x_conv = F.silu(x_conv.float()).to(x.dtype)
+    dt, b_mat, c_mat = _ssm_inputs(params, x_conv, d_state, dt_rank)
+
+    a = -torch.exp(params["a_log"].float())                # (di, ds)
+    y, h = _on_shards(
+        lambda *t: _selective_scan(*t, chunk=chunk), x, params["a_log"],
+        (dt, b_mat, c_mat, x_conv.float(), a, params["d_skip"].float()),
+        ("b.f", "b..", "b..", "b.f", "f.", "f"), ("b.f", "bf."))
     y = y * F.silu(z.float())
     out = beinsum("bsi,id->bsd", y.to(x.dtype), params["out_proj"])
     if return_state:
@@ -158,12 +204,11 @@ def mamba_decode(params, x, state: MambaState, *, d_state: int,
     dt, b_mat, c_mat = _ssm_inputs(params, x_conv, d_state, dt_rank)
 
     a = -torch.exp(params["a_log"].float())
-    xf = x_conv.float()[:, 0]                              # (B, di)
-    dt0, b0, c0 = dt[:, 0], b_mat[:, 0], c_mat[:, 0]
-    decay = torch.exp(dt0[..., None] * a)                  # (B, di, ds)
-    h = decay * state.h + (dt0 * xf)[..., None] * b0[:, None, :]
-    y = torch.einsum("bis,bs->bi", h, c0)
-    y = y + xf * params["d_skip"].float()
+    y, h = _on_shards(
+        _ssm_step, x, params["a_log"],
+        (dt[:, 0], b_mat[:, 0], c_mat[:, 0], x_conv.float()[:, 0], state.h,
+         a, params["d_skip"].float()),
+        ("bf", "b.", "b.", "bf", "bf.", "f.", "f"), ("bf", "bf."))
     y = y * F.silu(z.float()[:, 0])
     out = beinsum("bi,id->bd", y.to(x.dtype), params["out_proj"])
     return out[:, None], MambaState(h=h, conv=new_tail)

@@ -25,6 +25,14 @@ writes them in place, through per-group views, and returns them; a
 ``KVCache``'s ``length`` is a host int.  On the card every attention,
 encoder and cross-attention call runs the flash-attention kernel (see
 ``models.attention``), and its gradient the flash-attention backward.
+
+On a mesh (DTensor parameters under the serving rules, ``train.steps.
+make_prefill_step`` / ``make_decode_step``) prefill makes its caches as
+DTensors on the rules' shardings of ``parallel.rules.cache_logical_axes``
+and decode takes them so: each group's state is a DTensor viewing its
+rank's shard of the stacked one, every write lands in the rank's own
+shard in local terms (``_store``, ``attention._write_kv``), and no cache
+is gathered.  The logits come back whole on every rank.
 """
 from __future__ import annotations
 
@@ -192,6 +200,8 @@ def _logits(cfg, params, x):
 
 
 def _mask_vocab(cfg, logits):
+    if _is_dtensor(logits):               # a mesh's: whole on every rank
+        logits = logits.full_tensor()
     logits[..., cfg.vocab:] = NEG        # padded ids (a new tensor: in place)
     return logits
 
@@ -350,11 +360,15 @@ def _sharded_xent(logits, targets):
 
 
 # =============================================================== serving ====
-def _self_caches(cfg, batch, s_max, dev, dtype) -> dict:
+def _self_caches(cfg, batch, s_max, dev, dtype, rules=None) -> dict:
     """One stacked state per position of a group: K / V of zeros in
     ``dtype`` (int8 with bf16 scales under ``kv_cache_dtype="int8"``),
     length 0; Mamba's float32 state and bf16 conv tail; RWKV's float32
-    WKV state and its token shifts in ``dtype``."""
+    WKV state and its token shifts in ``dtype``.  With mesh ``rules``,
+    DTensors of zeros on their shardings (each rank makes its shard)."""
+    if rules is not None:
+        return _zeros_on(cfg, _self_caches(cfg, batch, s_max, "meta",
+                                           dtype), rules)
     g = cfg.n_groups
 
     def one(mix):
@@ -380,6 +394,36 @@ def _self_caches(cfg, batch, s_max, dev, dtype) -> dict:
             for pos, (mix, _mlp) in enumerate(cfg.group_kinds())}
 
 
+def _zeros_on(cfg, tree, rules):
+    """Tree of ``meta`` tensors (caches) as DTensors of zeros on the
+    rules' shardings of their ``cache_logical_axes``."""
+    from torch.distributed.tensor import zeros
+
+    from repro_torch.parallel.rules import cache_logical_axes
+
+    def rec(node, ax):
+        if isinstance(node, torch.Tensor):
+            mesh, pl = rules.sharding(tuple(ax))
+            return zeros(tuple(node.shape), dtype=node.dtype,
+                         device_mesh=mesh, placements=list(pl))
+        if isinstance(node, dict):
+            return {k: rec(node[k], ax[k]) for k in node}
+        if isinstance(node, tuple) and hasattr(type(node), "_fields"):
+            return type(node)(*(rec(a, b) for a, b in zip(node, ax)))
+        return node
+    return rec(tree, cache_logical_axes(cfg, tree))
+
+
+def _mesh_rules(x):
+    """The active rules when ``x`` is a DTensor on their mesh (serving on
+    a mesh), else None."""
+    from repro_torch.parallel.api import active_rules
+    rules = active_rules()
+    if rules is None or not _is_dtensor(x):
+        return None
+    return rules
+
+
 def init_decode_caches(cfg: ArchConfig, batch: int, s_max: int,
                        abstract: bool = False, device=None,
                        dtype: torch.dtype = torch.bfloat16) -> dict:
@@ -400,25 +444,48 @@ def init_decode_caches(cfg: ArchConfig, batch: int, s_max: int,
             "memory_v": torch.zeros(shape, dtype=torch.bfloat16, device=dev)}
 
 
+def _unbind0(t) -> list:
+    """``t``'s views along dimension 0 (the groups).  A DTensor's are
+    DTensors of its layout over views of the rank's shard (the rules
+    never split the groups), so a write into one lands in the stacked
+    shard."""
+    if not _is_dtensor(t):
+        return list(t.unbind(0))
+    from torch.distributed.tensor import DTensor, Shard
+    pl = [Shard(p.dim - 1) if p.is_shard() else p for p in t.placements]
+    shape = tuple(t.shape[1:])
+    stride = attn._contiguous_stride(shape)
+    return [DTensor.from_local(x, t.device_mesh, pl, run_check=False,
+                               shape=shape, stride=stride)
+            for x in t.to_local().unbind(0)]
+
+
 def _state_views(c, n: int) -> list:
     """A stacked state as n per-group states viewing its storage."""
     if isinstance(c, attn.KVCache):
-        fields = [f.unbind(0) if f is not None else [None] * n
+        fields = [_unbind0(f) if f is not None else [None] * n
                   for f in (c.k, c.v, c.k_scale, c.v_scale)]
         return [attn.KVCache(k=fields[0][i], v=fields[1][i], length=c.length,
                              k_scale=fields[2][i], v_scale=fields[3][i])
                 for i in range(n)]
-    fields = [f.unbind(0) for f in c]
+    fields = [_unbind0(f) for f in c]
     return [type(c)(*(f[i] for f in fields)) for i in range(n)]
 
 
 def _store(view, new) -> None:
     """Write a Mamba / RWKV state back into its stacked view (a KV cache
-    is written in place by the attention)."""
+    is written in place by the attention); on a mesh each rank copies its
+    own shard of the new state, laid out as the view."""
     if isinstance(view, attn.KVCache):
         return
     for dst, src in zip(view, new):
-        if dst is not src:
+        if dst is src:
+            continue
+        if _is_dtensor(dst):
+            if list(src.placements) != list(dst.placements):
+                src = src.redistribute(dst.device_mesh, dst.placements)
+            dst.to_local().copy_(src.to_local())
+        else:
             dst.copy_(src)
 
 
@@ -459,6 +526,8 @@ def decode_step(cfg: ArchConfig, params, caches, batch):
     is_encdec = cfg.kind == "encdec"
     self_caches = caches["self"] if is_encdec else caches
     views = {p: _state_views(c, g) for p, c in self_caches.items()}
+    memory = ((_unbind0(caches["memory_k"]), _unbind0(caches["memory_v"]))
+              if is_encdec else None)
     for gi, gp in enumerate(_unstack(params["groups"], g)):
         for pos, kinds in enumerate(pattern):
             p, c = gp[str(pos)], views[str(pos)][gi]
@@ -466,9 +535,8 @@ def decode_step(cfg: ArchConfig, params, caches, batch):
             if is_encdec and "cross" in p:
                 # the reference leaves the cross heads unmasked here
                 h = _norm(cfg, p["norm_x"], x)
-                x = x + attn.cross_attention(p["cross"], h,
-                                             caches["memory_k"][gi],
-                                             caches["memory_v"][gi])
+                x = x + attn.cross_attention(p["cross"], h, memory[0][gi],
+                                             memory[1][gi])
             if kinds[1] == "rwkv_ffn":
                 h = L.layer_norm(p["norm2"], x)
                 y, last_c = rk.rwkv_channel_mix(p["chan"], h, c.shift_c)
@@ -496,8 +564,9 @@ def prefill(cfg: ArchConfig, params, batch, s_max: int):
     is_encdec = cfg.kind == "encdec"
     memory = encode(cfg, params, batch["frames"]) if is_encdec else None
     # KV caches and RWKV shifts take the activations' dtype, as the
-    # reference's do
-    caches = _self_caches(cfg, b, s_max, x.device, x.dtype)
+    # reference's do; on a mesh they are made on the rules' shardings
+    rules = _mesh_rules(x)
+    caches = _self_caches(cfg, b, s_max, x.device, x.dtype, rules)
     views = {p: _state_views(c, g) for p, c in caches.items()}
     mem_kv = []
     for gi, gp in enumerate(_unstack(params["groups"], g)):
@@ -544,7 +613,12 @@ def prefill(cfg: ArchConfig, params, batch, s_max: int):
     x = _norm(cfg, params["final_norm"], x)
     caches = _advance(caches, s)
     if is_encdec:
-        caches = {"self": caches,
-                  "memory_k": torch.stack([k for k, _ in mem_kv]),
-                  "memory_v": torch.stack([v for _, v in mem_kv])}
+        mem = {"memory_k": torch.stack([k for k, _ in mem_kv]),
+               "memory_v": torch.stack([v for _, v in mem_kv])}
+        if rules is not None:     # onto the rules' cache shardings
+            from repro_torch.parallel.rules import cache_logical_axes
+            axes = cache_logical_axes(cfg, mem)
+            mem = {k: t.redistribute(*rules.sharding(tuple(axes[k])))
+                   for k, t in mem.items()}
+        caches = {"self": caches, **mem}
     return _mask_vocab(cfg, _logits(cfg, params, x[:, -1])), caches

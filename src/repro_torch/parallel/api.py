@@ -14,6 +14,11 @@ dropped (as the reference's ``PartitionSpec`` spells it).  On a ``DeviceMesh`` i
 ``Shard(i)`` when tensor dimension ``i`` names ``a``, else
 ``Replicate()``.  A dimension over several axes is split over them in
 the order of the mesh's dimensions.
+
+:func:`shard_tree` places a tree of whole tensors on a tree of
+shardings (DTensors, no collective) and :func:`gather_tree` makes a
+tree's DTensors whole again; the step builders (``train.steps``) and
+the sharded init (``models.common.init_from_specs``) use them.
 """
 from __future__ import annotations
 
@@ -23,8 +28,9 @@ import dataclasses
 
 from repro_torch.parallel.compat import axis_names
 
-__all__ = ["MeshRules", "Sharding", "active_rules", "normalize_spec",
-           "placements", "shard_hint", "use_rules"]
+__all__ = ["MeshRules", "Sharding", "active_rules", "gather_tree",
+           "normalize_spec", "placements", "shard_hint", "shard_tree",
+           "use_rules"]
 
 _ACTIVE: contextvars.ContextVar = contextvars.ContextVar("mesh_rules",
                                                          default=None)
@@ -125,3 +131,36 @@ def shard_hint(x, *logical):
     if tuple(x.placements) == tuple(pl):
         return x
     return x.redistribute(mesh, pl)
+
+
+def shard_tree(tree, shardings):
+    """Tensors that every rank holds in full as DTensors of their
+    shardings: each rank keeps a copy of its own part (the full tensor can
+    then be freed, and is never written), with no collective.  A None
+    sharding leaves its tensor as it is.  Works on dicts and on named
+    tuples (an ``AdamWState``, caches; a host int stays)."""
+    import torch
+    from torch.distributed.tensor import DTensor, distribute_tensor
+    if isinstance(tree, tuple) and hasattr(type(tree), "_fields"):
+        return type(tree)(*(shard_tree(t, s)
+                            for t, s in zip(tree, shardings)))
+    if isinstance(tree, dict):
+        return {k: shard_tree(tree[k], shardings[k]) for k in tree}
+    if shardings is None or not isinstance(tree, torch.Tensor):
+        return tree
+    mesh, pl = shardings
+    dt = distribute_tensor(tree.to(mesh.device_type), mesh, list(pl),
+                           src_data_rank=None)
+    return DTensor.from_local(dt.to_local().clone(), mesh, list(pl),
+                              shape=dt.shape, stride=dt.stride())
+
+
+def gather_tree(tree):
+    """DTensor leaves as the full tensors (``full_tensor()``, a collective
+    on every rank); other leaves as they are."""
+    from torch.distributed.tensor import DTensor
+    if isinstance(tree, tuple) and hasattr(type(tree), "_fields"):
+        return type(tree)(*(gather_tree(t) for t in tree))
+    if isinstance(tree, dict):
+        return {k: gather_tree(v) for k, v in tree.items()}
+    return tree.full_tensor() if isinstance(tree, DTensor) else tree

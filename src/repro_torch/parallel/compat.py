@@ -16,6 +16,13 @@ function in the port is made here.
   * :func:`axis_sizes`: ``name -> size`` of either kind of mesh;
   * :func:`mesh_sum` / :func:`mesh_max`: explicit all-reduces over mesh
     dimensions for use inside a per-shard function;
+  * :func:`local_range`, :func:`write_rows`, :func:`exchange_dim` and
+    :func:`lse_combine`: a rank's rows of a sharded dimension, a write of
+    global rows into its shard in local terms (DTensor slice-assignment
+    on a sharded dimension is not relied on), an all-to-all that makes a
+    split dimension whole for the part each rank asks for (its bytes
+    counted in ``EXCHANGED``), and the combine of per-rank attention
+    outputs by their log-sum-exp (the sequence-parallel decode);
   * :func:`stage_gloo_all_gather`: gloo ranks on CUDA tensors stage the
     all-gather through host memory (see there).
 
@@ -28,8 +35,10 @@ from __future__ import annotations
 
 import dataclasses
 
-__all__ = ["AbstractMesh", "abstract_mesh", "axis_sizes", "make_mesh",
-           "mesh_max", "mesh_sum", "shard_map", "stage_gloo_all_gather"]
+__all__ = ["EXCHANGED", "AbstractMesh", "abstract_mesh", "axis_sizes",
+           "exchange_dim", "local_range", "lse_combine", "lse_merge",
+           "make_mesh", "mesh_max", "mesh_sum", "reset_exchanged",
+           "shard_map", "stage_gloo_all_gather", "write_rows"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -168,3 +177,88 @@ def _all_reduce(t, mesh, dims, op: str):
     for d in dims:
         dist.all_reduce(t, op=red, group=mesh.get_group(d))
     return t
+
+
+def local_range(mesh, placements, dim: int, size: int) -> tuple[int, int]:
+    """(offset, length) of this rank's part of tensor dimension ``dim``
+    (``size`` long) under ``placements``: each mesh dimension that shards
+    it splits the part before it in ``torch.chunk``'s way (ceil-sized
+    chunks, in mesh-dimension order), as DTensor's ``Shard`` does."""
+    lo, n = 0, size
+    for i, p in enumerate(placements):
+        if p.is_shard() and p.dim == dim:
+            k, r = mesh.size(i), mesh.get_local_rank(i)
+            chunk = -(-n // k)
+            start = min(r * chunk, n)
+            lo, n = lo + start, min(chunk, n - start)
+    return lo, n
+
+
+def write_rows(dst, src, mesh, placements, dim: int, row0: int,
+               size: int) -> None:
+    """Global rows row0 .. row0 + n - 1 (``src``, n long on ``dim``) into
+    this rank's shard ``dst`` of a tensor of ``size`` rows on ``dim``
+    laid out as ``placements``: the rank writes the rows it owns, in
+    local terms, and nothing else (``src`` is whole on ``dim`` and laid
+    out as ``dst`` on every other dimension)."""
+    lo, n = local_range(mesh, placements, dim, size)
+    a, e = max(row0, lo), min(row0 + src.shape[dim], lo + n)
+    if a < e:
+        dst.narrow(dim, a - lo, e - a).copy_(src.narrow(dim, a - row0,
+                                                        e - a))
+
+
+# What :func:`exchange_dim` moved in this process: its calls and the
+# bytes this rank received from other ranks (``reset_exchanged`` zeroes
+# both).
+EXCHANGED = {"calls": 0, "bytes_received": 0}
+
+
+def reset_exchanged() -> None:
+    EXCHANGED.update(calls=0, bytes_received=0)
+
+
+def exchange_dim(parts, mesh, mesh_dim: int, dim: int):
+    """An all-to-all over mesh dimension ``mesh_dim``: ``parts[s]`` (one
+    tensor per rank s of it, all of one shape) goes to rank s, and what
+    this rank receives, its own part included, comes back concatenated
+    on ``dim`` in rank order.  With ``parts[s]`` this rank's piece of a
+    dimension the ranks split, cut to what rank s asks for, each rank
+    gets that dimension whole for its own ask.  Gloo ranks stage CUDA
+    tensors through host memory (see :func:`stage_gloo_all_gather`)."""
+    import torch
+    import torch.distributed as dist
+    group = mesh.get_group(mesh_dim)
+    x = torch.stack(parts)
+    host = x.is_cuda and dist.get_backend(group) == "gloo"
+    src = x.cpu() if host else x.contiguous()
+    out = torch.empty_like(src)
+    dist.all_to_all_single(out, src, group=group)
+    EXCHANGED["calls"] += 1
+    EXCHANGED["bytes_received"] += ((len(parts) - 1) * parts[0].numel()
+                                    * parts[0].element_size())
+    return torch.cat(out.unbind(0), dim=dim).to(x.device)
+
+
+def lse_combine(out, lse, mesh, dims):
+    """Per-rank attention outputs ``out`` (B, Sq, H, hd) over disjoint key
+    sets, each with its rows' log-sum-exp ``lse`` (B, H, Sq) float32 (-inf
+    for a rank that saw no key), combined into the attention over their
+    union on every rank of mesh dimensions ``dims``: sum_r e^(lse_r - M)
+    out_r / sum_r e^(lse_r - M), M the largest lse_r.  In ``out``'s
+    dtype; float32 in between."""
+    return lse_merge(out, lse,
+                     lambda t, op: _all_reduce(t, mesh, dims, op))
+
+
+def lse_merge(out, lse, reduce):
+    """:func:`lse_combine`'s arithmetic with the reduction given:
+    ``reduce(t, "max" | "sum")`` reduces ``t`` over the parts (an
+    all-reduce across ranks, or a sum over a leading dimension that
+    stacks the parts)."""
+    import torch
+    m = reduce(lse.clone(), "max")
+    w = torch.exp(lse - m).transpose(-1, -2)[..., None]    # (B, Sq, H, 1)
+    num = reduce(out.float() * w, "sum")
+    den = reduce(w.contiguous(), "sum")
+    return (num / den).to(out.dtype)

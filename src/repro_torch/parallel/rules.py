@@ -30,7 +30,8 @@ from repro_torch.parallel.api import MeshRules, Sharding, normalize_spec
 from repro_torch.parallel.compat import axis_names, axis_sizes
 
 __all__ = ["cache_logical_axes", "data_axes", "dp_size", "make_rules",
-           "param_shardings", "zero1_shardings", "zero1_spec"]
+           "param_shardings", "serving_param_shardings", "zero1_shardings",
+           "zero1_spec"]
 
 
 def _axis_size(mesh, name) -> int:
@@ -105,6 +106,19 @@ def param_shardings(rules: MeshRules, axes_tree):
     """Tree of :class:`~repro_torch.parallel.api.Sharding` s from a
     logical-axes tree."""
     return _map(lambda ax: rules.sharding(tuple(ax)), axes_tree)
+
+
+def serving_param_shardings(rules: MeshRules, axes_tree):
+    """The parameters' shardings of a serving step: ``param_shardings``
+    with ``head_dim`` whole.  Where the rules split the cache's
+    ``head_dim`` (the KV heads do not divide ``model``), the reference
+    splits the projections' head dims too (``wk`` / ``wv`` and their
+    biases), which every step would gather back for the products and
+    RoPE; here each rank holds them whole and its cache write takes its
+    own head dims out locally.  Every other rule is ``rules``'."""
+    whole = MeshRules(mesh=rules.mesh,
+                      mapping={**rules.mapping, "head_dim": None})
+    return param_shardings(whole, axes_tree)
 
 
 def zero1_spec(rules: MeshRules, logical: tuple, shape) -> tuple:

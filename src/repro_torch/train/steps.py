@@ -11,7 +11,8 @@ train step is the reference's sharded step, one process per rank:
 
   * parameters are DTensors placed by the sharding rules
     (``state_shardings``: TP over ``model`` for heads, ff and vocab);
-    ``shard_tree`` places a tree that every rank holds in full;
+    ``shard_tree`` (``parallel.api``) places a tree that every rank
+    holds in full;
   * the batch is split over the data axes (``batch_shardings``), from
     the full batch every rank is given;
   * the loss and the gradients come from autograd on DTensors under the
@@ -25,9 +26,22 @@ train step is the reference's sharded step, one process per rank:
     all-gather).  One step function serves both cases: on a mesh it
     places the batch, moves the gradients and runs under the rules.
 
-``make_prefill_step`` and ``make_decode_step`` run on one device; a mesh
-of more than one device raises ``unported`` (sharded serving comes in a
-later slice).
+``make_prefill_step`` and ``make_decode_step`` run on one device with
+``mesh=None`` or a mesh of one device, and return ``(fn, None, None,
+None)``.  On a ``DeviceMesh`` of more than one device they are the
+reference's sharded serving steps, ``(fn, rules, psh, csh)``: the
+parameters are DTensors on ``psh`` (``shard_tree``; the rules'
+shardings with ``head_dim`` whole, ``parallel.rules.
+serving_param_shardings``), the batch is the
+full batch on every rank (split over the data axes where the cell's
+global batch divides them), and the caches are DTensors on ``csh``, the
+rules' shardings of ``parallel.rules.cache_logical_axes``: KV heads over
+``model`` (or ``head_dim`` where the KV heads do not divide it) and the
+batch over the data axes, or the rows over the data axes for a batch
+that does not divide them (the sequence-parallel cache).  Prefill makes
+its caches there; decode writes them in place, each rank its own shard
+(``models.attention`` runs B5 per rank in each layout).  The logits
+come back whole on every rank; ``gather_tree`` gathers a cache tree.
 
 Train step semantics (the reference's):
   * the loss in float32, parameters and gradients in the parameters'
@@ -63,10 +77,12 @@ from repro_torch.optim.adamw import (
     tree_map,
     tree_unflatten,
 )
+from repro_torch.parallel.api import gather_tree, shard_tree
 
-__all__ = ["abstract_opt_state", "batch_shardings", "gather_tree",
-           "init_opt_state", "make_decode_step", "make_prefill_step",
-           "make_train_step", "shard_tree", "state_shardings"]
+__all__ = ["abstract_opt_state", "batch_shardings", "cache_shardings",
+           "gather_tree", "init_opt_state", "make_decode_step",
+           "make_prefill_step", "make_train_step", "shard_tree",
+           "state_shardings"]
 
 
 def _mesh_size(mesh) -> int:
@@ -79,12 +95,33 @@ def _is_device_mesh(mesh) -> bool:
     return isinstance(mesh, DeviceMesh)
 
 
-def _check_serving_mesh(mesh) -> None:
-    """None, or a mesh of one device (a ``DeviceMesh`` or anything with a
-    ``size``); more raises ``unported``."""
-    if mesh is not None and _mesh_size(mesh) != 1:
-        from repro_torch.engine.config import unported
-        raise unported("parallel/ serving (prefill and decode on a mesh)")
+def _serving_mesh(mesh) -> bool:
+    """True for a ``DeviceMesh`` of more than one device (the sharded
+    steps); False for None or one device; a larger mesh of another kind
+    raises."""
+    if mesh is None or _mesh_size(mesh) == 1:
+        return False
+    if not _is_device_mesh(mesh):
+        raise ValueError("a mesh of more than one device must be a "
+                         "DeviceMesh (parallel.make_mesh)")
+    return True
+
+
+def cache_shardings(cfg: ArchConfig, rules, batch: int, s_max: int):
+    """The rules' shardings of the decode caches of ``batch`` x ``s_max``
+    (``init_decode_caches``' tree; a ``KVCache``'s length stays an int)."""
+    from repro_torch.parallel.rules import cache_logical_axes
+    caches = T.init_decode_caches(cfg, batch, s_max, abstract=True)
+
+    def rec(ax):
+        if isinstance(ax, dict):
+            return {k: rec(v) for k, v in ax.items()}
+        if isinstance(ax, tuple) and hasattr(type(ax), "_fields"):
+            return type(ax)(*(rec(v) for v in ax))
+        if isinstance(ax, tuple):
+            return rules.sharding(ax)
+        return ax
+    return rec(cache_logical_axes(cfg, caches))
 
 
 def state_shardings(cfg: ArchConfig, mesh, shape: str):
@@ -117,38 +154,6 @@ def batch_shardings(cfg: ArchConfig, mesh, shape: str, batch_tree):
         == 0 else None
     return tree_map(lambda x: Sharding(mesh, (lead,) if lead else ()),
                     batch_tree)
-
-
-def shard_tree(tree, shardings):
-    """Tensors that every rank holds in full as DTensors of their
-    shardings: each rank keeps a copy of its own part (the full tensor can
-    then be freed, and is never written), with no collective.  A None
-    sharding leaves its tensor as it is.  Works on dicts and on an
-    ``AdamWState``."""
-    from torch.distributed.tensor import DTensor, distribute_tensor
-    if isinstance(tree, AdamWState):
-        return AdamWState(*(shard_tree(t, s)
-                            for t, s in zip(tree, shardings)))
-    if isinstance(tree, dict):
-        return {k: shard_tree(tree[k], shardings[k]) for k in tree}
-    if shardings is None:
-        return tree
-    mesh, pl = shardings
-    dt = distribute_tensor(tree.to(mesh.device_type), mesh, list(pl),
-                           src_data_rank=None)
-    return DTensor.from_local(dt.to_local().clone(), mesh, list(pl),
-                              shape=dt.shape, stride=dt.stride())
-
-
-def gather_tree(tree):
-    """DTensor leaves as the full tensors (``full_tensor()``, a collective
-    on every rank); other leaves as they are."""
-    from torch.distributed.tensor import DTensor
-    if isinstance(tree, AdamWState):
-        return AdamWState(*(gather_tree(t) for t in tree))
-    if isinstance(tree, dict):
-        return {k: gather_tree(v) for k, v in tree.items()}
-    return tree.full_tensor() if isinstance(tree, DTensor) else tree
 
 
 def _check_shape(shape: str) -> None:
@@ -301,29 +306,56 @@ def abstract_opt_state(cfg: ArchConfig, abstract_params) -> AdamWState:
                       count=torch.empty((), dtype=torch.int32, device="meta"))
 
 
-def make_prefill_step(cfg: ArchConfig, mesh=None, shape: str = "prefill_32k"):
-    """Returns (prefill, None, None, None): prefill(params, batch) -> (last
-    logits, caches) with caches of ``SHAPES[shape].seq_len`` rows."""
-    _check_serving_mesh(mesh)
+def _serving(cfg, mesh, shape):
+    """(rules, psh, csh, the step's context, its batch placement) of a
+    serving step: Nones, ``inference_mode`` and the identity on one
+    device; on a mesh the rules under ``no_grad`` (DTensor's views of a
+    shard cannot be made of inference tensors)."""
     _check_shape(shape)
-    s_max = SHAPES[shape].seq_len
+    if not _serving_mesh(mesh):
+        return None, None, None, torch.inference_mode, _identity
+    from repro_torch.models.common import logical_axes
+    from repro_torch.parallel import make_rules
+    from repro_torch.parallel.rules import serving_param_shardings
+    sp = SHAPES[shape]
+    rules = make_rules(mesh, cfg, shape)
+    psh = serving_param_shardings(rules, logical_axes(T.model_specs(cfg)))
+    csh = cache_shardings(cfg, rules, sp.global_batch, sp.seq_len)
+
+    @contextlib.contextmanager
+    def context():
+        with torch.no_grad(), _sharded_context(rules):
+            yield
+    return (rules, psh, csh, context,
+            functools.partial(_place_batch, cfg, mesh, shape))
+
+
+def make_prefill_step(cfg: ArchConfig, mesh=None, shape: str = "prefill_32k",
+                      s_max: int | None = None):
+    """Returns (prefill, rules, psh, csh), the last three None on one
+    device: prefill(params, batch) -> (last logits, caches) with caches of
+    ``s_max`` rows (default ``SHAPES[shape].seq_len``; on a mesh DTensors
+    laid out as ``csh``)."""
+    rules, psh, csh, context, place = _serving(cfg, mesh, shape)
+    s_max = SHAPES[shape].seq_len if s_max is None else s_max
 
     def fn(params, batch):
-        with torch.inference_mode():
-            return T.prefill(cfg, params, batch, s_max)
-    return fn, None, None, None
+        with context():
+            return T.prefill(cfg, params, place(batch), s_max)
+    return fn, rules, psh, csh
 
 
 def make_decode_step(cfg: ArchConfig, mesh=None, shape: str = "decode_32k"):
-    """Returns (decode, None, None, None): decode(params, caches, batch) ->
-    (logits, caches); the caches are written in place, always (what the
-    reference's ``donate`` buys).  ``shape`` names the cell, as in
-    ``make_train_step``."""
-    _check_serving_mesh(mesh)
-    _check_shape(shape)
+    """Returns (decode, rules, psh, csh), the last three None on one
+    device: decode(params, caches, batch) -> (logits, caches); the caches
+    are written in place, always (what the reference's ``donate`` buys),
+    on a mesh each rank its own shard.  ``shape`` names the cell, as in
+    ``make_train_step``; a mesh's caches may have any rows (a prefill
+    under the rules, or ``shard_tree`` of one device's, onto ``csh``)."""
+    rules, psh, csh, context, place = _serving(cfg, mesh, shape)
 
     def fn(params, caches, batch):
-        with torch.inference_mode():
-            return T.decode_step(cfg, params, caches, batch)
-    return fn, None, None, None
+        with context():
+            return T.decode_step(cfg, params, caches, place(batch))
+    return fn, rules, psh, csh
 

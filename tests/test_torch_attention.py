@@ -121,6 +121,35 @@ def test_quantize_kv_matches_reference(dtype):
                           ts.float().numpy())
 
 
+@pytest.mark.parametrize("parts", [2, 4])
+def test_quantize_kv_of_head_dim_parts_is_the_whole_heads(parts):
+    """``quantize_kv`` of a part of the head dims, its max magnitude
+    taken to the whole head's by ``reduce_amax`` (what the all-reduce
+    over the ranks that split ``head_dim`` gives), is that part of the
+    whole heads' quantisation, and its scale theirs."""
+    x = torch.from_numpy(qkv(2, 24, 2, 3, 64, seed=9, dtype="float32")[0])
+    x[0, 0, 0] = 0.0
+    w8, ws = tattn.quantize_kv(x)
+    chunks = x.chunk(parts, dim=-1)
+    amax = torch.stack([c.abs().amax(-1, keepdim=True)
+                        for c in chunks]).amax(0)
+    for c, want in zip(chunks, w8.chunk(parts, dim=-1)):
+        got, scale = tattn.quantize_kv(c, lambda a: torch.maximum(a, amax))
+        assert torch.equal(got, want) and torch.equal(scale, ws)
+
+
+def test_count_kv_rows_counts_no_cpu_call():
+    """On the CPU B5's plain version runs and nothing is counted; the
+    output is the same inside the block and out."""
+    q, k, v = T(qkv(1, 1, 4, 2, 64, seed=3, skv=40, dtype="float32"),
+                "float32")
+    kw = dict(causal=True, kv_len=30, window=8, q_offset=29)
+    with ops.count_kv_rows() as got:
+        out = ops.flash_attention(q, k, v, **kw)
+    assert got == []
+    assert torch.equal(out, ops.flash_attention(q, k, v, **kw))
+
+
 def test_chunked_attention_rejects_head_mismatch():
     q, k, v = T(qkv(1, 8, 3, 2, 64, dtype="float32"), "float32")
     pos = torch.arange(8, dtype=torch.int32)
@@ -370,6 +399,90 @@ def test_flash_attention_rejects_bad_kv_len(bad):
         ops.flash_attention(q, k, v, causal=False, kv_len=bad)
     assert ops.flash_attention(q, k, v, causal=False,
                                kv_len=np.int64(40)).shape == q.shape
+
+
+WINDOW_CASES = {
+    # name: (b, sq, h, k, hd, rows, kv_len, q_offset, window, causal,
+    #        int8, dtype)
+    "prefill_window": (2, 40, 4, 2, 64, 40, 40, 0, 9, True, False,
+                       "bfloat16"),
+    "prefill_window_one": (1, 33, 4, 1, 128, 33, 33, 0, 1, True, False,
+                           "float32"),
+    "decode_window": (3, 1, 8, 2, 64, 96, 70, 69, 16, True, False,
+                      "float32"),
+    "decode_window_edge": (2, 1, 4, 2, 128, 64, 64, 63, 64, True, False,
+                           "bfloat16"),
+    "decode_int8": (4, 1, 8, 2, 128, 96, 51, 50, None, True, True,
+                    "bfloat16"),
+    "decode_int8_one_key": (2, 1, 4, 4, 64, 32, 1, 0, None, True, True,
+                            "float32"),
+    "decode_int8_window": (2, 1, 4, 2, 64, 80, 77, 76, 20, True, True,
+                           "float32"),
+    "sp_rank_past_rows": (1, 1, 4, 2, 64, 16, 16, 21, 12, True, True,
+                          "bfloat16"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(WINDOW_CASES))
+def test_flash_attention_window_and_int8_match_reference(case):
+    """A sliding window (query row i at key position q_offset + i) and an
+    int8 cache (``quantize_kv``'s values and bf16 scales, the reference's
+    on the same numpy inputs) against the reference's
+    ``chunked_attention`` with ``window`` / ``k_scale`` / ``v_scale``;
+    ``lse`` against the log-sum-exp of the same masked, dequantised
+    scores.  The rows past kv_len hold junk that must not reach the
+    output.  ``sp_rank_past_rows`` is a sequence-parallel rank whose 16
+    rows all lie before the query (position 21)."""
+    b, sq, h, k, hd, rows, kv_len, q_off, window, causal, q8, dtype = \
+        WINDOW_CASES[case]
+    q, kk, v = qkv(b, sq, h, k, hd, rows, seed=len(case), dtype=dtype)
+    kk[:, kv_len:] = 1e4
+    v[:, kv_len:] = -1e4
+    pos_q = np.arange(sq, dtype=np.int32) + q_off
+    pos_k = np.arange(rows, dtype=np.int32)
+    jq, jk, jv = J((q, kk, v), dtype)
+    tq, tk, tv = T((q, kk, v), dtype)
+    jks = jvs = tks = tvs = None
+    if q8:
+        jk, jks = jattn.quantize_kv(jk)
+        jv, jvs = jattn.quantize_kv(jv)
+        tk, tks = tattn.quantize_kv(tk)
+        tv, tvs = tattn.quantize_kv(tv)
+        assert np.array_equal(np.asarray(jk), tk.numpy())
+    want = jattn.chunked_attention(jq, jk, jv, jnp.asarray(pos_q),
+                                   jnp.asarray(pos_k), causal=causal,
+                                   chunk=min(512, rows), window=window,
+                                   kv_valid_len=jnp.int32(kv_len),
+                                   k_scale=jks, v_scale=jvs)
+    kw = dict(causal=causal, kv_len=kv_len, window=window, q_offset=q_off,
+              k_scale=tks, v_scale=tvs)
+    got = ops.flash_attention(tq, tk, tv, **kw)
+    assert got.dtype == TDT[dtype] and got.shape == tq.shape
+    assert rel_err(want, got) < TOL[dtype]
+    out, lse = ops.flash_attention_fwd(tq, tk, tv, **kw)
+    assert torch.equal(out, got)
+    kf = tk.float() * tks.float() if q8 else tk.float()
+    # query head i reads KV head i // (H / K)
+    s = torch.einsum("bqhd,bchd->bhqc", tq.float(),
+                     kf.repeat_interleave(h // k, dim=2)) / hd ** 0.5
+    p, c = pos_q[:, None], pos_k[None, :]
+    vis = (c < kv_len) & (c <= p if causal else True)
+    if window is not None:
+        vis = vis & (p - c < window)
+    s = s.masked_fill(~torch.from_numpy(vis), float("-inf"))
+    assert torch.allclose(lse, torch.logsumexp(s, -1), atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("bad", ["window0", "no_key", "offset", "scales"])
+def test_flash_attention_rejects_bad_window_and_scales(bad):
+    q, k, v = T(qkv(1, 4, 4, 2, 64, skv=40, dtype="float32"), "float32")
+    kw = {"window0": dict(window=0), "no_key": dict(window=2, q_offset=38,
+                                                    kv_len=40),
+          "offset": dict(q_offset=-1),
+          "scales": dict(k_scale=torch.ones(1, 40, 2, 1,
+                                            dtype=torch.bfloat16))}[bad]
+    with pytest.raises(ValueError):
+        ops.flash_attention(q, k, v, causal=False, **kw)
 
 
 # --- the rest of models/attention.py against the reference ---------------

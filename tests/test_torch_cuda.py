@@ -319,11 +319,14 @@ def _tree_to(tree, dev):
 def test_cuda_lm_serve_matches_cpu():
     """serve() of reduced Yi-9B on the card: every attention call in B5
     (2 layers x (1 prefill + 7 decode steps)); its prefill and decode
-    logits against the CPU's plain path on the same weights, and the
-    window / int8-cache cases raise on the card."""
+    logits against the CPU's plain path on the same weights; then
+    reduced starcoder2-15b (its window cut to 8, so the prompt and the
+    decode pass it) and qwen1.5-32b (its int8 cache) the same way, every
+    attention call in B5 with the window or the int8 cache."""
     need_card()
+    import dataclasses
+
     from repro_torch.configs import reduced_config
-    from repro_torch.engine.config import UNPORTED
     from repro_torch.launch.serve import serve
     from repro_torch.models import transformer as T
     from repro_torch.models.common import init_from_specs
@@ -337,24 +340,29 @@ def test_cuda_lm_serve_matches_cpu():
     assert out["generated"].shape == (2, 8)
     toks = torch.from_numpy(np.random.default_rng(5).integers(
         0, cfg.vocab, (2, 28)).astype(np.int32))
-    logits = []
-    for params, dev in ((cpu, "cpu"), (card, "cuda")):
-        t = toks.to(dev)
-        with torch.inference_mode():
-            lg, caches = T.prefill(cfg, params, {"tokens": t[:, :24]}, 64)
-            seq = [lg]
-            for i in range(24, 28):
-                lg, caches = T.decode_step(cfg, params, caches,
-                                           {"tokens": t[:, i:i + 1]})
-                seq.append(lg[:, 0])
-        logits.append([x.float().cpu()[..., :cfg.vocab] for x in seq])
-    for want, got in zip(*logits):
-        assert float((want - got).abs().max() / want.abs().max()) < 0.02
-    for arch in ("starcoder2-15b", "qwen1.5-32b"):
-        with pytest.raises(NotImplementedError, match="B5 with a window"):
-            serve(arch, batch=1, prompt_len=8, max_new=2, s_max=16,
-                  device="cuda")
-    assert "int8 KV cache on CUDA" in UNPORTED
+    def card_vs_cpu(cfg, cpu, card):
+        logits = []
+        for params, dev in ((cpu, "cpu"), (card, "cuda")):
+            t = toks.to(dev)
+            with torch.inference_mode():
+                lg, caches = T.prefill(cfg, params, {"tokens": t[:, :24]},
+                                       64)
+                seq = [lg]
+                for i in range(24, 28):
+                    lg, caches = T.decode_step(cfg, params, caches,
+                                               {"tokens": t[:, i:i + 1]})
+                    seq.append(lg[:, 0])
+            logits.append([x.float().cpu()[..., :cfg.vocab] for x in seq])
+        for want, got in zip(*logits):
+            assert float((want - got).abs().max() / want.abs().max()) \
+                < 0.02
+    card_vs_cpu(cfg, cpu, card)
+    for arch, kw in (("starcoder2-15b", {"window": 8}), ("qwen1.5-32b", {})):
+        c = dataclasses.replace(reduced_config(arch), **kw)
+        cpu = init_from_specs(T.model_specs(c), 3, device="cpu")
+        ops.reset_launches()
+        card_vs_cpu(c, cpu, _tree_to(cpu, "cuda"))
+        assert ops.LAUNCHES["flash_attention"] == c.n_layers * 5
 
 
 def _b5_calls(cfg, prefill: bool) -> int:
@@ -1083,3 +1091,207 @@ def test_port_import_pulls_in_no_jax():
             "('jax', 'jaxlib', 'repro')]; assert not bad, bad")
     subprocess.run([sys.executable, "-c", code], check=True, timeout=120,
                    env={**os.environ, "PYTHONPATH": str(SRC)})
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("case", [
+    # (b, sq, h, k, hd, rows, kv_len, q_offset, window, int8)
+    (2, 300, 4, 2, 128, 300, 300, 0, 64, False),     # window prefill
+    (1, 1000, 8, 2, 64, 1000, 1000, 0, 129, False),
+    (2, 1, 8, 2, 128, 700, 650, 649, 100, False),     # window decode
+    (3, 1, 4, 4, 128, 700, 650, 649, None, True),     # int8 decode
+    (2, 1, 8, 2, 64, 700, 399, 398, 129, True),       # int8 + window
+    (1, 1, 4, 2, 128, 256, 256, 300, 100, True),      # an SP rank, rows
+])                                                    # before the query
+def test_cuda_flash_attention_window_and_int8_match_plain(case, dtype):
+    """B5 with a sliding window and with an int8 cache (bf16 scales,
+    ``quantize_kv``) against its plain version on the same inputs, out
+    and lse; the rows past kv_len hold junk that must not be read."""
+    need_card()
+    from repro_torch.models.attention import quantize_kv
+    b, sq, h, k, hd, rows, kv_len, q_off, window, q8 = case
+    gen = torch.Generator(device="cuda").manual_seed(sum(case[:7]))
+    q = torch.randn(b, sq, h, hd, device="cuda", generator=gen).to(dtype)
+    kc, vc = (torch.randn(b, rows, k, hd, device="cuda", generator=gen)
+              .to(dtype) for _ in range(2))
+    kc[:, kv_len:] = 1e4
+    ks = vs = None
+    if q8:
+        (kc, ks), (vc, vs) = quantize_kv(kc), quantize_kv(vc)
+    kw = dict(causal=True, kv_len=kv_len, window=window, q_offset=q_off,
+              k_scale=ks, v_scale=vs)
+    before = ops.LAUNCHES["flash_attention"]
+    out, lse = ops.flash_attention_fwd(q, kc, vc, **kw)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["flash_attention"] == before + 1
+    cpu = {n: (t.cpu() if torch.is_tensor(t) else t) for n, t in kw.items()}
+    want = ref.flash_attention_ref(q.cpu(), kc.cpu(), vc.cpu(),
+                                   cpu.pop("causal"), cpu.pop("kv_len"),
+                                   **cpu)
+    tol = 8e-3 if dtype == torch.bfloat16 else 1e-5
+    assert rel_err(out.cpu(), want) < tol
+    wl = ref.attention_lse_ref(q.cpu(), kc.cpu(), True, kv_len,
+                               window=window, q_offset=q_off,
+                               k_scale=None if ks is None else ks.cpu())
+    assert float((lse.cpu() - wl).abs().max()) < 1e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("q8", [False, True])
+def test_cuda_flash_attention_counts_rows_loaded(dtype, q8):
+    """``ops.count_kv_rows``: each block of a window decode loads the
+    whole KV tiles from the one that holds its oldest visible key up to
+    kv_len, each block of a causal prefill the tiles up to its last
+    row's diagonal (tiles of 128 keys in the bf16 body, 64 in float32's,
+    as tall as its query tiles); the output bit-equal to a launch that
+    counts nothing."""
+    need_card()
+    from repro_torch.models.attention import quantize_kv
+    bk = 128 if dtype == torch.bfloat16 else 64
+    b, h, k, hd, rows, kv_len, window = 2, 8, 2, 128, 1000, 900, 300
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    kc, vc = (torch.randn(b, rows, k, hd, device="cuda", generator=gen)
+              .to(dtype) for _ in range(2))
+    ks = vs = None
+    if q8:
+        (kc, ks), (vc, vs) = quantize_kv(kc), quantize_kv(vc)
+    q = torch.randn(b, 1, h, hd, device="cuda", generator=gen).to(dtype)
+    kw = dict(causal=True, kv_len=kv_len, window=window,
+              q_offset=kv_len - 1, k_scale=ks, v_scale=vs)
+    plain = ops.flash_attention(q, kc, vc, **kw)
+    with ops.count_kv_rows() as got:
+        out = ops.flash_attention(q, kc, vc, **kw)
+    assert torch.equal(out, plain)
+    per_block = kv_len - (kv_len - window) // bk * bk
+    assert len(got) == 1
+    assert (got[0]["blocks"], got[0]["max_rows"], got[0]["rows"]) == (
+        b * h, per_block, b * h * per_block)
+    # a causal prefill of sq rows over its own keys
+    sq = 300
+    q = torch.randn(b, sq, h, hd, device="cuda", generator=gen).to(dtype)
+    kp, vp = kc[:, :sq].contiguous(), vc[:, :sq].contiguous()
+    sc = {} if not q8 else dict(k_scale=ks[:, :sq].contiguous(),
+                                v_scale=vs[:, :sq].contiguous())
+    with ops.count_kv_rows() as got:
+        ops.flash_attention(q, kp, vp, causal=True, **sc)
+    tiles = -(-sq // bk)
+    want = [min((t + 1) * bk, sq) for t in range(tiles)]
+    assert (got[0]["blocks"], got[0]["max_rows"], got[0]["rows"]) == (
+        b * h * tiles, sq, b * h * sum(want))
+
+
+SERVE_MESH_SCRIPT = """
+import dataclasses, pickle, sys
+import numpy as np
+import torch
+
+# (arch, cell, batch, mesh, KV cache dtype): yi-9b on (1, 4) is layout
+# (b), its 2 KV heads not dividing 4 (head_dim over model)
+CASES = (("yi-9b", "decode_32k", 4, (2, 2), None),
+         ("yi-9b", "decode_32k", 4, (1, 4), None),
+         ("yi-9b", "decode_32k", 4, (1, 4), "int8"),
+         ("qwen1.5-32b", "decode_32k", 4, (2, 2), None),
+         ("jamba-v0.1-52b", "long_500k", 1, (2, 2), None))
+
+
+def setup(arch, batch, kv_dtype):
+    from repro_torch.configs import reduced_config
+    from repro_torch.models import transformer as T
+    from repro_torch.models.common import init_from_specs, map_specs
+    cfg = reduced_config(arch)
+    if kv_dtype is not None:
+        cfg = dataclasses.replace(cfg, kv_cache_dtype=kv_dtype)
+    specs = map_specs(lambda s: dataclasses.replace(s, dtype=torch.float32),
+                      T.model_specs(cfg))
+    rng = np.random.default_rng(7)
+    tok = torch.from_numpy(rng.integers(0, cfg.vocab, (batch, 20))
+                           .astype(np.int32))
+    return cfg, init_from_specs(specs, 3, device="cpu"), tok
+
+
+def run(cfg, params, tok, mesh, shape):
+    from repro_torch.kernels import ops
+    from repro_torch.train import steps as TS
+    pre, _, psh, _ = TS.make_prefill_step(cfg, mesh, shape, s_max=32)
+    dec, *_ = TS.make_decode_step(cfg, mesh, shape)
+    if psh is not None:
+        params = TS.shard_tree(params, psh)
+    ops.reset_launches()
+    lg, caches = pre(params, {"tokens": tok[:, :12]})
+    out = [lg.float().cpu().numpy()]
+    for t in range(12, 20):
+        lg, caches = dec(params, caches, {"tokens": tok[:, t:t + 1]})
+        out.append(lg[:, 0].float().cpu().numpy())
+    return out, ops.LAUNCHES["flash_attention"]
+
+
+def rank_fn(rank, world):
+    from repro_torch.kernels import build
+    from repro_torch.optim.adamw import tree_map
+    from repro_torch.parallel import make_mesh
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    build.load_library()
+    out = {}
+    for arch, shape, batch, mshape, kv_dtype in CASES:
+        mesh = make_mesh(mshape, ("data", "model"), device_type="cuda")
+        cfg, params, tok = setup(arch, batch, kv_dtype)
+        out[arch, mshape, kv_dtype] = run(
+            cfg, tree_map(lambda x: x.cuda(), params), tok.cuda(), mesh,
+            shape)
+    return out
+
+
+if __name__ == "__main__":
+    from repro_torch.launch.mesh import spawn_ranks
+    res = spawn_ranks(rank_fn, 4, (), backend="gloo", timeout=240)
+    with open(sys.argv[1], "wb") as f:
+        pickle.dump(res, f)
+"""
+
+
+@pytest.mark.cuda
+def test_cuda_gloo_mesh_decode_matches_one_process(tmp_path):
+    """Serving on a mesh of four gloo ranks sharing the card: reduced
+    yi-9b on (2, 2) (layout (a), batch over data, KV heads over model)
+    and on (1, 4) (layout (b), head_dim over model, the visible rows of
+    each rank's KV heads made whole by an all-to-all before each B5
+    call), there with a bf16 and an int8 cache, and on (2, 2)
+    qwen1.5-32b (layout (a) with its int8 cache) and jamba-v0.1-52b
+    under long_500k (layout (c), the 32-row cache's rows over data, the
+    decode crossing into rank 1's) in float32, a 12-token prefill and 8
+    decode steps, against one process on the card: every step's logits
+    within 1e-4 of the largest, every rank identical, B5 launched on
+    every rank.  It guards the DTensor path on the card's torch, whose
+    DTensor has differed from the CPU's."""
+    need_card()
+    import pickle
+
+    from repro_torch.optim.adamw import tree_map
+    script = tmp_path / "serve.py"
+    script.write_text(SERVE_MESH_SCRIPT)
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    proc = subprocess.run([sys.executable, str(script),
+                           str(tmp_path / "out.pkl")], env=env,
+                          cwd=str(tmp_path), capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    with open(tmp_path / "out.pkl", "rb") as f:
+        ranks = pickle.load(f)
+    ns = {}
+    exec(SERVE_MESH_SCRIPT.split("def rank_fn")[0], ns)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    for arch, shape, batch, mshape, kv_dtype in ns["CASES"]:
+        key = arch, mshape, kv_dtype
+        cfg, params, tok = ns["setup"](arch, batch, kv_dtype)
+        want, _ = ns["run"](cfg, tree_map(lambda x: x.cuda(), params),
+                            tok.cuda(), None, shape)
+        for r in ranks:
+            got, launches = r[key]
+            assert launches > 0, key
+            for a, b in zip(got, want):
+                assert np.abs(a - b).max() <= 1e-4 * np.abs(b).max(), key
+            for a, b in zip(got, ranks[0][key][0]):
+                np.testing.assert_array_equal(a, b)

@@ -468,18 +468,15 @@ def test_config_and_registry_take_the_sharded_options():
     assert cfg.exchange_every == 2
     assert get_backend("sharded").name == "sharded"
     assert not get_backend("sharded").supports_batch
-    # LM serving and training are ported for one device (A15.2, A15.3),
-    # training on a mesh too; what is left is B5's and sharded serving's,
-    # each naming its ROADMAP item
+    # LM serving and training are ported for one device and a mesh
+    # (A15.2, A15.3); what is left is B5's and B5-bwd's, each naming its
+    # ROADMAP item
     assert "lm serving" not in UNPORTED
     assert set(UNPORTED) == {
-        "sliding-window attention on CUDA", "int8 KV cache on CUDA",
         "attention head dims other than 64 and 128 on CUDA",
-        "parallel/ serving (prefill and decode on a mesh)"}
-    assert all(item.startswith("Queue B") for k, item in UNPORTED.items()
-               if k.endswith("on CUDA"))
-    assert UNPORTED["parallel/ serving (prefill and decode on a mesh)"].startswith(
-        "Queue A, A15.3")
+        "B5-bwd with a sliding window (training under a window on CUDA)"}
+    assert all(item.startswith("Queue B") for item in UNPORTED.values())
+    assert not any(k.startswith("parallel/") for k in UNPORTED)
     # exchange_every is an algorithm static, as in the reference
     assert cfg.algo_key() != EngineConfig(backend="sharded",
                                           device="cpu").algo_key()

@@ -432,3 +432,59 @@ ptxas info    : Used 26 registers, used 1 barriers, 400 bytes cmem[0]
             "spill_store_bytes": 0, "spill_load_bytes": 0, "registers": 168,
             "wgmma_serialized": "due to insufficient register resources "
                                 "for the wgmma pipeline"}}
+
+
+def _sp_part(q, k, v, lo, hi, length, window, scales):
+    """One sequence-parallel rank's B5 call over cache rows lo .. hi - 1
+    (the decode query at position length - 1), as
+    ``models.attention._attend_on_mesh`` makes it: (out, lse), zeros and
+    -inf for a rank with no visible row, which launches nothing."""
+    first = 0 if window is None else max(0, length - window)
+    a, e = max(first, lo) - lo, min(length, hi) - lo
+    if e <= a:
+        return (torch.zeros_like(q), torch.full(
+            (q.shape[0], q.shape[2], 1), float("-inf")))
+    ks = vs = None
+    if scales is not None:
+        ks, vs = (t[:, lo:hi].contiguous() for t in scales)
+    return ops.flash_attention_fwd(
+        q, k[:, lo:hi].contiguous(), v[:, lo:hi].contiguous(), causal=True,
+        kv_len=e, window=window, q_offset=length - 1 - lo, k_scale=ks,
+        v_scale=vs)
+
+
+@settings(max_examples=40, deadline=None)
+@given(cuts=st.lists(st.integers(0, 48), max_size=4),
+       length=st.integers(1, 48),
+       window=st.one_of(st.none(), st.integers(1, 60)), int8=st.booleans(),
+       seed=st.integers(0, 2**16))
+def test_lse_merge_of_any_key_split_is_the_whole_attention(cuts, length,
+                                                           window, int8,
+                                                           seed):
+    """Keys split into shards at any points (empty shards included), each
+    shard's B5 call with its lse, merged by lse (``parallel.compat.
+    lse_merge``, what ``lse_combine`` all-reduces across ranks): the
+    attention over every key, within float32 rounding."""
+    from repro_torch.models.attention import quantize_kv
+    from repro_torch.parallel.compat import lse_merge
+    g = torch.Generator().manual_seed(seed)
+    q = torch.randn(2, 1, 4, 64, generator=g)
+    k, v = (torch.randn(2, 48, 2, 64, generator=g) for _ in range(2))
+    scales = None
+    if int8:
+        (k, ks), (v, vs) = quantize_kv(k), quantize_kv(v)
+        scales = (ks, vs)
+    kw = dict(causal=True, kv_len=length, window=window,
+              q_offset=length - 1, k_scale=None if scales is None
+              else scales[0], v_scale=None if scales is None else scales[1])
+    whole = ops.flash_attention(q, k, v, **kw)
+    bounds = [0, *sorted(cuts), 48]
+    parts = [_sp_part(q, k, v, lo, hi, length, window, scales)
+             for lo, hi in zip(bounds, bounds[1:])]
+    outs = torch.stack([o for o, _ in parts])
+    lses = torch.stack([s for _, s in parts])
+
+    def over_parts(t, op):
+        return t.sum(0) if op == "sum" else t.amax(0)
+    got = lse_merge(outs, lses, over_parts)
+    assert torch.allclose(got, whole, atol=1e-5, rtol=1e-5)

@@ -168,6 +168,41 @@ def leaf_paths_of(tree, prefix=()):
     return [(prefix, tree)]
 
 
+@pytest.mark.parametrize("mesh", [(2, 2), (1, 8)])
+@pytest.mark.parametrize("arch", sorted(ARCHS))
+def test_serving_param_shardings_keep_head_dim_whole(arch, mesh):
+    """A serving step's parameters take the rules' shardings with
+    ``head_dim`` whole: the reference's spec of every leaf, less the mesh
+    axis of its ``head_dim`` where the rules split that (the KV heads do
+    not divide ``model``: yi-9b and starcoder2-15b on (1, 8)); the cache
+    keeps the split."""
+    from repro_torch.parallel.rules import serving_param_shardings
+    cfg = tget_config(arch)
+    rules = make_rules(abstract_mesh(mesh, ("data", "model")), cfg,
+                       "decode_32k")
+    specs = TT.model_specs(cfg)
+    axes = dict(leaf_paths(specs))
+    want = leaf_paths_of(param_shardings(rules, logical_axes(specs)))
+    got = leaf_paths_of(serving_param_shardings(rules, logical_axes(specs)))
+    assert [p for p, _ in got] == [p for p, _ in want]
+    changed = 0
+    for (path, w), (_, g) in zip(want, got):
+        logical = axes[path].axes
+        spec = list(w.spec) + [None] * (len(logical) - len(w.spec))
+        spec = [None if ax == "head_dim" else x
+                for x, ax in zip(spec, logical)]
+        while spec and spec[-1] is None:
+            spec.pop()
+        assert g.spec == tuple(spec), path
+        changed += g.spec != w.spec
+    split = rules.mapping["head_dim"] is not None
+    assert split == (cfg.n_kv_padded % mesh[1] != 0)
+    assert (changed > 0) == split
+    if split:
+        assert rules.spec(("layers", "batch", "seq_kv", "kv_heads",
+                           "head_dim"))[-1] == "model"
+
+
 def test_rules_without_devices_and_their_placements():
     """The abstract mesh needs no process group; a spec's placements are
     Shard on the dims that name a mesh axis, Replicate elsewhere, a dim

@@ -211,22 +211,33 @@ def test_remat_rejects_an_unknown_policy():
 
 
 def test_multi_device_mesh_raises_unported():
-    """Prefill and decode on a mesh of more than one device wait for
-    sharded serving; one device's mesh runs (the train step takes a
-    ``DeviceMesh`` of any size: tests/test_torch_train_sharded.py)."""
+    """A mesh of one device (or None) gives the plain serving steps, with
+    no rules or shardings; a larger mesh must be a ``DeviceMesh`` (the
+    sharded serving steps on one are held to the reference in
+    tests/test_torch_serve_sharded.py), and no serving entry is left in
+    UNPORTED."""
     class Mesh:            # a DeviceMesh's size(), without a process group
         def __init__(self, n):
             self.n = n
 
         def size(self):
             return self.n
-    cfg = configs("yi-9b")[1]
+    _, cfg, _, params = carried("yi-9b", "float32")
     TS.make_train_step(cfg, Mesh(1))
+    toks = torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg.vocab, (2, 9)).astype(np.int32))
+    for mesh in (None, Mesh(1)):
+        pre, *rest = TS.make_prefill_step(cfg, mesh, s_max=16)
+        dec, *drest = TS.make_decode_step(cfg, mesh)
+        assert rest == drest == [None, None, None]
+        lg, caches = pre(params, {"tokens": toks[:, :8]})
+        lg2, caches = dec(params, caches, {"tokens": toks[:, 8:]})
+        assert lg.shape == (2, cfg.vocab_padded) and caches["0"].length == 9
+        assert lg2.shape == (2, 1, cfg.vocab_padded)
     for make in (TS.make_prefill_step, TS.make_decode_step):
-        make(cfg, Mesh(1))
-        with pytest.raises(NotImplementedError, match="parallel/ serving"):
+        with pytest.raises(ValueError, match="DeviceMesh"):
             make(cfg, Mesh(4))
-    assert "parallel/ serving (prefill and decode on a mesh)" in UNPORTED
+    assert not any(k.startswith("parallel/") for k in UNPORTED)
 
 
 def test_opt_state_init_and_abstract():

@@ -229,19 +229,15 @@ def test_init_decode_caches_match_reference(name):
 
 
 def test_unported_names_each_roadmap_item():
-    """Every family is ported and trains on one device or a mesh: what
-    stays unported is B5's (Queue B), on CUDA only, and prefill / decode
-    on a mesh of more than one device (sharded serving, A15.3)."""
+    """Every family is ported, serves and trains on one device or a mesh:
+    what stays unported is B5's and B5-bwd's (Queue B), on CUDA only: head
+    dims other than 64 and 128, and a window under grad."""
     assert set(UNPORTED) == {
-        "sliding-window attention on CUDA", "int8 KV cache on CUDA",
         "attention head dims other than 64 and 128 on CUDA",
-        "parallel/ serving (prefill and decode on a mesh)"}
+        "B5-bwd with a sliding window (training under a window on CUDA)"}
     for k, item in UNPORTED.items():
-        if k.startswith("parallel/"):
-            assert "A15.3" in item and "Queue A" in item, k
-        else:
-            assert "A15.3" not in item and "Queue B" in item \
-                and "CUDA" in k, k
+        assert "A15.3" not in item and "Queue B" in item \
+            and "CUDA" in k, k
 
 
 def test_serve_runs_on_cpu_and_is_greedy():
