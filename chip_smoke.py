@@ -39,7 +39,7 @@ Phases, one JSON line each:
            lpa_run_dense and split_lp_dense equal the segment lpa_run /
            split_lp, labels and iterations; gsl_lpa / gve_lpa on karate
            club on the card equal their CPU runs.
-  skew_fit two segment fits of rmat(20, 16) (hubs of degree ~10^4, long
+  skew_fit two segment fits of rmat(19, 16) (hubs of degree ~10^4, long
            per-(vertex, label) runs): equal labels, their timings.
   batch    Engine.fit_many.  Traffic A: 32 members grid2d(side), side =
            400, 410, ..., 710 (10,129,600 vertices, 40,447,360 directed
@@ -91,12 +91,12 @@ Phases, one JSON line each:
            replay: each member equals its solo fit.  (c) warm_start="auto":
            a second fit is warm and equals the fit from the first's labels;
            the cache stays at its bound over warm_cache_size + 1 graphs.
-  ingest   grid2d(2000) written as MatrixMarket (7,996,000 edges);
+  ingest   grid2d(1400) written as MatrixMarket (3,914,400 edges);
            python -m repro_torch.launch.ingest <file> --stats --detect in a
            subprocess (exit 0, detection on the card); load_graph twice
            (parse, then a store hit that shares the entry's pages), both
-           equal to grid2d(2000) with its fingerprint; Engine().fit(path)
-           equals Engine().fit(grid2d(2000)), and a second fit(path) under
+           equal to grid2d(1400) with its fingerprint; Engine().fit(path)
+           equals Engine().fit(grid2d(1400)), and a second fit(path) under
            warm_start="auto" is warm through the stored fingerprint.
   ooc      out-of-core fits (needs main, ingest).  grid2d(3500) under a
            budget of 3/4 of its in-core edge bytes (13 B per slot):
@@ -117,25 +117,25 @@ Phases, one JSON line each:
            exchange bytes, plan / propagation / split / compact seconds,
            the wait on window loads, wall beside the in-core
            wall (main's cold fits; the road fits also beside a warm one).
-  serve    the multi-tenant serving tier (repro_torch.serve): 32 tenants,
+  serve    the multi-tenant serving tier (repro_torch.serve): 16 tenants,
            tenant i evolving_sequence(100000, 5.0, ..., delta_edges=100,
-           seed=7 + 17 * i) (3.2M vertices, ~16M directed edges; traces
+           seed=7 + 17 * i) (1.6M vertices, ~8M directed edges; traces
            made once, in worker processes), each a register and 3 rounds
            (every third a cold refresh, but for the 4 parity tenants) from
            8 client threads through TenantService(queue_capacity=16,
            max_batch=8) on Engine(backend="tile", quality="full"), B3 / B4
-           on every batch.  (a) Warm budget 16,000,000 B: 128 requests, none
+           on every batch.  (a) Warm budget 16,000,000 B: 64 requests, none
            stranded or failed, no spill, the parity tenants equal
            replay_parity, every tenant's last health sample has
            disconnected fraction 0.0, B3 and B4 launched (counts reset just
            before, read just after); then the four LPA kernels on one
            served batch's packed tiles (8 tenants after (a), their labels),
            exact against their plain versions, timed, with their bounds.
-           (b) 9,600,000 B: spills, the peak within the budget, the same
+           (b) 4,800,000 B: spills, the peak within the budget, the same
            gates.  (a) again under torch.profiler (device activity only):
            the device's busy and idle share of the load.  (c) (a)'s
            snapshot through CheckpointManager restored into a new service
-           on a fresh engine (32 restored, labels equal), round 4 on the
+           on a fresh engine (16 restored, labels equal), round 4 on the
            parity tenants equal to a solo replay of all 4.  The checkpoint
            directory is removed whatever fails.  (d) serve_communities and
            serve_streaming at their defaults, then python -m
@@ -210,15 +210,15 @@ Phases, one JSON line each:
            larger: bf16 rounding noise grows with depth).
   lm_families  LM serving of the other families, one arch each at full
            width with random bf16 weights from seed 0, freed before the
-           next: qwen2-moe-a2.7b (24 layers, MoE 60 of 64 experts top-4 +
-           shared expert), jamba-v0.1-52b cut to one group (8 of 32
-           layers: Mamba, attention at offset 4, MoE on odd offsets),
-           rwkv6-7b (32), seamless-m4t-large-v2 (24 + 24 encoder layers,
-           hd 64, 32 frames), internvl2-26b (48, a 1,024-row vision
-           prefix, 48 / 8 heads) and arctic-480b cut to one of its 35
-           layers (128 experts top-2 + dense residual).  Per arch: (b)
-           card against the CPU's plain path, logits within 0.02 (full
-           width at 2 layers, the VLM's prefix cut to 64 rows; jamba and
+           next, each cut to 4 decoder layers: qwen2-moe-a2.7b (of 24,
+           MoE 60 of 64 experts top-4 + shared expert), jamba-v0.1-52b
+           (8: one group of its 32 layers: Mamba, attention at offset 4,
+           MoE on odd offsets), rwkv6-7b (of 32), seamless-m4t-large-v2 (of 24,
+           + 24 encoder layers, hd 64, 32 frames), internvl2-26b (of 48, a
+           1,024-row vision prefix, 48 / 8 heads) and arctic-480b cut to
+           one of its 35 layers (128 experts top-2 + dense residual).
+           Per arch: (b) card against the CPU's plain path, logits within 0.02
+           (full width at 2 layers, the VLM's prefix cut to 64 rows; jamba and
            arctic at reduced_config); (a) serve(arch, reduced=False,
            batch=4, prompt_len=512, max_new=32, s_max=1024 + prefix) with
            launch counts reset just before and read just after (B5
@@ -278,16 +278,29 @@ Phases, one JSON line each:
            dQ cast).  (d) tests/test_train_loop.py's runs at
            reduced_config("yi-9b") on the card: the loss falls by 0.5 in
            30 steps; 8 steps straight and 4 + save + resume + 4 end on
-           bit-equal parameters.
+           bit-equal parameters.  Under a sliding window: (a) also holds
+           B5-bwd with a window to its plain version in bf16 and float32,
+           two launches bit-equal, at starcoder2-15b's call (q (1, 8192,
+           48, 128) over k / v (1, 8192, 4, 128), window 4096; bf16 timed
+           beside the band's bound, the plain version and SDPA's backward
+           with the band as a boolean mask: the kernels line's B5-bwd
+           (window) row) and at (2, 300, 8 / 2, 128), window 100; (e) (b)
+           for starcoder2-15b at full width and 2 layers, its window cut
+           to 64 over 2 x 128-token rows, in float32; (f) launch.train.run of
+           starcoder2-15b at full width, 6 of 40 layers, its own window
+           4096, 1 x 8192 tokens, 4 steps: B5 12 and B5-bwd 6 a step, the
+           losses and grad norms finite and the loss falling, step
+           seconds, tokens/s and peak bytes.
   train_sharded
            the sharded train step (train.steps on a DeviceMesh: DTensor
            parameters on the rules' shardings, ZeRO-1 reduce-scatter,
            AdamW on each rank's shard, the all-gather back; B5 / B5-bwd
            on each rank's own heads).  (a) One NCCL rank, mesh (1, 1),
-           the train phase's cell (Yi-9B full width, 8 layers, remat
-           full, 4 x 4096), 3 steps from the trainer's starting state,
-           against the one-device step from the same state: losses and
-           parameters within 0.02 (bit-equal leaves counted), step
+           the train phase's cell (Yi-9B full width, remat full, 4 x
+           4096) cut to 4 layers (8 until PR 33), 3 steps from the
+           trainer's starting state, against the one-device step from the same
+           state: losses and parameters within 0.02 (bit-equal leaves counted),
+           step
            seconds beside the one-device step's (the DTensor dispatch
            cost), B5 / B5-bwd launches counted.  (b) Four gloo ranks all
            on cuda:0, mesh (2, 2) (data, model), the same width at 2
@@ -308,19 +321,21 @@ Phases, one JSON line each:
            greedy tokens, then its float32 replay (the bf16 weights read
            in float32, float32_replay) teacher forced on them, which the
            ranks repeat on their shards, after a bf16 run of some steps
-           where the case says: (a) qwen1.5-32b at full width, 16 of 64
+           where the case says: (a) qwen1.5-32b at full width, 4 of 64
            layers, its int8 cache, decode_32k's rules on (2, 2) (KV heads
            over model, batch over data), 4 prompts of 2,048 tokens, a
            4,096-row cache, 8 bf16 steps and 32 float32 steps; (c)
            jamba-v0.1-52b at 8 of 32 layers under long_500k's rules on
-           (2, 2) (batch 1, the 16,384 rows over data), an 8,176-token
+           (2, 2) (batch 1, the 4,096 rows over data; 16,384 until PR
+           33, the time limit), a 2,032-token
            prompt and 32 float32 steps that cross into data rank 1's
            rows; (hd) yi-9b at full width, 2 of 48 layers, on (1, 8)
            (eight ranks; its 4 KV heads do not divide 8, so the cache
            splits head_dim), 4 prompts of 4,088 tokens, a 4,096-row cache,
-           8 steps in bf16 and in float32.  Gates: every step's float32
-           logits within 2e-3 of the largest; every bf16 step within
-           twice the one-device bf16 run's own distance from float32 over
+           4 steps in bf16 and in float32 (8 until PR 33: the time
+           limit).  Gates: every step's float32 logits within 2e-3 of the
+           largest; every bf16 step within twice the one-device bf16 run's own
+           distance from float32 over
            the same steps (or 0.02 where larger); every rank's logits
            identical; each rank's peak device bytes under the share
            reckoned before its run; B5 launched on every rank each step
@@ -329,11 +344,11 @@ Phases, one JSON line each:
            all-to-all each step (counted in parallel.compat.EXCHANGED)
            equal to the visible rows of the KV head it reads, and none in
            the other cases or in a prefill.  (b) starcoder2-15b at full
-           width and depth on one device: 2 prompts of 6,144 tokens (past
-           its 4,096 window), an 8,192-row cache, 32 steps: B5 launches
-           (40 a step), the key rows each launch's blocks load, counted
-           by the kernel (ops.count_kv_rows) and each decode launch's
-           held to the window's tiles, prefill and step times, finite
+           width, 10 of 40 layers, on one device: 2 prompts of 6,144
+           tokens (past its 4,096 window), an 8,192-row cache, 32 steps:
+           B5 launches (10 a step), the key rows each launch's blocks
+           load, counted by the kernel (ops.count_kv_rows) and each decode
+           launch's held to the window's tiles, prefill and step times, finite
            logits; its reduced config with the window cut to 64 on the
            card against the CPU within 0.02.  B5's cases at the phase's
            calls against the plain version, timed beside their bounds and
@@ -356,6 +371,17 @@ Phases, one JSON line each:
            grid2d(3500) under one TraceAudit: zero excess, the second a
            plan-cache hit, both equal to main's labels.  Plan builds per
            bin, the excess count and the walls in one line.
+  dryrun   the dry run (repro_torch.launch.dryrun) under this machine's
+           torch, three subprocesses at once: yi-9b train_4k on the pod
+           and graph-lpa on the multipod from the CLI (fake worlds of 256
+           and 512 ranks, meta tensors; each record's FLOPs, argument
+           bytes and collective wire bytes non-zero), and the train
+           phase's trainer cell (Yi-9B at full width, 8 layers, 4 x 4096)
+           traced on a one-rank world, while the card runs one real step
+           of that cell: the trace's argument bytes equal to the card's
+           state (parameters, AdamW state, batch) exactly, its reckoned
+           peak (arguments + temp) within 25 % of max_memory_allocated
+           over the real step; each subprocess under 300 s.
 
 The build fails the run if ptxas reports a spill in the flash kernel
 (flash_wgmma<64|128, false|true>: bf16 K / V or the int8 cache), in
@@ -408,27 +434,28 @@ LM_NOISE_FACTOR = 1.5
 LM_KERNEL_TOL = 8e-3   # B5 against its plain version in bf16 (flash's)
 LM_RAGGED_KEYS = 300   # the B=2 decode call's keys: not a multiple of 128
 # The lm_families phase: one arch of each other family at full width,
-# random bf16 weights from LM_SEED, cut in depth (layers kept) where the
-# whole model would not fit one card: Jamba to one 8-layer group (103 GB
-# at 32), Arctic to one of its 35 layers (954 GB).  (b) runs full width
-# at LM_CPU's 2 layers, but reduced_config for those two (one group or
-# layer is 13-14 B parameters), and cuts the VLM's prefix to
+# random bf16 weights from LM_SEED, cut in depth (layers kept): Jamba to
+# one 8-layer group (103 GB at 32), Arctic to one of its 35 layers (954
+# GB), the rest to 4 decoder layers for the script's time limit (they
+# ran at full depth until the dry run and the window trainer joined).
+# (b) runs full width at LM_CPU's 2 layers, but reduced_config for those two
+# (one group or layer is 13-14 B parameters), and cuts the VLM's prefix to
 # LM_FAMILY_PREFIX rows on the CPU.
-LM_FAMILIES = (("qwen2-moe-a2.7b", None), ("jamba-v0.1-52b", 8),
-               ("rwkv6-7b", None), ("seamless-m4t-large-v2", None),
-               ("internvl2-26b", None), ("arctic-480b", 1))
+LM_FAMILIES = (("qwen2-moe-a2.7b", 4), ("jamba-v0.1-52b", 8),
+               ("rwkv6-7b", 4), ("seamless-m4t-large-v2", 4),
+               ("internvl2-26b", 4), ("arctic-480b", 1))
 LM_FAMILY_REDUCED_CPU = ("jamba-v0.1-52b", "arctic-480b")
 LM_FAMILY_PREFIX = 64
 LM_FRAMES = 32         # the encoder frames serve() makes
 # Graphs of the timing phase beyond the main fit: (name, generator call).
 ER_GRAPH = "erdos_renyi(1 << 21, 16.0, seed=0)"
 PLANTED_GRAPH = "planted_partition(128, 1024, 0.3, 0.001, seed=0)"
-SKEW_GRAPH = "rmat(20, 16, seed=0)"
+SKEW_GRAPH = "rmat(19, 16, seed=0)"      # rmat(20, ...) until PR 33
 PHASES = ("kernels", "parity", "c1", "main", "wide_fit", "dense",
           "skew_fit", "batch", "obs", "microbatch", "stream", "ingest",
           "ooc", "serve", "sharded", "timing", "trace", "flash", "lm",
           "lm_families", "train", "train_sharded", "serve_sharded",
-          "audit")
+          "audit", "dryrun")
 # phase -> the phases whose graphs and fits it reuses
 NEEDS = {"timing": ("main", "wide_fit"), "trace": ("main",),
          "dense": ("wide_fit",), "microbatch": ("batch",),
@@ -444,13 +471,15 @@ ROAD_DELTA_EDGES = 1000
 # The serve phase's tenants: evolving_sequence(SERVE_SIZE, 5.0, ...,
 # SERVE_DELTA_EDGES, seed=7 + 17 * i), SERVE_ROUNDS deltas through the
 # service, one more for the restored parity tenants; the warm-label
-# budgets of runs (a) and (b) (32 x 400,000 B of labels; (b) holds 24).
-SERVE_TENANTS = 32
+# budgets of runs (a) and (b) (16 x 400,000 B of labels; (b) holds 12).
+# 32 tenants (budgets 16 / 9.6 MB) until PR 33 cut them for the script's
+# time limit.
+SERVE_TENANTS = 16
 SERVE_SIZE = 100_000
 SERVE_ROUNDS = 3
 SERVE_DELTA_EDGES = 100
 SERVE_PARITY = 4
-SERVE_BUDGETS = (16_000_000, 9_600_000)
+SERVE_BUDGETS = (16_000_000, 4_800_000)
 # Spans summed per serve run: the batcher's fits (engine.*; serial on its
 # worker), the dispatcher's launches (a delta's splice) and settlements.
 SERVE_SPANS = ("engine.fit_many", "engine.prepare", "engine.dispatch",
@@ -462,7 +491,7 @@ SHARDED_PLANTED = "planted_partition(32, 512, 0.04, 0.0005, seed=1)"
 SHARDED_STALE_K = 2
 SHARDED_TIMEOUT_S = 300
 # The ingest phase's file: grid2d(INGEST_SIDE) as MatrixMarket.
-INGEST_SIDE = 2000
+INGEST_SIDE = 1400        # 2000 until PR 33 (the script's time limit)
 GRAPH_FIELDS = ("row_ptr", "src", "dst", "wgt", "edge_mask", "kdeg")
 # Traffic A of the batch phase: 32 road meshes grid2d(side) in one batch.
 TRAFFIC_A_SIDES = tuple(range(400, 711, 10))
@@ -818,7 +847,7 @@ def phase_skew_fit(torch, dev):
     from repro_torch.engine import Engine, EngineConfig, PlanCache
     from repro_torch.graphgen import rmat
     t0 = time.perf_counter()
-    g = rmat(20, 16, seed=0).to(dev)
+    g = rmat(19, 16, seed=0).to(dev)
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
     fits = [Engine(EngineConfig(backend="segment", split="lp"),
@@ -1554,8 +1583,8 @@ def _mapped_ranges(path: Path) -> list[tuple[int, int]]:
 
 
 def phase_ingest(torch, dev, tmp: Path):
-    """grid2d(2000) written as MatrixMarket into ``tmp``, ingested by the
-    CLI in a subprocess (--stats --detect, on the card), then loaded in
+    """grid2d(INGEST_SIDE) written as MatrixMarket into ``tmp``, ingested
+    by the CLI in a subprocess (--stats --detect, on the card), then loaded in
     process twice (parse, store hit) and fitted from its path, cold and
     warm.  Returns the file, the in-core fit(path), its wall and the
     phase's line (the ooc phase reuses the file, the fit and the store in
@@ -2011,7 +2040,7 @@ def phase_serve(torch, rt, dev):
             torch, rt, dev, eng_cfg, [graphs[t] for t in members],
             [final[t] for t in members])
 
-        # (b) the same traces under a budget that holds 24 of 32 tenants
+        # (b) the same traces under a budget that holds 12 of 16 tenants
         svc, out["b"] = _serve_run(rt, eng, traces, SERVE_BUDGETS[1], load)
         svc.close()
         check(out["b"]["spills"] > 0, f"serve (b): no spill: {out['b']}")
@@ -3607,33 +3636,52 @@ TRAIN_BWD_MAIN = (4, 4096, 32, 4, 128, 4096, True)
 TRAIN_BWD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 TRAIN_LSE_TOL = 1e-5
 TRAIN_FWD_TOL = {"float32": 1e-5, "bfloat16": 8e-3}    # the flash phase's
+# B5-bwd under a sliding window, (case, window): starcoder2-15b's call (its
+# trainer's, one sequence of 8,192 tokens: the band binds for the rows
+# past 4,096) and a small odd shape (ragged tiles, a band narrower than a
+# KV tile); each in bf16 (timed) and float32.
+TRAIN_BWD_WINDOW = (((1, 8192, 48, 4, 128, 8192, True), 4096),
+                    ((2, 300, 8, 2, 128, 300, True), 100))
 
 
-def _bwd_work(b, sq, h, k, hd, skv, causal, elem):
+def _visible_pairs(sq, skv, causal, window=None) -> int:
+    """Query-key pairs the mask leaves (query i at position i): causal
+    keys j <= i, and i - j < window under a window."""
+    rows = np.arange(sq)
+    hi = np.minimum(rows, skv - 1) if causal else np.full(sq, skv - 1)
+    lo = np.maximum(rows - window + 1, 0) if window else np.zeros(sq, int)
+    return int(np.maximum(hi - lo + 1, 0).sum())
+
+
+def _bwd_work(b, sq, h, k, hd, skv, causal, elem, window=None):
     """(operations, bytes) of one B5-bwd call: S and dP recomputed, dV,
     dK and dQ over the visible pairs (2 FLOPs a multiply-add, 5 products
-    of hd each); q, k, v, out, dout and lse read once, dq, dk, dv written
-    once."""
-    rows = np.arange(1, sq + 1)
-    pairs = int(np.minimum(rows, skv).sum()) if causal else sq * skv
+    of hd each; under a window the band's, S·W − W(W−1)/2 a head for a
+    causal square call with S >= W); q, k, v, out, dout and lse read
+    once, dq, dk, dv written once."""
+    pairs = _visible_pairs(sq, skv, causal, window)
     operations = 10 * b * h * hd * pairs
     bytes_ = elem * (4 * b * sq * h * hd + 4 * b * skv * k * hd) \
         + 4 * b * h * sq
     return operations, bytes_
 
 
-def _train_bwd_case(torch, rt, gen, case, dtype, timed=False):
-    """One B5-bwd case: against its plain version, two launches bit-equal,
-    (timed) beside its bound, the plain version and SDPA's backward."""
+def _train_bwd_case(torch, rt, gen, case, dtype, timed=False, window=None):
+    """One B5-bwd case (under ``window``, if given): against its plain
+    version, two launches bit-equal, (timed) beside its bound, the plain
+    version and SDPA's backward (with the band's boolean mask under a
+    window)."""
     ops, ref = rt.ops, rt.ref
     b, sq, h, k, hd, skv, causal = case
     q, kk, v = _qkv(torch, gen, b, sq, h, k, hd, skv, dtype)
     do = torch.randn(q.shape, device=gen.device, generator=gen).to(dtype)
-    out, lse = ops.flash_attention_fwd(q, kk, v, causal)
-    got = ops.flash_attention_bwd(q, kk, v, out, do, lse, causal)
-    want = ref.flash_attention_bwd_ref(q, kk, v, do, causal)
+    w = {"window": window}
+    out, lse = ops.flash_attention_fwd(q, kk, v, causal, **w)
+    got = ops.flash_attention_bwd(q, kk, v, out, do, lse, causal, **w)
+    want = ref.flash_attention_bwd_ref(q, kk, v, do, causal, **w)
     name = str(dtype).replace("torch.", "")
-    row = {"shape": [b, sq, h, k, hd, skv], "causal": causal, "dtype": name}
+    row = {"shape": [b, sq, h, k, hd, skv], "causal": causal, "dtype": name,
+           "window": window}
     for label, g_, w_ in zip(("dq", "dk", "dv"), got, want):
         check(g_.dtype == dtype and g_.shape == w_.shape
               and bool(torch.isfinite(g_).all()),
@@ -3643,7 +3691,7 @@ def _train_bwd_case(torch, rt, gen, case, dtype, timed=False):
               f"its plain version at {row}: rel {rel}")
         row[f"{label}_max_abs_err"], row[f"{label}_rel_err"] = abs_err, rel
     del want
-    again = ops.flash_attention_bwd(q, kk, v, out, do, lse, causal)
+    again = ops.flash_attention_bwd(q, kk, v, out, do, lse, causal, **w)
     check(all(torch.equal(x, y) for x, y in zip(got, again)),
           f"two B5-bwd launches differ at {row}")
     row["repeat_bit_equal"] = True
@@ -3651,25 +3699,32 @@ def _train_bwd_case(torch, rt, gen, case, dtype, timed=False):
     if not timed:
         return row
     row["ms"] = _time_ms(torch, lambda: ops.flash_attention_bwd(
-        q, kk, v, out, do, lse, causal), reps=10, warmup=2)
+        q, kk, v, out, do, lse, causal, **w), reps=10, warmup=2)
     row["plain_ms"] = _time_ms(torch, lambda: ref.flash_attention_bwd_ref(
-        q, kk, v, do, causal), reps=2, warmup=1)
-    # SDPA's backward (yardstick only): fwd + bwd minus fwd
+        q, kk, v, do, causal, **w), reps=2, warmup=1)
+    # SDPA's backward (yardstick only): fwd + bwd minus fwd; under a
+    # window with the band as a boolean mask (is_causal cannot say it)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_(True)
                   for x in (q, kk, v))
     dot = do.transpose(1, 2).contiguous()
+    mask = {"is_causal": causal}
+    if window is not None:
+        i = torch.arange(sq, device=q.device)[:, None]
+        j = torch.arange(skv, device=q.device)[None, :]
+        band = i - j < window
+        mask = {"attn_mask": band & (j <= i) if causal else band}
 
     def fwd_bwd():
-        o = sdpa(qt, kt, vt, is_causal=causal, enable_gqa=True)
+        o = sdpa(qt, kt, vt, enable_gqa=True, **mask)
         torch.autograd.grad(o, (qt, kt, vt), dot)
     with torch.no_grad():
-        fwd_ms = _time_ms(torch, lambda: sdpa(qt, kt, vt, is_causal=causal,
-                                              enable_gqa=True))
+        fwd_ms = _time_ms(torch, lambda: sdpa(qt, kt, vt, enable_gqa=True,
+                                              **mask))
     row["library_ms"] = _time_ms(torch, fwd_bwd) - fwd_ms
     row["library_fwd_ms"] = fwd_ms
     operations, bytes_ = _bwd_work(b, sq, h, k, hd, skv, causal,
-                                   q.element_size())
+                                   q.element_size(), window)
     ops_ms = operations / BF16_OPS_PER_S * 1e3
     bytes_ms = bytes_ / HBM_BYTES_PER_S * 1e3
     row.update({"operations": operations, "bytes": bytes_,
@@ -3757,6 +3812,7 @@ def _train_kernels(torch, rt, dev):
     per launch; B5 with lse against B5 without it and the plain
     logsumexp, timed.  Then B5-bwd on every case in float32 (TF32 off) and
     bf16, two launches bit-equal in each, timed at TRAIN_BWD_TIMED in
+    bf16; the window cases (TRAIN_BWD_WINDOW) likewise, each timed in
     bf16; two shapes back to back; B5's lse."""
     gen = torch.Generator(device=dev).manual_seed(29)
     main = {"bwd": _train_bwd_case(torch, rt, gen, TRAIN_BWD_MAIN,
@@ -3772,10 +3828,17 @@ def _train_kernels(torch, rt, dev):
                 torch, rt, gen, case, dtype,
                 timed=(i in TRAIN_BWD_TIMED and dtype == torch.bfloat16)))
             torch.cuda.empty_cache()
+    window = []
+    for case, w in TRAIN_BWD_WINDOW:
+        for dtype in (torch.bfloat16, torch.float32):
+            window.append(_train_bwd_case(torch, rt, gen, case, dtype,
+                                          timed=dtype == torch.bfloat16,
+                                          window=w))
+            torch.cuda.empty_cache()
     lse = [_train_lse(torch, rt, gen, TRAIN_BWD_CASES[0], torch.bfloat16),
            _train_lse(torch, rt, gen, TRAIN_BWD_CASES[6], torch.float32),
            _train_lse(torch, rt, gen, TRAIN_BWD_CASES[7], torch.bfloat16)]
-    return {"main": main, "cases": cases, "lse": lse,
+    return {"main": main, "cases": cases, "window": window, "lse": lse,
             "back_to_back": _bwd_back_to_back(torch, rt, gen),
             "tolerance_rel": TRAIN_BWD_TOL,
             "lse_tolerance_abs": TRAIN_LSE_TOL,
@@ -3806,8 +3869,11 @@ def _tree_leaves_named(tree, prefix=""):
         yield prefix, tree
 
 
-def _train_card_vs_cpu(torch, dev):
-    """(b) One make_train_step step of Yi-9B at full width and 2 layers on
+def _train_card_vs_cpu(torch, dev, arch=LM_ARCH, overrides=None,
+                       seq=TRAIN_CPU_SEQ, dtypes=("float32", "bfloat16"),
+                       init_on_card=False):
+    """(b) One make_train_step step of ``arch`` (Yi-9B; (e): starcoder2-15b
+    with ``overrides``' window) at full width and 2 layers on
     the card and on the CPU, in float32 (TF32 off) and bf16, from one
     state: the seed's weights after a shared warm step, made once on the
     card and copied to the CPU bit for bit.  The warm step runs the
@@ -3827,20 +3893,26 @@ def _train_card_vs_cpu(torch, dev):
     from repro_torch.models.common import init_from_specs
     from repro_torch.optim import adamw_update
     from repro_torch.train import steps as S
-    cfg = dataclasses.replace(get_config(LM_ARCH), n_layers=LM_CPU["layers"])
+    cfg = dataclasses.replace(get_config(arch), n_layers=LM_CPU["layers"],
+                              **(overrides or {}))
     cpu = torch.device("cpu")
-    base = init_from_specs(T.model_specs(cfg), LM_SEED, device=cpu)
-    host = SyntheticLMDataset(vocab=cfg.vocab, seq_len=TRAIN_CPU_SEQ,
+    # the seed's weights, drawn on the CPU ((b): its gates' readings
+    # depend on the warm state's bits) or on the card ((e): the draw of
+    # starcoder2-15b's width is much of (e)'s time on the CPU)
+    base = init_from_specs(T.model_specs(cfg), LM_SEED,
+                           device=dev if init_on_card else cpu)
+    host = SyntheticLMDataset(vocab=cfg.vocab, seq_len=seq,
                               global_batch=TRAIN_CPU_BATCH,
                               seed=LM_SEED).next_batch()
     warm = {k: np.ascontiguousarray(v[::-1, ::-1]) for k, v in host.items()}
     step, *_ = S.make_train_step(cfg, None, "train_4k", peak_lr=1e-3,
                                  warmup=TRAIN_STEP_IDX, donate=False,
                                  keep_grads=True)
-    out = {"layers": cfg.n_layers, "batch": TRAIN_CPU_BATCH,
-           "seq": TRAIN_CPU_SEQ, "step_idx": TRAIN_STEP_IDX}
-    for dtype in (torch.float32, torch.bfloat16):
-        name = str(dtype).replace("torch.", "")
+    out = {"arch": arch, "layers": cfg.n_layers, "window": cfg.window,
+           "batch": TRAIN_CPU_BATCH, "seq": seq,
+           "step_idx": TRAIN_STEP_IDX}
+    for name in dtypes:
+        dtype = getattr(torch, name)
         tol = TRAIN_CPU_TOL[name]
         p0 = _tree_map(base, lambda x: x.to(dev, dtype))
         p1, o1, _ = step(p0, S.init_opt_state(cfg, p0),
@@ -4088,9 +4160,76 @@ def _train_reference_checks(torch, dev):
                 ref["params"])), "wall_s": restart_s}}
 
 
+# The train phase's window trainer (f): starcoder2-15b at full width with
+# its own sliding window (4,096), one sequence of TRAIN_SC_SEQ tokens (the
+# band binds past row 4,096), cut to TRAIN_SC_LAYERS of its 40 layers:
+# the one-device dry run of this step (launch/dryrun.py's tracer) reckons
+# 23.7 GB at 2 layers and 8.2 GB more a layer, and the card held Yi-9B's
+# trainer 1.13x over its reckoning (42.6 GB, PR 29, against 37.6), so 6
+# layers (56.5 GB reckoned) leave room that 8 (73 GB) would not.  (e)
+# holds it to the CPU as (b) does, at 2 layers with the window cut to
+# TRAIN_SC_WINDOW over TRAIN_SC_CPU_SEQ-token rows, which bind it, in
+# float32 only: the CPU's steps at starcoder2-15b's width (27 s float32,
+# 37 s bf16 at these rows, PR 33 call 4) are most of (e), and the
+# script's time limit leaves room for one; B5-bwd's bf16 window path is
+# held to its plain version in (a) and trains in (f).
+TRAIN_SC_ARCH = "starcoder2-15b"
+TRAIN_SC_LAYERS, TRAIN_SC_SEQ, TRAIN_SC_STEPS = 6, 8192, 4
+TRAIN_SC_WINDOW, TRAIN_SC_CPU_SEQ = 64, 128
+
+
+def _train_window_run(torch, rt, dev):
+    """(f) starcoder2-15b's trainer through launch.train.run: full width,
+    its own window, TRAIN_SC_LAYERS layers, 1 x TRAIN_SC_SEQ tokens,
+    TRAIN_SC_STEPS steps; every attention call through B5 and B5-bwd with
+    the window (launches counted, reset just before, read just after)."""
+    import math
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import run
+    ops = rt.ops
+    cfg = get_config(TRAIN_SC_ARCH)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    res = run(TRAIN_SC_ARCH, reduced=False, steps=TRAIN_SC_STEPS,
+              seq_len=TRAIN_SC_SEQ, global_batch=1, seed=LM_SEED,
+              log_every=1, device=dev, layers=TRAIN_SC_LAYERS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    b5, b5_bwd = (ops.LAUNCHES[k] for k in ("flash_attention",
+                                            "flash_attention_bwd"))
+    losses, gnorms = res["losses"], res["grad_norms"]
+    check(len(losses) == TRAIN_SC_STEPS and all(map(math.isfinite,
+                                                    losses + gnorms)),
+          f"train (f): a loss or grad norm not finite: {losses} {gnorms}")
+    # starcoder2-15b's random init starts above ln(vocab) (12.0 against
+    # 10.8 on the card, where Yi-9B's starts at it); the steps must lower
+    # it
+    check(min(losses[1:]) < losses[0], f"train (f): the loss did not fall "
+          f"from {losses[0]}: {losses}")
+    check(b5 == 2 * TRAIN_SC_LAYERS * TRAIN_SC_STEPS
+          and b5_bwd == TRAIN_SC_LAYERS * TRAIN_SC_STEPS,
+          f"train (f): B5 {b5} and B5-bwd {b5_bwd} launches in "
+          f"{TRAIN_SC_STEPS} steps, want {2 * TRAIN_SC_LAYERS} and "
+          f"{TRAIN_SC_LAYERS} a step")
+    step_s = res["step_s"]
+    med = float(np.median(step_s[1:]))
+    del res
+    return {"arch": TRAIN_SC_ARCH, "layers": TRAIN_SC_LAYERS,
+            "window": cfg.window, "batch": 1, "seq": TRAIN_SC_SEQ,
+            "steps": TRAIN_SC_STEPS, "losses": losses, "grad_norms": gnorms,
+            "step_s": step_s, "median_step_s": med,
+            "tokens_per_s": TRAIN_SC_SEQ / med,
+            "peak_device_bytes": torch.cuda.max_memory_allocated(),
+            "run_wall_s": wall, "b5_launches": b5,
+            "b5_bwd_launches": b5_bwd}
+
+
 def phase_train(torch, rt, dev):
     """LM training: (a) B5-bwd, (b) card against CPU, (c) the trainer at
-    full width, (d) the reference's training-loop checks."""
+    full width, (d) the reference's training-loop checks; under a sliding
+    window, (e) starcoder2-15b card against CPU and (f) its trainer."""
     import gc
     out = {"kernels": _train_kernels(torch, rt, dev)}
     gc.collect()
@@ -4104,14 +4243,25 @@ def phase_train(torch, rt, dev):
     gc.collect()
     torch.cuda.empty_cache()
     out["reference_checks"] = _train_reference_checks(torch, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    out["window_card_vs_cpu"] = _train_card_vs_cpu(
+        torch, dev, TRAIN_SC_ARCH, {"window": TRAIN_SC_WINDOW},
+        seq=TRAIN_SC_CPU_SEQ, dtypes=("float32",), init_on_card=True)
+    out["window_card_vs_cpu"]["wall_s"] = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["window_trainer"] = _train_window_run(torch, rt, dev)
     return out
 
 
 # --------------------------------------------------------- train_sharded
 
 # The sharded trainer (train.steps on a DeviceMesh).  (a) One NCCL rank,
-# mesh (1, 1): the train phase's cell (Yi-9B at full width, TRAIN_LAYERS
-# layers, remat full, TRAIN_BATCH x TRAIN_SEQ) for SHARDED_A_STEPS steps
+# mesh (1, 1): the train phase's cell (Yi-9B at full width, remat full,
+# TRAIN_BATCH x TRAIN_SEQ) cut to SHARDED_A_LAYERS layers, for
+# SHARDED_A_STEPS steps
 # from the trainer's starting state (init_from_specs(LM_SEED)), against
 # the one-device step from the same state.  (b) SHARDED_B_MESH of gloo
 # ranks sharing cuda:0 (NCCL refuses two ranks on one card): the same
@@ -4129,6 +4279,7 @@ def phase_train(torch, rt, dev):
 # LM_TOL) reads a few such ulps over ~0.12: 0.0176 at this peak on an
 # H100 80GB HBM3 (700 W); a larger peak moves it past LM_TOL.
 SHARDED_A_STEPS = 3
+SHARDED_A_LAYERS = 4      # TRAIN_LAYERS (8) until PR 33: the time limit
 SHARDED_B_MESH = (2, 2)
 SHARDED_B_LAYERS, SHARDED_B_STEPS = 2, 2
 SHARDED_LOCAL = (2, 4096, 16, 2, 128, 4096, True)
@@ -4211,7 +4362,7 @@ def _sharded_train_rank_a(rank, world, tmp):
     torch.backends.cuda.matmul.allow_tf32 = False
     build.load_library()
     dev = torch.device("cuda", torch.cuda.current_device())
-    cfg = dataclasses.replace(get_config(LM_ARCH), n_layers=TRAIN_LAYERS)
+    cfg = dataclasses.replace(get_config(LM_ARCH), n_layers=SHARDED_A_LAYERS)
     batches = _sharded_train_batches(cfg, SHARDED_A_STEPS)
     kw = dict(peak_lr=SHARDED_PEAK_LR, warmup=SHARDED_WARMUP, donate=True)
     params = init_from_specs(T.model_specs(cfg), LM_SEED, device=dev)
@@ -4400,8 +4551,8 @@ def phase_train_sharded(torch, rt, dev):
               f"train_sharded (a): parameters off the one-device step's: "
               f"{a['params']}")
         _check_moved("(a)", a["params"])
-        want = {"flash_attention": 2 * TRAIN_LAYERS * SHARDED_A_STEPS,
-                "flash_attention_bwd": TRAIN_LAYERS * SHARDED_A_STEPS}
+        want = {"flash_attention": 2 * SHARDED_A_LAYERS * SHARDED_A_STEPS,
+                "flash_attention_bwd": SHARDED_A_LAYERS * SHARDED_A_STEPS}
         check(a["sharded"]["launches"] == want, f"train_sharded (a): "
               f"launches {a['sharded']['launches']}, want {want}")
         out["a"] = a
@@ -4476,10 +4627,12 @@ def phase_train_sharded(torch, rt, dev):
 # ---------------------------------------------------------- serve_sharded
 
 # Three mesh cases, each held to a one-device run of the port in this
-# process: (a) qwen1.5-32b (int8 cache) at full width and 16 of 64
-# layers, layout (a) under decode_32k's rules; (c) jamba-v0.1-52b at 8 of
-# 32 layers (as in lm_families), layout (c) under long_500k's: the
-# prompt ends 16 rows before the data ranks' boundary, so the decode
+# process: (a) qwen1.5-32b (int8 cache) at full width and 4 of 64
+# layers (16 until the dry run and the window trainer joined the script:
+# its ranks' init in turn took ~140 s of the 1,200 s limit), layout (a)
+# under decode_32k's rules; (c) jamba-v0.1-52b at 8 of 32 layers (as in
+# lm_families), layout (c) under long_500k's: the prompt ends 16 rows before
+# the data ranks' boundary, so the decode
 # crosses into rank 1's rows, which start with none visible; (hd) yi-9b
 # at full width and 2 of 48 layers on (1, 8), layout (b): its 4 KV heads
 # do not divide 8, so the cache splits head_dim, and each rank's 4 query
@@ -4488,16 +4641,16 @@ def phase_train_sharded(torch, rt, dev):
 # the mesh, timed), then `steps` in float32 over the bf16 weights
 # (float32_replay), the run its gate reads.
 # The ranks make their shards in turn where `init_in_turns` (the whole
-# leaves' float32 draws of four ranks at once outgrow the card at
-# qwen1.5-32b: 8.4 GB for its largest), else all at once.
-SS_A = {"arch": "qwen1.5-32b", "layers": 16, "mesh": (2, 2), "batch": 4,
+# leaves' float32 draws of four ranks at once outgrew the card at
+# qwen1.5-32b's 16 layers: 8.4 GB for its largest), else all at once.
+SS_A = {"arch": "qwen1.5-32b", "layers": 4, "mesh": (2, 2), "batch": 4,
         "prompt": 2048, "s_max": 4096, "steps": 32, "bf16_steps": 8,
-        "shape": "decode_32k", "init_in_turns": True}
+        "shape": "decode_32k", "init_in_turns": False}
 SS_C = {"arch": "jamba-v0.1-52b", "layers": 8, "mesh": (2, 2), "batch": 1,
-        "prompt": 8176, "s_max": 16384, "steps": 32, "bf16_steps": 0,
+        "prompt": 2032, "s_max": 4096, "steps": 32, "bf16_steps": 0,
         "shape": "long_500k", "init_in_turns": True}
 SS_HD = {"arch": "yi-9b", "layers": 2, "mesh": (1, 8), "batch": 4,
-         "prompt": 4088, "s_max": 4096, "steps": 8, "bf16_steps": 8,
+         "prompt": 4088, "s_max": 4096, "steps": 4, "bf16_steps": 4,
          "shape": "decode_32k", "init_in_turns": False}
 SS_CASES = {"a": SS_A, "c": SS_C, "hd": SS_HD}
 # the float32 mesh runs against the one-device float32 run: a few times
@@ -4507,9 +4660,10 @@ SS_F32_TOL = 2e-3
 # this many times the one-device bf16 run's own distance from it over the
 # same steps, or LM_TOL where that is larger
 SS_BF16_NOISE_FACTOR = 2.0
-# (b) starcoder2-15b at full width and depth on one device, past its
-# window; its reduced config with the window cut to 64 against the CPU.
-SS_B = {"arch": "starcoder2-15b", "batch": 2, "prompt": 6144,
+# (b) starcoder2-15b at full width on one device, cut to 10 of its 40
+# layers (for the script's time limit), past its window; its reduced
+# config with the window cut to 64 against the CPU.
+SS_B = {"arch": "starcoder2-15b", "layers": 10, "batch": 2, "prompt": 6144,
         "s_max": 8192, "steps": 32}
 SS_B_SMALL = {"window": 64, "batch": 2, "prompt": 96, "s_max": 128,
               "steps": 8}
@@ -4770,7 +4924,7 @@ def _ss_tile_rows(kv_len, window, bk=SS_BK) -> int:
 
 
 def _ss_starcoder(torch, T, dev):
-    """(b) starcoder2-15b at full width and depth on one device; every
+    """(b) starcoder2-15b at full width on one device (SS_B's layers); every
     B5 launch counts the key rows its blocks load (``ops.count_kv_rows``,
     a zeroed 3-int64 buffer a launch), each decode launch's held to the
     window's tiles."""
@@ -5244,6 +5398,186 @@ def phase_audit(torch, rt, dev, g, fused):
 
 # ------------------------------------------------------------------ main
 
+# ---------------------------------------------------------------- dryrun
+
+# The dry run (launch/dryrun.py) under this machine's torch: two cells of
+# the sweep from the CLI, each in a subprocess under DRYRUN_TIMEOUT_S, and
+# the train phase's trainer cell (Yi-9B at full width, TRAIN_LAYERS
+# layers, TRAIN_BATCH x TRAIN_SEQ) traced on a one-rank world, held to one
+# real step of that cell on the card: the argument bytes equal to the real
+# state's storage bytes (parameters, AdamW state, batch) exactly, the
+# reckoned peak (arguments + the trace's temp bytes) within DRYRUN_PEAK_TOL
+# of max_memory_allocated over the real step.
+DRYRUN_CELLS = (("yi-9b", "train_4k", "pod"), ("graph-lpa", None,
+                                                 "multipod"))
+DRYRUN_TIMEOUT_S = 300
+DRYRUN_PEAK_TOL = 0.25
+DRYRUN_ONE_RANK = r"""
+import dataclasses, json, sys, time
+import torch
+from repro_torch.configs import get_config
+from repro_torch.launch import dryrun as D
+from repro_torch.launch.mesh import fake_world, make_host_mesh
+arch, layers, b, s = sys.argv[1], int(sys.argv[2]), int(sys.argv[3]), \
+    int(sys.argv[4])
+cfg = dataclasses.replace(get_config(arch), n_layers=layers)
+batch = {k: torch.empty((b, s), dtype=torch.int32, device="meta")
+         for k in ("tokens", "targets")}
+t0 = time.perf_counter()
+with fake_world(1):
+    mesh = make_host_mesh((1, 1), ("data", "model"))
+    run, args, meta = D._lower_cell(arch, "train_4k", mesh, cfg=cfg,
+                                    batch=batch)
+    trace, mem = D.trace_cell(run, args)
+print("RESULT" + json.dumps({"memory_analysis": mem, "cost": trace.cost(),
+                             "trace_s": time.perf_counter() - t0}))
+"""
+
+
+def _dryrun_env() -> dict:
+    import os
+    return dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parent
+                                           / "src"))
+
+
+def _dryrun_start(tmp: Path, arch, shape, mesh):
+    """One cell through ``python -m repro_torch.launch.dryrun``, started."""
+    cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+           arch, "--mesh", mesh, "--out-dir", str(tmp)]
+    if shape:
+        cmd += ["--shape", shape]
+    return subprocess.Popen(cmd, env=_dryrun_env(), stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+
+
+def _dryrun_wait(proc, what: str, t0: float) -> tuple[str, float]:
+    """A started subprocess's stdout and wall, under DRYRUN_TIMEOUT_S from
+    ``t0``; one that fails or outlasts it fails the run."""
+    try:
+        out, err = proc.communicate(
+            timeout=max(DRYRUN_TIMEOUT_S - (time.perf_counter() - t0), 1))
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        check(False, f"dryrun {what} outlasted {DRYRUN_TIMEOUT_S} s")
+    check(proc.returncode == 0, f"dryrun {what} exited {proc.returncode}: "
+          f"{err[-1500:]}")
+    return out, time.perf_counter() - t0
+
+
+def _dryrun_cell(tmp: Path, arch, shape, mesh, wall) -> dict:
+    rec = json.loads((tmp / f"{arch}_{shape or 'graph'}_{mesh}.json")
+                     .read_text())
+    check(rec["cost_analysis"]["flops"] > 0
+          and rec["memory_analysis"]["argument_size_in_bytes"] > 0
+          and rec["collectives"]["wire_bytes"]["total"] > 0,
+          f"dryrun {arch} {mesh}: an empty record {rec}")
+    return {"arch": arch, "shape": shape, "mesh": mesh, "wall_s": wall,
+            "lower_seconds": rec["lower_seconds"],
+            "flops": rec["cost_analysis"]["flops"],
+            "wire_bytes": rec["collectives"]["wire_bytes"]["total"],
+            "collective_counts": rec["collectives"]["counts"],
+            "memory_analysis": rec["memory_analysis"]}
+
+
+def _storage_bytes(tree) -> int:
+    """Bytes of the distinct storages under a tree of tensors (dicts,
+    tuples, named tuples)."""
+    from torch.utils._pytree import tree_leaves
+    seen, n = set(), 0
+    for t in tree_leaves(tree):
+        st = t.untyped_storage()
+        if st.data_ptr() not in seen:
+            seen.add(st.data_ptr())
+            n += st.nbytes()
+    return n
+
+
+def _dryrun_real_step(torch, dev) -> dict:
+    """One real step of the trainer cell on the card, from the state it
+    is given: the state's storage bytes, the peak over the step."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLMDataset
+    from repro_torch.models import transformer as T
+    from repro_torch.models.common import init_from_specs
+    from repro_torch.train import steps as S
+    cfg = dataclasses.replace(get_config(LM_ARCH), n_layers=TRAIN_LAYERS)
+    params = init_from_specs(T.model_specs(cfg), LM_SEED, device=dev)
+    opt = S.init_opt_state(cfg, params)
+    host = SyntheticLMDataset(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                              global_batch=TRAIN_BATCH,
+                              seed=LM_SEED).next_batch()
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in host.items()}
+    state = _storage_bytes((params, opt, batch))
+    step, *_ = S.make_train_step(cfg, None, "train_4k", donate=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _, _, metrics = step(params, opt, batch, TRAIN_STEP_IDX)
+    loss = float(metrics["loss"])
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    del params, opt, batch, metrics
+    check(np.isfinite(loss), "dryrun: the real step's loss is not finite")
+    return {"state_bytes_card": state, "peak_bytes_card": peak,
+            "loss": loss}
+
+
+def phase_dryrun(torch, dev):
+    """The dry run on this machine's torch: DRYRUN_CELLS from the CLI and
+    the one-rank trace of the trainer cell, all three subprocesses at
+    once, while the card runs the real step the trace is held to."""
+    import gc
+    import shutil
+    import tempfile
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_dryrun_"))
+    t0 = time.perf_counter()
+    procs = []
+    try:
+        procs = [_dryrun_start(tmp, *c) for c in DRYRUN_CELLS]
+        one = subprocess.Popen(
+            [sys.executable, "-c", DRYRUN_ONE_RANK, LM_ARCH,
+             str(TRAIN_LAYERS), str(TRAIN_BATCH), str(TRAIN_SEQ)],
+            env=_dryrun_env(), stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)
+        procs.append(one)
+        real = _dryrun_real_step(torch, dev)
+        gc.collect()
+        torch.cuda.empty_cache()
+        cells = []
+        for (arch, shape, mesh), p in zip(DRYRUN_CELLS, procs):
+            _, wall = _dryrun_wait(p, f"{arch} {mesh}", t0)
+            cells.append(_dryrun_cell(tmp, arch, shape, mesh, wall))
+        out, _ = _dryrun_wait(one, "one rank", t0)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+        shutil.rmtree(tmp, ignore_errors=True)
+    pred = json.loads([x for x in out.splitlines()
+                       if x.startswith("RESULT")][0][len("RESULT"):])
+    mem = pred["memory_analysis"]
+    reckoned = mem["argument_size_in_bytes"] + mem["temp_size_in_bytes"]
+    one_rank = {"layers": TRAIN_LAYERS, "batch": TRAIN_BATCH,
+                "seq": TRAIN_SEQ,
+                "argument_bytes_reckoned": mem["argument_size_in_bytes"],
+                "temp_bytes_reckoned": mem["temp_size_in_bytes"],
+                "peak_bytes_reckoned": reckoned, **real,
+                "peak_ratio": reckoned / real["peak_bytes_card"],
+                "flops_reckoned": pred["cost"]["flops"],
+                "trace_s": pred["trace_s"]}
+    check(mem["argument_size_in_bytes"] == real["state_bytes_card"],
+          f"dryrun: argument bytes {mem['argument_size_in_bytes']} against "
+          f"the card's state {real['state_bytes_card']}")
+    check(abs(one_rank["peak_ratio"] - 1) <= DRYRUN_PEAK_TOL, f"dryrun: "
+          f"reckoned peak {reckoned} against the card's "
+          f"{real['peak_bytes_card']}")
+    return {"cells": cells, "one_rank": one_rank,
+            "peak_tolerance": DRYRUN_PEAK_TOL,
+            "wall_s": time.perf_counter() - t0}
+
+
 def _parse_args(argv):
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -5411,6 +5745,9 @@ def main(argv=None) -> int:
     if "audit" in run:
         audit_launches, res = phase_audit(torch, rt, dev, g, fused)
         emit({"phase": "audit", "nvidia_smi": smi, **res})
+    if "dryrun" in run:
+        emit({"phase": "dryrun", "nvidia_smi": smi,
+              **phase_dryrun(torch, dev)})
     if run != set(PHASES):
         print("chip_smoke: a subset of the phases ran; no kernels summary "
               "and no result line", file=sys.stderr)
@@ -5469,7 +5806,7 @@ def main(argv=None) -> int:
                        "trainer, 6 steps of Yi-9B at 8 layers, two per "
                        "layer and step (the forward, remat's recompute); "
                        "train_sharded_launches: the train_sharded phase's "
-                       "(a) 3 sharded steps at 8 layers on one NCCL rank "
+                       "(a) 3 sharded steps at 4 layers on one NCCL rank "
                        "and (b) 2 steps at 2 layers on each of 4 gloo "
                        "ranks, on the rank's heads; train_sharded_local: "
                        "B5 with lse at (b)'s local shapes (q (2, 4096, 16, "
@@ -5477,12 +5814,12 @@ def main(argv=None) -> int:
                        "serve_sharded_launches: the serve_sharded phase's "
                        "mesh runs per rank, bf16 (flash_wgmma) and "
                        "float32 (flash_fma): (a) qwen1.5-32b on (2, 2), "
-                       "16 layers, int8 cache, a prefill and 8 / 32 "
+                       "4 layers, int8 cache, a prefill and 8 / 32 "
                        "steps; (c) jamba on (2, 2), sequence-parallel, "
                        "data rank 1 from its first row, float32; (hd) "
                        "yi-9b on (1, 8), 2 layers, head_dim split, a "
                        "prefill and 8 steps each; and (b) starcoder2-15b "
-                       "on one device (40 layers, window 4096, a prefill "
+                       "on one device (10 layers, window 4096, a prefill "
                        "and 32 steps); serve_sharded_rows_loaded: the key "
                        "rows each of (b)'s decode blocks loaded, counted "
                        "by the kernel (ops.count_kv_rows); "
@@ -5519,6 +5856,26 @@ def main(argv=None) -> int:
             "b5_bwd_ms_by_launch"],
         **_sharded_kernel_fields(sharded_train, "bwd", "flash_attention_bwd"),
         **{k: tk[k] for k in keys}})
+    # B5-bwd under a sliding window, at the window trainer's call
+    wk = next(c for c in train["kernels"]["window"]
+              if "ms" in c and c["shape"][1] == TRAIN_SC_SEQ)
+    rows.append({
+        "name": "flash_attention_bwd (window)", "route": "cuda",
+        "source": KERNELS["flash_attention_bwd"][0],
+        "replaces": KERNELS["flash_attention_bwd"][1],
+        "launches": train["window_trainer"]["b5_bwd_launches"],
+        "launched_by": "launches: the train phase's window trainer (f), "
+                       "launch.train.run of starcoder2-15b at full width, "
+                       f"{TRAIN_SC_LAYERS} layers, 1 x {TRAIN_SC_SEQ} tokens, "
+                       f"{TRAIN_SC_STEPS} steps, window 4096, one launch per "
+                       "layer and step; checked and timed at its call: B=1, "
+                       f"S={TRAIN_SC_SEQ}, H=48, K=4, hd=128, bf16, causal, "
+                       "window 4096; bound_ms over the band's pairs; "
+                       "library_ms: SDPA's backward with the band as a "
+                       "boolean mask",
+        "max_abs_err": max(wk[f"{x}_max_abs_err"] for x in ("dq", "dk",
+                                                            "dv")),
+        **{k: wk[k] for k in keys}})
     emit({"kernels": rows})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -4,6 +4,7 @@ from repro_torch.configs.base import (  # noqa: F401
     SHAPES,
     ArchConfig,
     ShapeSpec,
+    input_specs,
     supported_shapes,
 )
 from repro_torch.configs.registry import (  # noqa: F401

@@ -1,11 +1,14 @@
 """Architecture config schema + shape-set definitions (assigned cells).
 
-The port's own copy of ``repro.configs.base``, field for field.
-``input_specs`` belongs to the dry run (ROADMAP A15.4) and is not here.
+The port's own copy of ``repro.configs.base``, field for field;
+``input_specs`` gives the dry run (``launch/dryrun.py``) its inputs on
+the ``meta`` device.
 """
 from __future__ import annotations
 
 import dataclasses
+
+import torch
 
 from repro_torch.models.common import round_up
 
@@ -199,3 +202,33 @@ def supported_shapes(cfg: ArchConfig) -> list[str]:
         out.append("long_500k")
     return out
 
+
+
+def input_specs(cfg: ArchConfig, shape: str) -> dict:
+    """Every model input of a cell as a tensor on the ``meta`` device (no
+    storage), the reference's shapes and dtypes key for key: the global
+    batch, which a sharded step splits over the data axes itself."""
+    sp = SHAPES[shape]
+    b, s = sp.global_batch, sp.seq_len
+
+    def spec(shape, dtype=torch.int32):
+        return torch.empty(shape, dtype=dtype, device="meta")
+    # vlm: the vision prefix counts toward seq_len (total positions = s)
+    s_tok = s - cfg.frontend_len if cfg.family == "vlm" else s
+    if sp.step == "train":
+        d = {"tokens": spec((b, s_tok)), "targets": spec((b, s_tok))}
+    elif sp.step == "prefill":
+        d = {"tokens": spec((b, s_tok))}
+    else:  # decode: one new token against a cache of size s
+        d = {"tokens": spec((b, 1))}
+    if cfg.family == "vlm" and sp.step != "decode":
+        d["vision_embeds"] = spec((b, cfg.frontend_len, cfg.d_model),
+                                  torch.bfloat16)
+    if cfg.kind == "encdec":
+        # audio stub: precomputed frame embeddings replace source tokens
+        enc_len = s if sp.step != "decode" else cfg.cross_memory_len
+        d["frames"] = spec((b, enc_len, cfg.d_model), torch.bfloat16)
+        if sp.step == "prefill":
+            # decoder prefill length: short transcript prefix
+            d["tokens"] = spec((b, min(s, 4096)))
+    return d

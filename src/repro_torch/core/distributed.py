@@ -48,8 +48,9 @@ from repro_torch.kernels.ref import label_hash
 from repro_torch.obs.convergence import count_true
 
 __all__ = ["Shards", "ShardedGraph", "default_group", "distributed_gsl_lpa",
-           "exchange", "make_lpa_step", "make_split_step", "resolve_shards",
-           "rotate", "shard_graph", "unrotate"]
+           "exchange", "graph_input_specs", "make_lpa_step",
+           "make_split_step", "resolve_shards", "rotate", "shard_graph",
+           "unrotate"]
 
 
 class Shards(NamedTuple):
@@ -211,6 +212,28 @@ def exchange(sh: Shards, new_local: torch.Tensor) -> torch.Tensor:
              for q in sh.slots]
     dist.all_gather(views, new_local, group=sh.group)
     return out
+
+
+def graph_input_specs(n_pad: int, d_max: int) -> dict:
+    """The LPA step's inputs on the ``meta`` device (no storage), the
+    reference's global shapes and dtypes: ``nbr``, ``nw``, ``nmask``
+    (n_pad, d_max), ``labels`` and ``active`` (n_pad,), ``iteration``
+    and ``n_real`` (0-d int32).
+
+    ``make_lpa_step`` takes a rank's part of them: ``nbr``, ``nw``,
+    ``nmask`` and ``active`` per rank, the rank's ``n_pad / count`` rows;
+    ``labels`` whole, the replica every rank holds (rotated by its first
+    row); ``iteration`` and ``n_real`` as host ints.  The dry run hands
+    rank 0 its rows: ``t[:n_pad // count]`` of a per-rank tensor."""
+    def spec(shape, dtype):
+        return torch.empty(shape, dtype=dtype, device="meta")
+    return dict(nbr=spec((n_pad, d_max), torch.int32),
+                nw=spec((n_pad, d_max), torch.float32),
+                nmask=spec((n_pad, d_max), torch.bool),
+                labels=spec((n_pad,), torch.int32),
+                active=spec((n_pad,), torch.bool),
+                iteration=spec((), torch.int32),
+                n_real=spec((), torch.int32))
 
 
 def _total(sh: Shards, count: torch.Tensor) -> torch.Tensor:

@@ -23,15 +23,12 @@ WARM_START = ("off", "auto")
 PROFILE = ("off", "convergence", "full")
 QUALITY = ("off", "basic", "full")
 
-# Option -> the ROADMAP item that ports it.  The attention cases wait for
-# B5 (and B5-bwd, for training) to cover them (Queue B) and raise on CUDA
-# only, where nothing falls back to the plain attention.
+# Option -> the ROADMAP item that ports it.  The attention case waits for
+# B5 and B5-bwd to cover it (Queue B) and raises on CUDA only, where
+# nothing falls back to the plain attention.
 UNPORTED = {
     "attention head dims other than 64 and 128 on CUDA":
         "Queue B, later kernel work: B5 at other head dims",
-    "B5-bwd with a sliding window (training under a window on CUDA)":
-        "Queue B, later kernel work: B5-bwd with a window (starcoder2-15b "
-        "training)",
 }
 
 

@@ -46,9 +46,10 @@ SIGNATURES = {
     "attn_flash_attention": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                              _I, _I, _I, _I, _I, _I, _I, _P),
     # q, k, v, out, dout, lse, stats, dq workspace, tickets (scratch), dq,
-    # dk, dv; B, H, K, Sq, Skv, hd, causal, dtype code; stream
+    # dk, dv; B, H, K, Sq, Skv, hd, causal, window (0: none), dtype code;
+    # stream
     "attn_flash_attention_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                                 _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
+                                 _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
 }
 
 _LIB: ctypes.CDLL | None = None

@@ -15,8 +15,8 @@
 // 1.39 ms at 989 TFLOP/s against 0.18 ms at 3.35 TB/s.
 //
 // Semantics: positions count from 0 on both sides, key j is visible to
-// query i when j < Skv and (not causal or j <= i), scale = 1/sqrt(hd), as
-// in B5.  With P = exp(scale * q.k - lse) and delta = rowsum(dO o O):
+// query i when j < Skv, (not causal or j <= i) and (no window or i - j <
+// window), scale = 1/sqrt(hd), as in B5.  With P = exp(scale * q.k - lse) and delta = rowsum(dO o O):
 //   dV = P^T dO,  dS = P o (dO V^T - delta),  dK = scale dS^T Q,
 //   dQ = scale dS K.
 // No atomic sums and a fixed order of every sum, so two calls give the
@@ -93,6 +93,7 @@ constexpr float kLog2e = 1.4426950408889634f;
 struct Shape {
   int B, Sq, Skv, H, K, group;  // group = H / K
   int causal;
+  int window;                   // 0: no sliding window
   float scale;                  // 1 / sqrt(hd)
   int n_qt;                     // bf16: query tiles of kBM rows
   int n_items;                  // bf16: (KV tile, KV head, batch) items
@@ -100,7 +101,26 @@ struct Shape {
 };
 
 __device__ __forceinline__ bool visible(int key, int row, const Shape& s) {
-  return key < s.Skv && row < s.Sq && (!s.causal || key <= row);
+  return key < s.Skv && row < s.Sq && (!s.causal || key <= row) &&
+         (s.window == 0 || row - key < s.window);
+}
+
+// Under a window, the last query tile of `rows` rows that sees a key of
+// the tile from key0 (`keys` keys): the one holding row key0 + keys - 2 +
+// window, whose distance to the tile's last key is window - 1.
+__device__ __forceinline__ int band_last_tile(int key0, int keys, int rows,
+                                              int n_tiles, const Shape& s) {
+  if (s.window == 0) return n_tiles - 1;
+  return min(n_tiles - 1, (key0 + keys - 2 + s.window) / rows);
+}
+
+// Under a window, the first KV tile of `keys` keys that a query tile from
+// row0 sees: the one holding key row0 - window + 1, the oldest key that
+// row0 sees.
+__device__ __forceinline__ int band_first_tile(int row0, int keys,
+                                               const Shape& s) {
+  const int key = row0 - s.window + 1;
+  return s.window > 0 && key > 0 ? key / keys : 0;
 }
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
@@ -208,9 +228,11 @@ __device__ __forceinline__ void red_release_add(int* p, int v) {
 // group ((batch, KV head) outermost, KV tile ascending), so the items that
 // add into a workspace tile mostly run together and find it in L2, while
 // the longest (lowest) KV tiles still go first.  A group's KV tiles are
-// handed out in ascending order, as the tickets need.
+// handed out in ascending order, as the tickets need.  An item walks the
+// query tiles from the diagonal (causal) to the last one that sees one of
+// its keys (its band's end under a window, else the last).
 struct Item {
-  int j, b, kh, n_steps;
+  int j, b, kh, n_steps, last;
   __device__ Item(int item, const Shape& s) {
     const int per = (s.n_kv + kPasses - 1) / kPasses;
     const int x = item / (s.B * s.K * per);
@@ -221,11 +243,12 @@ struct Item {
     b = bk / s.K;
     kh = bk - b * s.K;
     const int first = s.causal ? min(j * (kBN / kBM), s.n_qt) : 0;
-    n_steps = (s.n_qt - first) * s.group;
+    last = band_last_tile(j * kBN, kBN, kBM, s.n_qt, s);
+    n_steps = max(0, last + 1 - first) * s.group;
   }
-  // Step st: query tile n_qt - 1 - st / G (the last first), head st % G.
+  // Step st: query tile last - st / G (the last first), head st % G.
   __device__ int qt(int st, const Shape& s) const {
-    return s.n_qt - 1 - st / s.group;
+    return last - st / s.group;
   }
   __device__ int h(int st, const Shape& s) const {
     return kh * s.group + st % s.group;
@@ -317,23 +340,24 @@ __global__ void __launch_bounds__(kThreads, 1) bwd_wgmma_kernel(
         }
       } else if (warp == 1 && lane == 0) {
         // dQ's partials into the workspace in ascending KV-tile order: KV
-        // tile j adds once tiles 0 .. j - 1 have (tile 0 stores, so the
-        // workspace needs no memset), and releases the ticket once its
-        // add has completed.
+        // tile j adds once the query tile's band tiles j0 .. j - 1 have
+        // (j0 = 0 without a window; tile j0 stores, so the workspace needs
+        // no memset), and releases the ticket once its add has completed.
         for (int st = 0; st < w.n_steps; ++st) {
-          const int n = it + st, buf = n % kDQBufs;
+          const int n = it + st, buf = n % kDQBufs, qt = w.qt(st, s);
           const long long tile =
-              (long long)(w.b * s.H + w.h(st, s)) * s.n_qt + w.qt(st, s);
+              (long long)(w.b * s.H + w.h(st, s)) * s.n_qt + qt;
           int* ticket = tickets + 1 + tile;
-          if (w.j > 0) {
-            while (ld_acquire(ticket) < w.j) {
+          const int j0 = band_first_tile(qt * kBM, kBN, s);
+          if (w.j > j0) {
+            while (ld_acquire(ticket) < w.j - j0) {
             }
             fence_proxy_async_global();
           }
           mbar_wait(dq_full + 8 * buf, (n / kDQBufs) & 1);
           float* dst = dq_ws + tile * (kBM * HD);
           const uint32_t src = base + L::dq + buf * L::kDQ;
-          if (w.j == 0)
+          if (w.j == j0)
             bulk_store(dst, src, L::kDQ);
           else
             bulk_add_f32(dst, src, L::kDQ);
@@ -415,7 +439,8 @@ __global__ void __launch_bounds__(kThreads, 1) bwd_wgmma_kernel(
         // (+1) of keys kr0 (e < 2) and kr1.  Rows past Sq need no mask:
         // their Q, dO, lse and delta are 0.
         const bool masked =
-            key_lo + 63 >= s.Skv || (s.causal && key_lo + 63 > q0);
+            key_lo + 63 >= s.Skv || (s.causal && key_lo + 63 > q0) ||
+            (s.window > 0 && q0 + 63 - key_lo >= s.window);
 #pragma unroll
         for (int i = 0; i < 8; ++i) {
           const float2 l2 =
@@ -426,7 +451,9 @@ __global__ void __launch_bounds__(kThreads, 1) bwd_wgmma_kernel(
             if (masked) {
               const int key = e < 2 ? kr0 : kr1;
               const int q = q0 + 8 * i + 2 * t + (e & 1);
-              if (key >= s.Skv || (s.causal && key > q)) p = 0.f;
+              if (key >= s.Skv || (s.causal && key > q) ||
+                  (s.window > 0 && q - key >= s.window))
+                p = 0.f;
             }
             sT[4 * i + e] = p;
           }
@@ -654,11 +681,12 @@ __global__ void __launch_bounds__(kFmaThreads) dkdv_fma_kernel(
 
   const int n_qt = (s.Sq + kFmaRows - 1) / kFmaRows;
   const int first = s.causal ? min(k0 / kFmaRows, n_qt) : 0;
+  const int last = band_last_tile(k0, kFmaRows, kFmaRows, n_qt, s);
   for (int gi = 0; gi < s.group; ++gi) {
     const int h = kh * s.group + gi;
     const long long q_off = (long long)b * s.Sq * q_stride + (long long)h * HD;
     const long long st_off = ((long long)b * s.H + h) * s.Sq;
-    for (int it = first; it < n_qt; ++it) {
+    for (int it = first; it <= last; ++it) {
       const int q0 = it * kFmaRows;
       __syncthreads();
       load_rows_f32<HD>(qs, q + q_off, q0, s.Sq, q_stride, s.scale);
@@ -780,7 +808,7 @@ __global__ void __launch_bounds__(kFmaThreads) dq_fma_kernel(
 
   int n_kt = (s.Skv + kFmaRows - 1) / kFmaRows;
   if (s.causal) n_kt = min(n_kt, (q0 + kFmaRows - 1) / kFmaRows + 1);
-  for (int jt = 0; jt < n_kt; ++jt) {
+  for (int jt = band_first_tile(q0, kFmaRows, s); jt < n_kt; ++jt) {
     const int c0 = jt * kFmaRows;
     __syncthreads();
     load_rows_f32<HD>(ks, k + kv_off, c0, s.Skv, kv_stride, 1.f);
@@ -950,7 +978,8 @@ cudaError_t launch_fma(const void* q, const void* k, const void* v,
 }  // namespace
 
 // q, o, dout, dq: (B, Sq, H, hd); k, v, dk, dv: (B, Skv, K, hd); lse:
-// (B, H, Sq) float32, B5's (the forward's) for these q, k, v.  All
+// (B, H, Sq) float32, B5's (the forward's) for these q, k, v; window > 0
+// hides the keys `window` or more positions before a query.  All
 // contiguous, 16-byte aligned; dtype 0 = float32, 1 = bfloat16; hd 64 or
 // 128.  Scratch, written here: with P = ceil(Sq / 64) query tiles,
 //  * bf16: `stats` 2 * B * H * 64P float32 (lse * log2(e), then delta),
@@ -966,15 +995,16 @@ extern "C" int attn_flash_attention_bwd(
     const void* q, const void* k, const void* v, const void* o,
     const void* dout, const void* lse, void* stats, void* dq_ws,
     void* tickets, void* dq, void* dk, void* dv, int B, int H, int K, int Sq,
-    int Skv, int hd, int causal, int dtype, void* stream) {
+    int Skv, int hd, int causal, int window, int dtype, void* stream) {
   if (B < 1 || K < 1 || H < K || H % K != 0 || Sq < 0 || Skv < 1 ||
+      window < 0 ||
       (hd != 64 && hd != 128) || (dtype != kDtypeBF16 && dtype != kDtypeF32))
     return (int)cudaErrorInvalidValue;
   if (Sq == 0) return (int)cudaSuccess;
   const int n_qt = (Sq + kBM - 1) / kBM;
   const long long n_items = (long long)((Skv + kBN - 1) / kBN) * B * K;
   if (n_items > 0x7fffffff) return (int)cudaErrorInvalidValue;
-  const Shape s{B, Sq, Skv, H, K, H / K, causal ? 1 : 0,
+  const Shape s{B, Sq, Skv, H, K, H / K, causal ? 1 : 0, window,
                 (float)(1.0 / sqrt((double)hd)), n_qt, (int)n_items,
                 (Skv + kBN - 1) / kBN};
   const cudaStream_t st = (cudaStream_t)stream;

@@ -18,23 +18,38 @@ its plain version.  On CUDA, when grad mode is on and q, k or v requires
 grad, the call is a ``torch.autograd.Function``: its forward launches B5
 with the per-row log-sum-exp (``lse``) and saves q, k, v, the output and
 ``lse``; its backward launches B5-bwd (``flash_attention_bwd``).  Without
-grad the launch is the serving one, which writes no ``lse``.  B5 also
-takes a sliding window and an int8 K / V cache with its per-(row, KV
-head) scales (serving only: B5-bwd has neither), and
+grad the launch is the serving one, which writes no ``lse``.  B5 and
+B5-bwd take a sliding window; B5 also takes an int8 K / V cache with its
+per-(row, KV head) scales (serving only: B5-bwd has none), and
 ``flash_attention_fwd`` returns ``lse`` beside the output for any of
 them (a sequence-parallel decode combines its ranks by it).
 
 ``count_kv_rows()`` makes the B5 launches inside it also count the key
 rows their blocks load (what a window or ``kv_len`` leaves out of the
 reads shows there); the output is the same either way.
+
+A ``meta`` tensor (the dry run, ``launch/dryrun.py``, traces a step on
+the ``meta`` device) takes the kernel's path with no launch: the wrapper
+returns outputs of the kernel's shapes and dtypes, allocates the
+scratch the launch would, does no work and calls no plain version, and
+adds the kernel's work to the cost table being filled
+(``parallel.compat.add_kernel_cost``), reckoned as the kernels' bounds
+are: B5 and B5-bwd by their operations over the visible (query, key)
+pairs only (what causality, a window or ``kv_len`` hide is not
+counted), with the bytes of each input read once and each output
+written once; B1-B4 by bytes per neighbour cell (``CELL_BYTES``) and
+B1 / B3 by the argmax's 2 D operations per cell.  ``LAUNCHES`` does not
+move.
 """
 from __future__ import annotations
 
 import contextlib
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import build, ref
+from repro_torch.parallel.compat import add_kernel_cost
 
 __all__ = ["LAUNCHES", "MAX_DEGREE", "count_kv_rows", "flash_attention",
            "flash_attention_bwd", "flash_attention_fwd", "fused_move",
@@ -49,6 +64,14 @@ MAX_DEGREE = 1024  # widest tile row the kernels take (shared-memory rows)
 # What the flash-attention kernel takes: element type -> its dtype code.
 _ATTN_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _ATTN_HEAD_DIMS = (64, 128)
+# Bytes per (row, neighbour slot) cell of one sweep, the roofline model of
+# benchmarks/bench_roofline.py: the separate move sweep (its wake and B1:
+# chg + mask, labels + weight + mask) 11, the fused ones (labels, weight
+# or comm, mask, chg) 10, B2 alone (labels, comm, mask) 9.
+CELL_BYTES = {"label_argmax": 11, "fused_move": 10, "min_label": 9,
+              "fused_split": 10}
+# The sweeps whose argmax does 2 D operations a cell.
+_ARGMAX_SWEEPS = ("label_argmax", "fused_move")
 # Query rows per tile of B5-bwd's bf16 kernel (kBM in
 # csrc/flash_attention_bwd.cu; a CPU test holds the two equal): the
 # padding of its scratch.
@@ -138,9 +161,9 @@ def _tiles(nbr: torch.Tensor, nmask: torch.Tensor,
     _check_tile("nmask", nmask, torch.bool, (rows, d), dev)
     if nw is not None:
         _check_tile("nw", nw, torch.float32, (rows, d), dev)
-    if dev.type not in ("cpu", "cuda"):
+    if dev.type not in ("cpu", "cuda", "meta"):
         raise ValueError(f"unsupported device {dev}")
-    if dev.type == "cuda" and d > MAX_DEGREE:
+    if dev.type != "cpu" and d > MAX_DEGREE:
         raise ValueError(f"tile width {d} exceeds the kernels' "
                          f"{MAX_DEGREE}-slot rows")
     return rows, d, dev
@@ -158,6 +181,14 @@ def _check_aligned(**tiles: torch.Tensor) -> None:
 def _seed32(seed: int) -> int:
     """A seed as the signed 32-bit value the kernels hash (bit pattern kept)."""
     return ((int(seed) + 2**31) % 2**32) - 2**31
+
+
+def _meta_sweep(name: str, nbr, *outs):
+    """A sweep's ``meta`` path: its cost into the table, ``outs`` back."""
+    cells = nbr.numel()
+    flops = 2 * nbr.shape[1] * cells if name in _ARGMAX_SWEEPS else 0
+    add_kernel_cost(name, flops, CELL_BYTES[name] * cells)
+    return outs if len(outs) > 1 else outs[0]
 
 
 def _launch(name: str, dev: torch.device, *args,
@@ -185,10 +216,12 @@ def label_argmax(nbr, nw, nmask, labels, seed: int):
     _check_vec("labels", labels, torch.int32, rows, dev)
     if dev.type == "cpu":
         return ref.label_argmax_ref(nbr, nw, nmask, labels, seed)
-    _check_aligned(nbr=nbr, nw=nw, nmask=nmask)
     best_lab = torch.empty(rows, dtype=torch.int32, device=dev)
     best_w = torch.empty(rows, dtype=torch.float32, device=dev)
     cur_w = torch.empty(rows, dtype=torch.float32, device=dev)
+    if dev.type == "meta":
+        return _meta_sweep("label_argmax", nbr, best_lab, best_w, cur_w)
+    _check_aligned(nbr=nbr, nw=nw, nmask=nmask)
     if rows:
         _launch("label_argmax", dev, nbr.data_ptr(), nw.data_ptr(),
                 nmask.data_ptr(), labels.data_ptr(), rows, d, _seed32(seed),
@@ -203,8 +236,10 @@ def min_label(nbr, nmask, labels, comm):
     _check_vec("comm", comm, torch.int32, labels.shape[0], dev, exact=True)
     if dev.type == "cpu":
         return ref.min_label_ref(nbr, nmask, labels, comm)
-    _check_aligned(nbr=nbr, nmask=nmask)
     out = torch.empty(rows, dtype=torch.int32, device=dev)
+    if dev.type == "meta":
+        return _meta_sweep("min_label", nbr, out)
+    _check_aligned(nbr=nbr, nmask=nmask)
     if rows:
         _launch("min_label", dev, nbr.data_ptr(), nmask.data_ptr(),
                 labels.data_ptr(), comm.data_ptr(), rows, d, out.data_ptr())
@@ -228,9 +263,11 @@ def fused_move(nbr, nw, nmask, labels, chg, active, cand_prev, klass, real,
     if dev.type == "cpu":
         return ref.fused_move_ref(nbr, nw, nmask, labels, chg, active,
                                   cand_prev, klass, real, seed)
-    _check_aligned(nbr=nbr, nw=nw, nmask=nmask)
     new = torch.empty(rows, dtype=torch.int32, device=dev)
     act = torch.empty(rows, dtype=torch.bool, device=dev)
+    if dev.type == "meta":
+        return _meta_sweep("fused_move", nbr, new, act)
+    _check_aligned(nbr=nbr, nw=nw, nmask=nmask)
     if rows:
         _launch("fused_move", dev, nbr.data_ptr(), nw.data_ptr(),
                 nmask.data_ptr(), labels.data_ptr(), chg.data_ptr(),
@@ -249,8 +286,10 @@ def fused_split(nbr, nmask, labels, comm, chg, prune: bool):
     _check_vec("chg", chg, torch.bool, labels.shape[0], dev, exact=True)
     if dev.type == "cpu":
         return ref.fused_split_ref(nbr, nmask, labels, comm, chg, prune)
-    _check_aligned(nbr=nbr, nmask=nmask)
     out = torch.empty(rows, dtype=torch.int32, device=dev)
+    if dev.type == "meta":
+        return _meta_sweep("fused_split", nbr, out)
+    _check_aligned(nbr=nbr, nmask=nmask)
     if rows:
         _launch("fused_split", dev, nbr.data_ptr(), nmask.data_ptr(),
                 labels.data_ptr(), comm.data_ptr(), chg.data_ptr(),
@@ -261,8 +300,8 @@ def fused_split(nbr, nmask, labels, comm, chg, prune: bool):
 def _check_attention(q, k, v, k_scale=None, v_scale=None) -> None:
     """q (B, Sq, H, hd) and k / v (B, Skv, K, hd): one dtype B5 takes (k /
     v int8 with bf16 ``k_scale`` / ``v_scale`` (B, Skv, K, 1) when those
-    are given), hd 64 or 128, H % K == 0, contiguous, on one CPU or CUDA
-    device."""
+    are given), hd 64 or 128, H % K == 0, contiguous, on one CPU, CUDA
+    or meta device."""
     if q.dim() != 4 or k.dim() != 4:
         raise ValueError(f"q and k must be 4-D, got {tuple(q.shape)} and "
                          f"{tuple(k.shape)}")
@@ -284,9 +323,10 @@ def _check_attention(q, k, v, k_scale=None, v_scale=None) -> None:
         raise ValueError(f"need H % K == 0 and Skv >= 1, got H={h}, K={kk}, "
                          f"Skv={skv}")
     dev = q.device
-    if not (k.device == v.device == dev) or dev.type not in ("cpu", "cuda"):
-        raise ValueError(f"q, k, v must lie on one CPU or CUDA device, got "
-                         f"{q.device}, {k.device}, {v.device}")
+    if not (k.device == v.device == dev) or dev.type not in ("cpu", "cuda",
+                                                             "meta"):
+        raise ValueError(f"q, k, v must lie on one CPU, CUDA or meta "
+                         f"device, got {q.device}, {k.device}, {v.device}")
     tensors = [("q", q), ("k", k), ("v", v)]
     if quant:
         for name, t in (("k_scale", k_scale), ("v_scale", v_scale)):
@@ -325,6 +365,31 @@ def _mask_args(q, k, kv_len, window, q_offset):
     return kv_len, window, q_offset
 
 
+def _key_span(sq: int, kv_len: int, causal: bool, window, q_offset: int):
+    """(visible (query, key) pairs, key rows from the first visible to the
+    last) of ``sq`` query rows from position ``q_offset``."""
+    pos = np.arange(sq, dtype=np.int64) + q_offset
+    hi = np.minimum(pos, kv_len - 1) if causal else np.full(sq, kv_len - 1)
+    lo = np.maximum(pos - window + 1, 0) if window else np.zeros(sq, np.int64)
+    n = np.maximum(hi - lo + 1, 0)
+    pairs = int(n.sum())
+    return pairs, (int(hi.max() - lo.min() + 1) if pairs else 0)
+
+
+def _meta_attention(name: str, per_pair: int, q, kv, mask: dict, tensors,
+                    outs) -> None:
+    """B5's or B5-bwd's cost on ``meta``: ``per_pair`` operations a visible
+    pair and head dim per query head; the bytes of ``tensors`` and
+    ``outs`` (read or written whole), and of ``kv`` (K, V and their
+    scales) over the key rows the visible keys span."""
+    b, sq, h, hd = q.shape
+    pairs, rows = _key_span(sq, **mask)
+    kv_row = sum(t[0, 0].numel() * t.element_size() for t in kv)
+    moved = sum(t.numel() * t.element_size() for t in (*tensors, *outs))
+    add_kernel_cost(name, per_pair * b * h * hd * pairs,
+                    moved + b * rows * kv_row)
+
+
 def _flash_launch(q, k, v, causal: bool, kv_len: int, lse=None,
                   window=None, q_offset: int = 0, k_scale=None,
                   v_scale=None):
@@ -332,6 +397,14 @@ def _flash_launch(q, k, v, causal: bool, kv_len: int, lse=None,
     given, takes each query row's log-sum-exp."""
     b, sq, h, hd = q.shape
     skv, kk = k.shape[1], k.shape[2]
+    if q.device.type == "meta":
+        out = torch.empty_like(q)
+        kv = [t for t in (k, v, k_scale, v_scale) if t is not None]
+        _meta_attention("flash_attention", 4, q, kv,
+                        dict(kv_len=kv_len, causal=causal, window=window,
+                             q_offset=q_offset),
+                        [q], [out] + ([] if lse is None else [lse]))
+        return out
     # TMA reads q, k and v; the scales are read element by element
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.data_ptr() % 16:
@@ -382,9 +455,9 @@ class _FlashAttention(torch.autograd.Function):
     """B5 forward with ``lse``, B5-bwd backward (CUDA tensors only)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal):
-        out, lse = flash_attention_fwd(q, k, v, causal)
-        ctx.causal = causal
+    def forward(ctx, q, k, v, causal, window):
+        out, lse = flash_attention_fwd(q, k, v, causal, window=window)
+        ctx.causal, ctx.window = causal, window
         ctx.save_for_backward(q, k, v, out, lse)
         return out
 
@@ -392,8 +465,8 @@ class _FlashAttention(torch.autograd.Function):
     def backward(ctx, dout):
         q, k, v, out, lse = ctx.saved_tensors
         dq, dk, dv = flash_attention_bwd(q, k, v, out, dout.contiguous(), lse,
-                                         ctx.causal)
-        return dq, dk, dv, None
+                                         ctx.causal, window=ctx.window)
+        return dq, dk, dv, None, None
 
 
 def flash_attention(q, k, v, causal: bool = True, kv_len: int | None = None,
@@ -417,9 +490,9 @@ def flash_attention(q, k, v, causal: bool = True, kv_len: int | None = None,
     q's dtype.
 
     Differentiable: on CUDA under grad (q, k or v requiring it) the call
-    runs B5 with ``lse`` and its backward B5-bwd over every key; there
-    ``kv_len < Skv``, a ``q_offset`` or int8 K / V raise ``ValueError``
-    and a window raises ``unported`` (B5-bwd has no window yet).
+    runs B5 with ``lse`` and its backward B5-bwd over every key the mask
+    (``causal``, ``window``) leaves; there ``kv_len < Skv``, a
+    ``q_offset`` or int8 K / V raise ``ValueError``.
     """
     _check_attention(q, k, v, k_scale, v_scale)
     kv_len, window, q_offset = _mask_args(q, k, kv_len, window, q_offset)
@@ -429,23 +502,23 @@ def flash_attention(q, k, v, causal: bool = True, kv_len: int | None = None,
                                        k_scale=k_scale, v_scale=v_scale)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
-        if window is not None:
-            from repro_torch.engine.config import unported
-            raise unported("B5-bwd with a sliding window (training under a "
-                           "window on CUDA)")
+        # CUDA, or meta (the dry run's trace of the same path)
         if kv_len < k.shape[1] or q_offset or k_scale is not None:
             raise ValueError("kv_len < Skv, a q_offset or int8 K / V under "
                              "grad: B5-bwd takes every key of a bf16 or "
                              "float32 K / V from row 0")
-        return _FlashAttention.apply(q, k, v, bool(causal))
+        return _FlashAttention.apply(q, k, v, bool(causal), window)
     return _flash_launch(q, k, v, causal, kv_len, **mask, k_scale=k_scale,
                          v_scale=v_scale)
 
 
-def flash_attention_bwd(q, k, v, out, dout, lse, causal: bool):
-    """Gradient of ``flash_attention(q, k, v, causal)`` (every key
-    visible) for the output gradient ``dout``: returns (dq, dk, dv) in the
-    inputs' dtypes and shapes (see ``ref.flash_attention_bwd_ref``).
+def flash_attention_bwd(q, k, v, out, dout, lse, causal: bool,
+                        window: int | None = None):
+    """Gradient of ``flash_attention(q, k, v, causal, window=window)``
+    (no ``kv_len``, no ``q_offset``) for the output gradient ``dout``:
+    returns (dq, dk, dv) in the inputs' dtypes and shapes (see
+    ``ref.flash_attention_bwd_ref``).  Under a window the kernel walks
+    only the band's tiles.
 
     ``out`` is the forward's output and ``lse`` (B, H, Sq) float32 its
     per-row log-sum-exp, both from B5; the CPU path recomputes them and
@@ -458,6 +531,7 @@ def flash_attention_bwd(q, k, v, out, dout, lse, causal: bool):
     delta alone.
     """
     _check_attention(q, k, v)
+    _kv_len, window, _q_offset = _mask_args(q, k, None, window, 0)
     b, sq, h, hd = q.shape
     for name, t in (("out", out), ("dout", dout)):
         if (tuple(t.shape) != tuple(q.shape) or t.dtype != q.dtype
@@ -466,11 +540,13 @@ def flash_attention_bwd(q, k, v, out, dout, lse, causal: bool):
                              f"{tuple(q.shape)} on {q.device}, got {t.dtype} "
                              f"{tuple(t.shape)} on {t.device}")
     if q.device.type == "cpu":
-        return ref.flash_attention_bwd_ref(q, k, v, dout, causal)
+        return ref.flash_attention_bwd_ref(q, k, v, dout, causal,
+                                           window=window)
     _check_tile("lse", lse, torch.float32, (b, h, sq), q.device)
+    meta = q.device.type == "meta"
     for name, t in (("q", q), ("k", k), ("v", v), ("out", out),
                     ("dout", dout)):
-        if t.data_ptr() % 16:
+        if not meta and t.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned")
     dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
     if not sq:
@@ -487,11 +563,17 @@ def flash_attention_bwd(q, k, v, out, dout, lse, causal: bool):
                                device=q.device))
     else:
         scratch = (torch.empty(b * h * sq, **f32),)
+    if meta:
+        _meta_attention("flash_attention_bwd", 10, q, [k, v],
+                        dict(kv_len=k.shape[1], causal=causal,
+                             window=window, q_offset=0),
+                        [q, out, dout, lse], [dq, dk, dv])
+        return dq, dk, dv
     ptrs = [t.data_ptr() for t in scratch] + [None] * (3 - len(scratch))
     _launch("flash_attention_bwd", q.device, q.data_ptr(), k.data_ptr(),
             v.data_ptr(), out.data_ptr(), dout.data_ptr(), lse.data_ptr(),
             *ptrs, dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, h,
-            k.shape[2], sq, k.shape[1], hd, int(bool(causal)),
+            k.shape[2], sq, k.shape[1], hd, int(bool(causal)), window or 0,
             _ATTN_DTYPE_CODE[q.dtype], symbol="attn_flash_attention_bwd")
     return dq, dk, dv
 

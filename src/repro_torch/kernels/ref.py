@@ -181,14 +181,15 @@ def attention_lse_ref(q, k, causal: bool, kv_len: int | None = None,
     return torch.logsumexp(s, dim=-1).reshape(b, h, sq)
 
 
-def flash_attention_bwd_ref(q, k, v, do, causal: bool):
-    """(dq, dk, dv) of ``flash_attention_ref(q, k, v, causal)`` for the
-    output gradient ``do``: autograd through the float32 oracle (the
-    function the reference's XLA differentiates), each cast to its
-    input's dtype."""
+def flash_attention_bwd_ref(q, k, v, do, causal: bool,
+                            window: int | None = None):
+    """(dq, dk, dv) of ``flash_attention_ref(q, k, v, causal,
+    window=window)`` for the output gradient ``do``: autograd through the
+    float32 oracle (the function the reference's XLA differentiates),
+    each cast to its input's dtype."""
     with torch.enable_grad():
         q32, k32, v32 = (x.detach().float().requires_grad_(True)
                          for x in (q, k, v))
-        out = flash_attention_ref(q32, k32, v32, causal)
+        out = flash_attention_ref(q32, k32, v32, causal, window=window)
         dq, dk, dv = torch.autograd.grad(out, (q32, k32, v32), do.float())
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)

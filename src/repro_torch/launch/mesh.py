@@ -12,12 +12,19 @@ its dimensions.
   * :func:`spawn_ranks`: starts ``world_size`` ranks, each in a process
     group rendezvoused through a ``file://`` store in a temporary
     directory (no TCP port to pick), runs a function on each and returns
-    their results, with one deadline over the whole run.
+    their results, with one deadline over the whole run;
+  * :func:`make_production_mesh`: the reference's 16 x 16 pod, or 2 x 16
+    x 16 multipod, over the live group;
+  * :func:`fake_world`: a world of any size in this one process, which
+    plays its rank 0 over torch's ``fake`` backend (every collective
+    returns at once and moves nothing): what the dry run traces a cell
+    in.
 
 Importing this module starts nothing and touches no device.
 """
 from __future__ import annotations
 
+import contextlib
 import os
 import pickle
 import shutil
@@ -28,7 +35,8 @@ from datetime import timedelta
 import torch
 import torch.distributed as dist
 
-__all__ = ["make_flat_mesh", "make_host_mesh", "spawn_ranks"]
+__all__ = ["fake_world", "make_flat_mesh", "make_host_mesh",
+           "make_production_mesh", "spawn_ranks"]
 
 
 def make_host_mesh(shape=(4, 2), axes=("data", "model")):
@@ -44,6 +52,33 @@ def make_host_mesh(shape=(4, 2), axes=("data", "model")):
 def make_flat_mesh(axis: str = "data"):
     """One dimension over every rank of the world."""
     return make_host_mesh((dist.get_world_size(),), (axis,))
+
+
+def make_production_mesh(*, multi_pod: bool = False):
+    """The reference's production mesh over the live group's 256 (or,
+    ``multi_pod``, 512) ranks: (16, 16) ``("data", "model")``, or (2, 16,
+    16) ``("pod", "data", "model")``; on the CPU unless the group is
+    NCCL's."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return make_host_mesh(shape, axes)
+
+
+@contextlib.contextmanager
+def fake_world(world_size: int):
+    """This process as rank 0 of a ``world_size``-rank process group on
+    torch's ``fake`` backend (``torch.testing._internal.distributed.
+    fake_pg``): meshes, DTensors and collectives work as on a real group,
+    but no rank exists beside this one and a collective returns at once
+    with its output as it was.  Destroyed on leaving the block.  For
+    shape-only work (the dry run's ``meta`` tensors)."""
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=world_size)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
 
 
 def _rank_main(rank: int, fn, world_size: int, args: tuple, backend: str,

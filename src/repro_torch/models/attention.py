@@ -15,10 +15,9 @@ Where the attention runs:
     goes to the kernel too.  Under grad (training, the encoder and cross
     attention included) the call is differentiable: B5 also writes each
     query row's log-sum-exp, and the backward runs B5's hand-written
-    backward (B5-bwd) from it.  What B5 does not cover (head dims other
-    than 64 and 128; under grad, a window) raises ``unported``: nothing
-    falls back to the plain attention on the card, so ``starcoder2-15b``
-    serves there but does not train yet;
+    backward (B5-bwd) from it, a window included.  What B5 does not
+    cover (head dims other than 64 and 128) raises ``unported``: nothing
+    falls back to the plain attention on the card;
   * a CPU tensor goes through ``chunked_attention`` with the reference's
     arguments (``chunk``; decode and cross ``min(2048, Skv)``), so its
     float32 sums fold in the reference's order, every case included.
@@ -82,9 +81,11 @@ class KVCache(NamedTuple):
 
 
 def _on_card(q: torch.Tensor) -> bool:
-    """True when the attention of ``q`` runs in B5 (q on CUDA); raises
-    there for a head dim B5 does not cover.  False on the CPU."""
-    if q.device.type != "cuda":
+    """True when the attention of ``q`` runs in B5: q on CUDA, or on the
+    ``meta`` device, where the dry run traces the card's path (B5's
+    ``meta`` path returns shapes and counts its cost); raises there for a
+    head dim B5 does not cover.  False on the CPU."""
+    if q.device.type not in ("cuda", "meta"):
         return False
     from repro_torch.engine.config import unported   # the engine imports us
     if q.shape[-1] not in _KERNEL_HEAD_DIMS:

@@ -101,14 +101,15 @@ def _on_shards(fn, x, a_log, args, kinds, out_kinds):
     """``fn(*args)`` on plain tensors, or, for DTensor ``x``, on each
     rank's shards: ``kinds`` / ``out_kinds`` spell each tensor's dims,
     ``b`` the batch (split where ``x``'s batch is), ``f`` d_inner (split
-    where ``a_log``'s is), ``.`` whole."""
+    where ``a_log``'s is; a mesh dimension that splits both splits d_inner
+    alone, the batch whole there), ``.`` whole."""
     from torch.distributed.tensor import DTensor
     if not isinstance(x, DTensor):
         return fn(*args)
     from torch.distributed.tensor import Replicate, Shard
 
     from repro_torch.parallel.compat import shard_map
-    split = [("b" if p == Shard(0) else "") + ("f" if q == Shard(0) else "")
+    split = ["f" if q == Shard(0) else "b" if p == Shard(0) else ""
              for p, q in zip(x.placements, a_log.placements)]
 
     def placements(kind):

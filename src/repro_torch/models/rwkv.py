@@ -81,6 +81,79 @@ def _decay(params, xw):
     return torch.exp(-torch.exp(params["w0"].float() + lora))
 
 
+class _MetaScan(torch.autograd.Function):
+    """``_wkv_scan``'s shape-only stand-in on the ``meta`` device (the dry
+    run, ``launch/dryrun.py``): the token loop would take its tracer tens
+    of minutes a layer at 32k tokens.  It returns the scan's outputs, keeps
+    one (B, H, hd, hd) float32 state a token for the backward (what the
+    loop's autograd holds, roughly), and adds the loop's products to the
+    cost table: one (hd) x (hd, hd) product a token and head forward, two
+    backward."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, w, u, wkv):
+        from repro_torch.parallel.compat import add_product_flops
+        b, s, h, hd = r.shape
+        ctx.flops = 2 * b * s * h * hd * hd
+        add_product_flops(ctx.flops)
+        ctx.save_for_backward(torch.empty((s, b, h, hd, hd),
+                                          dtype=torch.float32, device="meta"))
+        ctx.inputs = [None if t is None else (t.shape, t.dtype)
+                      for t in (r, k, v, w, u, wkv)]
+        return (torch.empty(r.shape, dtype=torch.float32, device="meta"),
+                torch.empty((b, h, hd, hd), dtype=torch.float32,
+                            device="meta"))
+
+    @staticmethod
+    def backward(ctx, d_out, d_wkv):
+        from repro_torch.parallel.compat import add_product_flops
+        add_product_flops(2 * ctx.flops)
+        return tuple(None if x is None else
+                     torch.empty(x[0], dtype=x[1], device="meta")
+                     for x in ctx.inputs)
+
+
+def _wkv_scan(r, k, v, w, u, wkv):
+    """The WKV recurrence over the sequence, token by token, from ``wkv``
+    (B, H, hd, hd; None: zeros): (out (B, S, H, hd), the last state).  On
+    ``meta``, ``_MetaScan``."""
+    if r.is_meta:
+        return _MetaScan.apply(r, k, v, w, u, wkv)
+    b, s, h, hd = r.shape
+    if wkv is None:
+        wkv = torch.zeros((b, h, hd, hd), dtype=torch.float32,
+                          device=r.device)
+    outs = []
+    for t in range(s):
+        kv = k[:, t, :, :, None] * v[:, t, :, None, :]     # (B,H,hd,hd)
+        outs.append(torch.einsum("bhk,bhkv->bhv", r[:, t], wkv + u * kv))
+        wkv = w[:, t, :, :, None] * wkv + kv
+    return torch.stack(outs, dim=1), wkv
+
+
+def _scan_on_shards(r, k, v, w, u, wkv):
+    """``_wkv_scan`` on plain tensors, or, for DTensor ``r``, on each
+    rank's shards: a mesh dimension that splits r's batch or heads splits
+    every input's (the state's too), any other takes them whole, so the
+    loop's per-token operations run on local tensors."""
+    from torch.distributed.tensor import DTensor
+    if not isinstance(r, DTensor):
+        return _wkv_scan(r, k, v, w, u, wkv)
+    from torch.distributed.tensor import Replicate, Shard
+
+    from repro_torch.parallel.compat import shard_map
+    roles = ["b" if p == Shard(0) else "h" if p == Shard(2) else ""
+             for p in r.placements]
+
+    def layout(**dims):
+        return [Shard(dims[c]) if c in dims else Replicate() for c in roles]
+    seq, state = layout(b=0, h=2), layout(b=0, h=1)
+    return shard_map(_wkv_scan, mesh=r.device_mesh,
+                     in_specs=(seq, seq, seq, seq, layout(h=1),
+                               None if wkv is None else state),
+                     out_specs=(seq, state))(r, k, v, w, u, wkv)
+
+
 def rwkv_time_mix(params, x, state: RwkvState | None = None,
                   n_heads: int = 32):
     """x: (B, S, d).  Returns (out, (wkv state, x[:, -1]))."""
@@ -101,15 +174,8 @@ def rwkv_time_mix(params, x, state: RwkvState | None = None,
     w = _decay(params, xw).reshape(b, s, n_heads, hd)      # (B,S,H,hd)
     u = params["bonus_u"].float()[None, :, :, None]        # (1,H,hd,1)
 
-    wkv = (torch.zeros((b, n_heads, hd, hd), dtype=torch.float32,
-                       device=x.device)
-           if state is None else state.wkv)
-    outs = []
-    for t in range(s):
-        kv = k[:, t, :, :, None] * v[:, t, :, None, :]     # (B,H,hd,hd)
-        outs.append(torch.einsum("bhk,bhkv->bhv", r[:, t], wkv + u * kv))
-        wkv = w[:, t, :, :, None] * wkv + kv
-    out = torch.stack(outs, dim=1)                         # (B,S,H,hd)
+    out, wkv = _scan_on_shards(r, k, v, w, u,
+                               None if state is None else state.wkv)
 
     # group norm per head (population variance) + gate
     mu = out.mean(-1, keepdim=True)

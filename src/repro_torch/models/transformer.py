@@ -365,10 +365,12 @@ def _self_caches(cfg, batch, s_max, dev, dtype, rules=None) -> dict:
     ``dtype`` (int8 with bf16 scales under ``kv_cache_dtype="int8"``),
     length 0; Mamba's float32 state and bf16 conv tail; RWKV's float32
     WKV state and its token shifts in ``dtype``.  With mesh ``rules``,
-    DTensors of zeros on their shardings (each rank makes its shard)."""
+    DTensors of zeros on their shardings (each rank makes its shard; on
+    ``meta``, for the dry run, shards of no storage)."""
     if rules is not None:
         return _zeros_on(cfg, _self_caches(cfg, batch, s_max, "meta",
-                                           dtype), rules)
+                                           dtype), rules,
+                         meta=torch.device(dev).type == "meta")
     g = cfg.n_groups
 
     def one(mix):
@@ -394,16 +396,21 @@ def _self_caches(cfg, batch, s_max, dev, dtype, rules=None) -> dict:
             for pos, (mix, _mlp) in enumerate(cfg.group_kinds())}
 
 
-def _zeros_on(cfg, tree, rules):
+def _zeros_on(cfg, tree, rules, meta: bool = False):
     """Tree of ``meta`` tensors (caches) as DTensors of zeros on the
-    rules' shardings of their ``cache_logical_axes``."""
+    rules' shardings of their ``cache_logical_axes`` (``meta``: shards on
+    the ``meta`` device, of no storage)."""
     from torch.distributed.tensor import zeros
 
+    from repro_torch.parallel.api import shard_tree
     from repro_torch.parallel.rules import cache_logical_axes
 
     def rec(node, ax):
         if isinstance(node, torch.Tensor):
-            mesh, pl = rules.sharding(tuple(ax))
+            sharding = rules.sharding(tuple(ax))
+            if meta:
+                return shard_tree(node, sharding)
+            mesh, pl = sharding
             return zeros(tuple(node.shape), dtype=node.dtype,
                          device_mesh=mesh, placements=list(pl))
         if isinstance(node, dict):

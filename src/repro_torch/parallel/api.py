@@ -138,7 +138,8 @@ def shard_tree(tree, shardings):
     shardings: each rank keeps a copy of its own part (the full tensor can
     then be freed, and is never written), with no collective.  A None
     sharding leaves its tensor as it is.  Works on dicts and on named
-    tuples (an ``AdamWState``, caches; a host int stays)."""
+    tuples (an ``AdamWState``, caches; a host int stays).  A ``meta``
+    tensor stays on ``meta`` (the dry run's shapes)."""
     import torch
     from torch.distributed.tensor import DTensor, distribute_tensor
     if isinstance(tree, tuple) and hasattr(type(tree), "_fields"):
@@ -149,8 +150,8 @@ def shard_tree(tree, shardings):
     if shardings is None or not isinstance(tree, torch.Tensor):
         return tree
     mesh, pl = shardings
-    dt = distribute_tensor(tree.to(mesh.device_type), mesh, list(pl),
-                           src_data_rank=None)
+    src = tree if tree.is_meta else tree.to(mesh.device_type)
+    dt = distribute_tensor(src, mesh, list(pl), src_data_rank=None)
     return DTensor.from_local(dt.to_local().clone(), mesh, list(pl),
                               shape=dt.shape, stride=dt.stride())
 

@@ -26,19 +26,28 @@ function in the port is made here.
   * :func:`stage_gloo_all_gather`: gloo ranks on CUDA tensors stage the
     all-gather through host memory (see there).
 
-The reference's ``auto_axis_types`` and ``cost_analysis_dict`` are
-XLA's (axis types of ``jax.make_mesh``, a compiled program's cost
-table) and have no counterpart here; ``cost_analysis_dict`` belongs to
-the dry run (``launch/dryrun.py``, ROADMAP A15.4, still to be ported).
+  * :func:`cost_analysis`: the counterpart of ``cost_analysis_dict``,
+    the cost table of a step traced on the ``meta`` device (the dry
+    run, ``launch/dryrun.py``): the products' FLOPs, each kernel's
+    FLOPs and bytes (``add_kernel_cost``, from ``kernels/ops.py``'s
+    ``meta`` paths), every collective the step issued, and the peak of
+    the bytes it allocated.
+
+The reference's ``auto_axis_types`` (axis types of ``jax.make_mesh``)
+has no counterpart: a ``DeviceMesh`` has no axis types.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import weakref
 
-__all__ = ["EXCHANGED", "AbstractMesh", "abstract_mesh", "axis_sizes",
-           "exchange_dim", "local_range", "lse_combine", "lse_merge",
-           "make_mesh", "mesh_max", "mesh_sum", "reset_exchanged",
-           "shard_map", "stage_gloo_all_gather", "write_rows"]
+__all__ = ["EXCHANGED", "AbstractMesh", "StepTrace", "abstract_mesh",
+           "add_kernel_cost", "add_product_flops", "axis_sizes",
+           "cost_analysis", "exchange_dim", "local_range", "lse_combine",
+           "lse_merge", "make_mesh", "mesh_max", "mesh_sum",
+           "reset_exchanged", "shard_map", "stage_gloo_all_gather",
+           "write_rows"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -262,3 +271,215 @@ def lse_merge(out, lse, reduce):
     num = reduce(out.float() * w, "sum")
     den = reduce(w.contiguous(), "sum")
     return (num / den).to(out.dtype)
+
+
+# ------------------------------------------------------------ cost table
+
+# The collectives a traced step can issue: op name -> (kind, the argument
+# that holds the result, or None for the op's return value).  The
+# functional ops are DTensor's (``_c10d_functional``, and its autograd
+# variants); the in-place ``c10d`` ops are what ``torch.distributed``'s
+# calls issue (``mesh_sum``, ``exchange_dim``, ``core.distributed.
+# exchange``, ``stage_gloo_all_gather``'s staged gather).
+_COLLECTIVES = {
+    "all_reduce": ("all-reduce", None),
+    "all_reduce_": ("all-reduce", None),
+    "all_reduce_coalesced": ("all-reduce", None),
+    "all_reduce_coalesced_": ("all-reduce", None),
+    "all_gather_into_tensor": ("all-gather", None),
+    "all_gather_into_tensor_coalesced": ("all-gather", None),
+    "all_gather_into_tensor_out": ("all-gather", None),
+    "reduce_scatter_tensor": ("reduce-scatter", None),
+    "reduce_scatter_tensor_coalesced": ("reduce-scatter", None),
+    "all_to_all_single": ("all-to-all", None),
+    "allreduce_": ("all-reduce", "tensors"),
+    "allreduce_coalesced_": ("all-reduce", "tensors"),
+    "allgather_": ("all-gather", "output_tensors"),
+    "_allgather_base_": ("all-gather", "output_tensor"),
+    "allgather_into_tensor_coalesced_": ("all-gather", "outputs"),
+    "reduce_scatter_": ("reduce-scatter", "output_tensors"),
+    "_reduce_scatter_base_": ("reduce-scatter", "output_tensor"),
+    "reduce_scatter_tensor_coalesced_": ("reduce-scatter", "outputs"),
+    "alltoall_": ("all-to-all", "output_tensors"),
+    "alltoall_base_": ("all-to-all", "output"),
+}
+# Ops of those namespaces that move no data.
+_NOT_COLLECTIVES = ("wait_tensor", "_wrap_tensor_autograd", "barrier")
+_COLLECTIVE_NAMESPACES = ("c10d", "_c10d_functional",
+                          "_c10d_functional_autograd")
+
+# The cost tables being filled, innermost last: a module global, not a
+# context variable, since autograd may run a backward (B5-bwd's) on
+# another thread.
+_TABLES: list = []
+
+
+def add_kernel_cost(name: str, flops: int, bytes_: int) -> None:
+    """Add one call of kernel ``name`` (``flops`` operations, ``bytes_``
+    moved: each input read once, each output written once) to the cost
+    table being filled, if any (``kernels/ops.py``'s ``meta`` paths)."""
+    if _TABLES:
+        k = _TABLES[-1].kernels.setdefault(
+            name, {"calls": 0, "flops": 0, "bytes": 0})
+        k["calls"] += 1
+        k["flops"] += int(flops)
+        k["bytes"] += int(bytes_)
+
+
+def add_product_flops(flops: int) -> None:
+    """Add ``flops`` of matrix products that a ``meta`` stand-in skipped
+    (``models.rwkv._MetaScan``) to the cost table being filled, if any."""
+    if _TABLES:
+        _TABLES[-1].product_flops += int(flops)
+
+
+def _tensors(x) -> list:
+    import torch
+    from torch.utils._pytree import tree_leaves
+    return [t for t in tree_leaves(x) if isinstance(t, torch.Tensor)]
+
+
+def _nbytes(ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def _group_size(func, args, kwargs) -> int:
+    import torch.distributed as dist
+    from torch.distributed.distributed_c10d import _resolve_process_group
+    named = dict(zip((a.name for a in func._schema.arguments), args))
+    named.update(kwargs)
+    if "process_group" in named:
+        return dist.ProcessGroup.unbox(named["process_group"]).size()
+    return _resolve_process_group(named["group_name"]).size()
+
+
+class StepTrace:
+    """What a step traced under :func:`cost_analysis` did, rank 0's part
+    of it (``.cost()`` is the flat table):
+
+      * ``product_flops``: the matrix products of the rank's local
+        tensors, counted by ``torch.utils.flop_counter.FlopCounterMode``'s
+        formulas (a DTensor op is not counted itself: DTensor's dispatch
+        issues the local ops, which are; FlopCounterMode alone would count
+        a DTensor product at its global shape);
+      * ``kernels``: name -> calls, flops, bytes of the hand-written
+        kernels' ``meta`` paths (``add_kernel_cost``);
+      * ``collectives``: (kind, result bytes on this rank, group size) of
+        every collective issued, DTensor's and the explicit ones alike; a
+        collective op this table does not know raises;
+      * ``peak_bytes``: the most bytes of storage allocated during the
+        step and alive at once (the arguments, allocated before, are not
+        in it); ``live_bytes`` what is still alive.
+    Ops that DTensor's sharding propagation runs on fake tensors are
+    neither counted nor tracked."""
+
+    def __init__(self) -> None:
+        from torch.utils.flop_counter import FlopCounterMode
+        self.registry = FlopCounterMode(display=False).flop_registry
+        self.product_flops = 0
+        self.kernels: dict = {}
+        self.collectives: list = []
+        self.live_bytes = 0
+        self.peak_bytes = 0
+        self._known: set = set()
+        self._mode = None
+
+    def keep(self, tensors) -> None:
+        """Mark the storages of ``tensors`` as allocated before the step
+        (the arguments): never counted as the step's."""
+        for t in _tensors(tensors):
+            for local in _locals(t):
+                self._known.add(id(local.untyped_storage()))
+
+    def _track(self, out) -> None:
+        for t in _tensors(out):
+            st = t.untyped_storage()
+            key = id(st)
+            if key in self._known:
+                continue
+            self._known.add(key)
+            n = st.nbytes()
+            self.live_bytes += n
+            self.peak_bytes = max(self.peak_bytes, self.live_bytes)
+            weakref.finalize(st, self._free, key, n)
+
+    def _free(self, key: int, n: int) -> None:
+        self._known.discard(key)
+        self.live_bytes -= n
+
+    def _record(self, func, args, kwargs, out) -> None:
+        name = func._schema.name.split("::")[-1]
+        if name in _NOT_COLLECTIVES:
+            return
+        if name not in _COLLECTIVES:
+            raise NotImplementedError(f"the cost table does not know the "
+                                      f"collective {func}")
+        kind, where = _COLLECTIVES[name]
+        if where is None:
+            result = out
+        else:
+            named = dict(zip((a.name for a in func._schema.arguments),
+                             args))
+            named.update(kwargs)
+            result = named[where]
+        self.collectives.append((kind, _nbytes(_tensors(result)),
+                                 _group_size(func, args, kwargs)))
+
+    def dispatch(self, func, types, args, kwargs):
+        from torch._subclasses.fake_tensor import FakeTensor
+        from torch.distributed.tensor import DTensor
+        if any(issubclass(t, DTensor) for t in types):
+            return NotImplemented
+        out = func(*args, **kwargs)
+        if any(isinstance(t, FakeTensor)
+               for t in _tensors((args, kwargs, out))):
+            return out
+        if func.namespace in _COLLECTIVE_NAMESPACES:
+            self._record(func, args, kwargs, out)
+        elif func.overloadpacket in self.registry:
+            self.product_flops += int(self.registry[func.overloadpacket](
+                *args, **kwargs, out_val=out))
+        self._track(out)
+        return out
+
+    def kernel_flops(self) -> int:
+        return sum(k["flops"] for k in self.kernels.values())
+
+    def cost(self) -> dict:
+        """The flat table: ``flops`` (products + kernels),
+        ``product_flops``, ``kernel_flops``, and ``<kernel> calls`` /
+        ``<kernel> flops`` / ``<kernel> bytes`` for each kernel called."""
+        out = {"flops": float(self.product_flops + self.kernel_flops()),
+               "product_flops": float(self.product_flops),
+               "kernel_flops": float(self.kernel_flops())}
+        for name, k in sorted(self.kernels.items()):
+            for key, v in k.items():
+                out[f"{name} {key}"] = float(v)
+        return out
+
+
+def _locals(t) -> list:
+    from torch.distributed.tensor import DTensor
+    return [t.to_local()] if isinstance(t, DTensor) else [t]
+
+
+@contextlib.contextmanager
+def cost_analysis(arguments=()):
+    """Trace the step run inside the block: yields a :class:`StepTrace`
+    that fills as it runs (``.cost()`` is the flat table).  The storages
+    of ``arguments`` (a tree of tensors or DTensors) are the step's
+    inputs, not its allocations."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    trace = StepTrace()
+    trace.keep(arguments)
+
+    class _Mode(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            return trace.dispatch(func, types, args, kwargs or {})
+
+    _TABLES.append(trace)
+    try:
+        with _Mode():
+            yield trace
+    finally:
+        _TABLES.remove(trace)

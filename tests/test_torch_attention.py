@@ -321,6 +321,53 @@ def test_flash_attention_grad_matches_reference(case):
         assert g.dtype == t.dtype and torch.equal(g, t.grad)
 
 
+WINDOW_GRAD_CASES = {
+    # name: (b, sq, h, k, hd, skv, causal, window): Sq not a multiple of
+    # 64; a window that binds (narrower than Sq) and one that does not
+    "causal_g1_binds": (2, 70, 4, 4, 64, None, True, 9),
+    "causal_g6_binds": (1, 77, 12, 2, 64, None, True, 16),
+    "causal_g6_wide": (1, 45, 6, 1, 128, None, True, 100),
+    "causal_g1_one": (1, 33, 2, 2, 64, None, True, 1),
+    "full_g6_binds": (1, 40, 6, 1, 64, 57, False, 12),
+}
+
+
+@pytest.mark.parametrize("case", sorted(WINDOW_GRAD_CASES))
+def test_flash_attention_window_grad_matches_reference(case):
+    """Under a sliding window: dq, dk, dv of ``ops.flash_attention``
+    (autograd on the CPU path) against ``jax.grad`` of the reference's
+    ``chunked_attention(..., window=w)``, float32, within 1e-5; and
+    ``ops.flash_attention_bwd(..., window=w)`` returns the same
+    gradients."""
+    import jax
+    b, sq, h, k, hd, skv, causal, window = WINDOW_GRAD_CASES[case]
+    skv = skv or sq
+    arrays = qkv(b, sq, h, k, hd, skv, seed=sum(map(ord, case)),
+                 dtype="float32")
+    do = np.random.default_rng(10).standard_normal((b, sq, h, hd)).astype(
+        np.float32)
+    pos_q, pos_k = jnp.arange(sq, dtype=jnp.int32), jnp.arange(
+        skv, dtype=jnp.int32)
+
+    def loss(q, k_, v):
+        out = jattn.chunked_attention(q, k_, v, pos_q, pos_k, causal=causal,
+                                      chunk=min(512, skv), window=window)
+        return jnp.sum(out * do)
+    want = jax.grad(loss, argnums=(0, 1, 2))(*J(arrays, "float32"))
+    q, kk, v = (t.requires_grad_(True) for t in T(arrays, "float32"))
+    out = ops.flash_attention(q, kk, v, causal=causal, window=window)
+    out.backward(torch.from_numpy(do))
+    for w, t in zip(want, (q, kk, v)):
+        assert rel_err(w, t.grad) < TOL["float32"]
+    tout, lse = ops.flash_attention_fwd(*(x.detach() for x in (q, kk, v)),
+                                        causal=causal, window=window)
+    got = ops.flash_attention_bwd(*(x.detach() for x in (q, kk, v)), tout,
+                                  torch.from_numpy(do), lse, causal,
+                                  window=window)
+    for g, t in zip(got, (q, kk, v)):
+        assert g.dtype == t.dtype and torch.equal(g, t.grad)
+
+
 @pytest.mark.parametrize("causal", [True, False])
 def test_flash_attention_fwd_lse_is_the_logsumexp(causal):
     """The lse B5 writes for its backward: each query row's log-sum-exp

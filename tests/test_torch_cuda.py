@@ -940,14 +940,15 @@ def test_cuda_gloo_mesh_train_step_grads_match_one_process(tmp_path):
                     a, b, rtol=0, atol=1e-4 * max(np.abs(b).max(), 1e-30))
 
 
-def bwd_inputs(shape, dtype, seed):
-    """q, k, v, dout from a seed, and B5's out and lse for them."""
+def bwd_inputs(shape, dtype, seed, window=None):
+    """q, k, v, dout from a seed, and B5's out and lse for them (under
+    ``window``, if given)."""
     b, sq, h, k, hd, skv, causal = shape
     gen = torch.Generator(device="cuda").manual_seed(seed)
     q, kk, v, do = (torch.randn(s, device="cuda", generator=gen).to(dtype)
                     for s in ((b, sq, h, hd), (b, skv, k, hd),
                               (b, skv, k, hd), (b, sq, h, hd)))
-    out, lse = ops.flash_attention_fwd(q, kk, v, causal)
+    out, lse = ops.flash_attention_fwd(q, kk, v, causal, window=window)
     return q, kk, v, out, do, lse, causal
 
 
@@ -992,6 +993,50 @@ def test_cuda_flash_attention_bwd_matches_plain_version(shape, dtype):
         assert g.dtype == dtype and torch.equal(g, a)
         err = rel_err(g, w)
         assert err < tol, err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape,window", [
+    # (b, sq, h, k, hd, skv, causal), window: bands narrower than a KV
+    # tile (128 keys) and a query tile (64 rows), one not a multiple of
+    # either, the diagonal alone, one wider than the sequence, non-causal
+    # with more keys than queries, and starcoder2-15b's heads
+    ((2, 300, 8, 2, 128, 300, True), 64),
+    ((2, 191, 16, 2, 128, 191, True), 100),
+    ((2, 517, 12, 2, 64, 517, True), 130),
+    ((2, 256, 4, 4, 64, 256, True), 1),
+    ((1, 1024, 8, 1, 128, 1024, True), 2000),
+    ((2, 200, 4, 4, 64, 300, False), 50),
+    ((1, 2048, 48, 4, 128, 2048, True), 512),
+])
+def test_cuda_flash_attention_bwd_window_matches_plain_version(
+        shape, window, dtype):
+    """B5-bwd under a sliding window against autograd through the plain
+    version with that window: dq, dk, dv within 1e-4 (float32, TF32 off)
+    / 2e-2 (bf16), relative; two launches give the same bits; and
+    ops.flash_attention with the window under grad launches B5-bwd."""
+    need_card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, kk, v, out, do, lse, causal = bwd_inputs(shape, dtype, 17, window)
+    ops.reset_launches()
+    got = ops.flash_attention_bwd(q, kk, v, out, do, lse, causal,
+                                  window=window)
+    again = ops.flash_attention_bwd(q, kk, v, out, do, lse, causal,
+                                    window=window)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["flash_attention_bwd"] == 2
+    want = ref.flash_attention_bwd_ref(q, kk, v, do, causal, window=window)
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    for g, a, w in zip(got, again, want):
+        assert g.dtype == dtype and torch.equal(g, a)
+        err = rel_err(g, w)
+        assert err < tol, err
+    leaves = [x.detach().requires_grad_(True) for x in (q, kk, v)]
+    ops.flash_attention(*leaves, causal=causal, window=window).backward(do)
+    assert ops.LAUNCHES["flash_attention_bwd"] == 3
+    for t, g in zip(leaves, got):
+        assert torch.equal(t.grad, g)
 
 
 @pytest.mark.cuda

@@ -469,12 +469,11 @@ def test_config_and_registry_take_the_sharded_options():
     assert get_backend("sharded").name == "sharded"
     assert not get_backend("sharded").supports_batch
     # LM serving and training are ported for one device and a mesh
-    # (A15.2, A15.3); what is left is B5's and B5-bwd's, each naming its
-    # ROADMAP item
+    # (A15.2, A15.3), B5-bwd with a window too; what is left is B5's
+    # head dims, naming its ROADMAP item
     assert "lm serving" not in UNPORTED
     assert set(UNPORTED) == {
-        "attention head dims other than 64 and 128 on CUDA",
-        "B5-bwd with a sliding window (training under a window on CUDA)"}
+        "attention head dims other than 64 and 128 on CUDA"}
     assert all(item.startswith("Queue B") for item in UNPORTED.values())
     assert not any(k.startswith("parallel/") for k in UNPORTED)
     # exchange_every is an algorithm static, as in the reference

@@ -151,6 +151,46 @@ def test_train_steps_match_reference(dtype, microbatch):
             <= STEP_TOL[dtype] * np.abs(a).max()
 
 
+def test_windowed_train_step_matches_reference():
+    """One ``make_train_step`` step of reduced starcoder2-15b with its
+    sliding window cut to 8 (so that 16-token sequences bind it), float32,
+    against the reference's on a (1, 1) mesh: the loss within 1e-5, every
+    gradient (``jax.grad`` of the reference's ``loss_fn``) and the updated
+    params within 1e-4, relative to the leaf's max abs.
+
+    The params are compared where the reference's gradient exceeds 1e3 x
+    AdamW's eps (1e-8).  Adam's first update is lr g / (|g| + eps), so an
+    element whose gradient is rounding-sized moves by a share of lr that
+    rounding decides; starcoder2's zero-initialised biases hold such
+    elements (the key bias's gradient is 0 exactly: softmax ignores a
+    shift shared by a query's scores), and their leaves' max abs is the
+    update itself."""
+    jcfg, tcfg, jp, tp = carried("starcoder2-15b", "float32")
+    jcfg = dataclasses.replace(jcfg, window=8)
+    tcfg = dataclasses.replace(tcfg, window=8)
+    toks, tg = tokens(tcfg, 2, 16, 40), tokens(tcfg, 2, 16, 41)
+    jb = {"tokens": jnp.asarray(toks), "targets": jnp.asarray(tg)}
+    jgrads = jax.grad(lambda p: JT.loss_fn(jcfg, p, jb))(jp)
+    mesh = make_mesh((1, 1), ("data", "model"))
+    jstep, *_ = JS.make_train_step(jcfg, mesh, "train_4k", donate=False)
+    jp, _, jm = jstep(jp, JS.init_opt_state(jcfg, jp), jb, jnp.int32(10))
+    tstep, *_ = TS.make_train_step(tcfg, None, "train_4k", donate=False,
+                                   keep_grads=True)
+    tp, _, tm = tstep(tp, TS.init_opt_state(tcfg, tp),
+                      {"tokens": torch.from_numpy(toks),
+                       "targets": torch.from_numpy(tg)}, 10)
+    want = float(jm["loss"])
+    assert abs(float(tm["loss"]) - want) <= TOL["float32"] * want
+    for g, a, gt, b in zip(jax.tree.leaves(jgrads), jax.tree.leaves(jp),
+                           tree_leaves(tm["grads"]), tree_leaves(tp)):
+        g, a = np.asarray(g, np.float32), np.asarray(a, np.float32)
+        assert np.abs(g - gt.numpy()).max() \
+            <= STEP_TOL["float32"] * np.abs(g).max()
+        moved = np.abs(g) > 1e3 * 1e-8
+        assert np.abs(a - b.numpy())[moved].max(initial=0.0) \
+            <= STEP_TOL["float32"] * np.abs(a).max()
+
+
 def test_train_step_donates_in_place():
     _, tcfg, _, tp = carried("yi-9b", "bfloat16")
     step, *_ = TS.make_train_step(tcfg, donate=True)

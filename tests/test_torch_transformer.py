@@ -229,12 +229,11 @@ def test_init_decode_caches_match_reference(name):
 
 
 def test_unported_names_each_roadmap_item():
-    """Every family is ported, serves and trains on one device or a mesh:
-    what stays unported is B5's and B5-bwd's (Queue B), on CUDA only: head
-    dims other than 64 and 128, and a window under grad."""
+    """Every family is ported, serves and trains on one device or a mesh,
+    under a window too: what stays unported is B5's (Queue B), on CUDA
+    only: head dims other than 64 and 128."""
     assert set(UNPORTED) == {
-        "attention head dims other than 64 and 128 on CUDA",
-        "B5-bwd with a sliding window (training under a window on CUDA)"}
+        "attention head dims other than 64 and 128 on CUDA"}
     for k, item in UNPORTED.items():
         assert "A15.3" not in item and "Queue B" in item \
             and "CUDA" in k, k
