@@ -185,6 +185,24 @@ Phases, one JSON line each:
            it and beside scaled_dot_product_attention (yardstick only);
            and two more timed calls at that width, S=4096 non-causal and
            S=16384 causal, beside SDPA.
+  decode   B5's decode body (csrc/flash_attention_decode.cu: every bf16
+           call with one query row) at each decode call the models make
+           (DECODE_CALLS: Yi-9B, qwen2-moe, jamba, seamless and its cross
+           decode, internvl2, arctic, starcoder2-15b's window, the int8
+           cache of serve_sharded (a), the sequence-parallel ranks of (c)
+           with lse, (hd)'s call), on random bf16 inputs from a seed with
+           junk past kv_len: against ref.flash_decode_ref (the same
+           split, float32) and ref.flash_attention_ref within 8e-3, lse
+           within 1e-3, two launches bit-equal, ops.count_kv_rows equal to
+           B x K x the visible rows rounded to the body's 64-key tiles;
+           timed (CUDA events over back-to-back calls; the same over
+           calls replayed from a CUDA graph, the device's time a call
+           when the host does not limit it; the host's time to
+           return from a call through ops and from the C entry point
+           alone, and from the prefill body's entry) beside its bound, the plain version, SDPA over the
+           visible keys copied out and the prefill body
+           (flash_attention.cu's entry point called directly, as before
+           this body) on the same inputs, each timed both ways.
   lm       LM serving of Yi-9B (src/repro_torch/configs/yi_9b.py: 48 layers,
            d_model 4096, 32 heads, 4 KV heads, hd 128, vocab 64000), random
            weights from seed 0.  (b) The model cut to 2 layers, one weight
@@ -210,7 +228,7 @@ Phases, one JSON line each:
            larger: bf16 rounding noise grows with depth).
   lm_families  LM serving of the other families, one arch each at full
            width with random bf16 weights from seed 0, freed before the
-           next, each cut to 4 decoder layers: qwen2-moe-a2.7b (of 24,
+           next, each cut to 2 decoder layers: qwen2-moe-a2.7b (of 24,
            MoE 60 of 64 experts top-4 + shared expert), jamba-v0.1-52b
            (8: one group of its 32 layers: Mamba, attention at offset 4,
            MoE on odd offsets), rwkv6-7b (of 32), seamless-m4t-large-v2 (of 24,
@@ -321,7 +339,7 @@ Phases, one JSON line each:
            greedy tokens, then its float32 replay (the bf16 weights read
            in float32, float32_replay) teacher forced on them, which the
            ranks repeat on their shards, after a bf16 run of some steps
-           where the case says: (a) qwen1.5-32b at full width, 4 of 64
+           where the case says: (a) qwen1.5-32b at full width, 2 of 64
            layers, its int8 cache, decode_32k's rules on (2, 2) (KV heads
            over model, batch over data), 4 prompts of 2,048 tokens, a
            4,096-row cache, 8 bf16 steps and 32 float32 steps; (c)
@@ -348,7 +366,9 @@ Phases, one JSON line each:
            tokens (past its 4,096 window), an 8,192-row cache, 32 steps:
            B5 launches (10 a step), the key rows each launch's blocks
            load, counted by the kernel (ops.count_kv_rows) and each decode
-           launch's held to the window's tiles, prefill and step times, finite
+           launch's held to the decode body's spans of the window's tiles
+           (each visible 64-key tile once per batch and KV head), prefill
+           and step times, finite
            logits; its reduced config with the window cut to 64 on the
            card against the CPU within 0.02.  B5's cases at the phase's
            calls against the plain version, timed beside their bounds and
@@ -417,6 +437,33 @@ FLASH_KERNELS = ("flash_wgmma<64, false>", "flash_wgmma<128, false>",
                  "flash_wgmma<64, true>", "flash_wgmma<128, true>")
 # B5-bwd's bf16 main pass, held to the same gate as FLASH_KERNELS.
 BWD_KERNELS = ("bwd_wgmma<64>", "bwd_wgmma<128>")
+# B5's decode body, held to the same gate (no spill).
+DECODE_KERNELS = ("flash_decode<64, false>", "flash_decode<128, false>",
+                  "flash_decode<64, true>", "flash_decode<128, true>",
+                  "decode_combine<64>", "decode_combine<128>")
+# The decode phase's calls, one per decode row of PERF.md's kernel table:
+# (name, b, h, k, hd, rows, kv_len, q_offset, window, causal, int8, lse).
+DECODE_CALLS = (
+    ("yi-9b", 4, 32, 4, 128, 1024, 513, 512, None, False, False, False),
+    ("qwen2-moe", 4, 16, 16, 128, 1024, 513, 512, None, False, False,
+     False),
+    ("jamba", 4, 32, 8, 128, 1024, 513, 512, None, False, False, False),
+    ("seamless", 4, 16, 16, 64, 1024, 513, 512, None, False, False, False),
+    ("seamless cross", 4, 16, 16, 64, 32, 32, 0, None, False, False, False),
+    ("internvl2", 4, 48, 8, 128, 2048, 1537, 1536, None, False, False,
+     False),
+    ("arctic", 4, 64, 8, 128, 1024, 513, 512, None, False, False, False),
+    ("starcoder2-15b window", 2, 48, 4, 128, 8192, 6176, 6175, 4096, False,
+     False, False),
+    ("qwen1.5-32b int8 (a)", 2, 24, 24, 128, 4096, 2080, 2079, None, True,
+     True, False),
+    ("jamba SP (c) rank 0", 1, 16, 4, 128, 8192, 8192, 8207, None, True,
+     False, True),
+    ("jamba SP (c) rank 1", 1, 16, 4, 128, 8192, 16, 15, None, True, False,
+     True),
+    ("yi-9b head_dim (hd)", 4, 4, 1, 128, 4096, 4089, 4088, None, True,
+     False, False))
+DECODE_MAIN = "yi-9b"    # the kernels line's row
 # The lm phase: Yi-9B served at full width and depth from random weights
 # (seed LM_SEED); (b) runs LM_CPU's cut on the card and on the CPU.
 LM_ARCH = "yi-9b"
@@ -436,14 +483,15 @@ LM_RAGGED_KEYS = 300   # the B=2 decode call's keys: not a multiple of 128
 # The lm_families phase: one arch of each other family at full width,
 # random bf16 weights from LM_SEED, cut in depth (layers kept): Jamba to
 # one 8-layer group (103 GB at 32), Arctic to one of its 35 layers (954
-# GB), the rest to 4 decoder layers for the script's time limit (they
-# ran at full depth until the dry run and the window trainer joined).
+# GB), the rest to 2 decoder layers for the script's time limit (full
+# depth until the dry run and the window trainer joined, 4 layers until
+# the decode phase did).
 # (b) runs full width at LM_CPU's 2 layers, but reduced_config for those two
 # (one group or layer is 13-14 B parameters), and cuts the VLM's prefix to
 # LM_FAMILY_PREFIX rows on the CPU.
-LM_FAMILIES = (("qwen2-moe-a2.7b", 4), ("jamba-v0.1-52b", 8),
-               ("rwkv6-7b", 4), ("seamless-m4t-large-v2", 4),
-               ("internvl2-26b", 4), ("arctic-480b", 1))
+LM_FAMILIES = (("qwen2-moe-a2.7b", 2), ("jamba-v0.1-52b", 8),
+               ("rwkv6-7b", 2), ("seamless-m4t-large-v2", 2),
+               ("internvl2-26b", 2), ("arctic-480b", 1))
 LM_FAMILY_REDUCED_CPU = ("jamba-v0.1-52b", "arctic-480b")
 LM_FAMILY_PREFIX = 64
 LM_FRAMES = 32         # the encoder frames serve() makes
@@ -453,7 +501,8 @@ PLANTED_GRAPH = "planted_partition(128, 1024, 0.3, 0.001, seed=0)"
 SKEW_GRAPH = "rmat(19, 16, seed=0)"      # rmat(20, ...) until PR 33
 PHASES = ("kernels", "parity", "c1", "main", "wide_fit", "dense",
           "skew_fit", "batch", "obs", "microbatch", "stream", "ingest",
-          "ooc", "serve", "sharded", "timing", "trace", "flash", "lm",
+          "ooc", "serve", "sharded", "timing", "trace", "flash", "decode",
+          "lm",
           "lm_families", "train", "train_sharded", "serve_sharded",
           "audit", "dryrun")
 # phase -> the phases whose graphs and fits it reuses
@@ -509,6 +558,8 @@ KERNELS = {
                     "src/repro/kernels/fused_sweep.py:128"),
     "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention.py:73"),
+    "flash_decode": ("src/repro_torch/kernels/csrc/flash_attention_decode.cu",
+                     "src/repro/kernels/flash_attention.py:73"),
     "flash_attention_bwd": (
         "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
         "gradient of src/repro/kernels/flash_attention.py:73 (no Pallas "
@@ -2848,6 +2899,219 @@ def _flash_timed(torch, ops, q, kk, v, causal, want=None, kv_len=None):
     return row
 
 
+# ---------------------------------------------------------------- decode
+
+def _graph_ms(torch, fn, reps=20, replays=5):
+    """Device ms a call takes when the host does not limit it: `reps`
+    calls captured in one CUDA graph, replayed `replays` times between
+    CUDA events (the gaps between its kernels counted, the host's launch
+    path not), a call's share; None when the calls cannot be captured
+    or replayed (a measurement, not a gate).  The decode phase's
+    `device_ms` and the times beside it."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    try:
+        with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+            for _ in range(reps):
+                fn()
+        graph.replay()
+        torch.cuda.synchronize()
+        start.record()
+        for _ in range(replays):
+            graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+    except RuntimeError as e:
+        print(f"chip_smoke: no CUDA graph timing: {e}", file=sys.stderr)
+        torch.cuda.synchronize()
+        return None
+    return start.elapsed_time(end) / (replays * reps)
+
+
+def _host_us(torch, fn, n=500) -> float:
+    """Host microseconds a call of `fn` takes to return, over `n` calls
+    back to back (the device keeps up when it is faster)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    host = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return host / n * 1e6
+
+
+def _decode_entry(torch, lib, q, kk, v, out, work, kw, rows, split):
+    """One call of the decode body's C entry point with the arguments ops
+    passes, for its host cost alone."""
+    b, _sq, h, hd = q.shape
+    ks, vs = kw["k_scale"], kw["v_scale"]
+    rc = lib.attn_flash_decode(
+        q.data_ptr(), kk.data_ptr(), v.data_ptr(), out.data_ptr(), None,
+        None if ks is None else ks.data_ptr(),
+        None if vs is None else vs.data_ptr(), None, work.data_ptr(), b, h,
+        kk.shape[2], kw["kv_len"], rows, hd, int(kw["causal"]),
+        kw["window"] or 0, kw["q_offset"], split.splits, split.per_split,
+        torch.cuda.current_stream().cuda_stream)
+    check(rc == 0, f"the decode body's entry failed with {rc}")
+
+
+def _prefill_body(torch, lib, q, kk, v, out, lse, kw, rows, kv_len):
+    """One launch of flash_attention.cu's entry point (the body every B5
+    call ran before the decode body) on a decode call, for comparison:
+    measurement only, the port never calls it so."""
+    b, _sq, h, hd = q.shape
+    ks, vs = kw["k_scale"], kw["v_scale"]
+    rc = lib.attn_flash_attention(
+        q.data_ptr(), kk.data_ptr(), v.data_ptr(), out.data_ptr(),
+        None if lse is None else lse.data_ptr(),
+        None if ks is None else ks.data_ptr(),
+        None if vs is None else vs.data_ptr(), None, b, h, kk.shape[2], 1,
+        kv_len, rows, hd, int(kw["causal"]), kw["window"] or 0,
+        kw["q_offset"], 1, torch.cuda.current_stream().cuda_stream)
+    check(rc == 0, f"the prefill body failed with {rc}")
+
+
+def _decode_row(torch, rt, lib, gen, call) -> dict:
+    """One decode call through ops (the decode body): gates, rows loaded,
+    times beside its bound, the plain version, SDPA and the prefill
+    body."""
+    from repro_torch.models.attention import quantize_kv
+    ops, ref = rt.ops, rt.ref
+    name, b, h, k, hd, rows, kv_len, q_off, window, causal, q8, with_lse = \
+        call
+    bf16 = torch.bfloat16
+    q, kc, vc = _qkv(torch, gen, b, 1, h, k, hd, rows, bf16)
+    kc[:, kv_len:] = 1e4
+    vc[:, kv_len:] = -1e4
+    ks = vs = None
+    if q8:
+        (kc, ks), (vc, vs) = quantize_kv(kc), quantize_kv(vc)
+    kw = dict(causal=causal, kv_len=kv_len, window=window, q_offset=q_off,
+              k_scale=ks, v_scale=vs)
+    torch.cuda.synchronize()
+    before = dict(ops.LAUNCHES)
+    out, lse = ops.flash_attention_fwd(q, kc, vc, **kw)
+    again = ops.flash_attention(q, kc, vc, **kw)
+    torch.cuda.synchronize()
+    got = {x: ops.LAUNCHES[x] - before[x]
+           for x in ("flash_attention", "flash_decode")}
+    check(got == {"flash_attention": 2, "flash_decode": 2},
+          f"decode {name}: two calls made launches {got}")
+    check(torch.equal(out, again), f"decode {name}: two launches differ")
+    check(out.shape == q.shape and bool(torch.isfinite(out).all()),
+          f"decode {name}: malformed output")
+    plain, plain_lse = ref.flash_decode_ref(q, kc, vc, **kw)
+    abs_err, rel = _rel(out, plain)
+    _, rel_oracle = _rel(out, ref.flash_attention_ref(q, kc, vc, **kw))
+    lse_err = float((lse - plain_lse).abs().max())
+    check(rel < LM_KERNEL_TOL and rel_oracle < LM_KERNEL_TOL,
+          f"decode {name}: rel {rel} (plain), {rel_oracle} (oracle)")
+    check(lse_err < 1e-3, f"decode {name}: lse off by {lse_err}")
+    # the key rows the blocks load: each visible tile once per (batch, KV
+    # head, row chunk)
+    split = ref.decode_split(b, h, k, kv_len, causal, window, q_off)
+    chunks = -(-(h // k) // ref.DECODE_ROWS)
+    per_span = [min(e, kv_len) - a for a, e in split.spans()]
+    with ops.count_kv_rows() as counted:
+        ops.flash_attention(q, kc, vc, **kw)
+    want = {"rows": b * k * chunks * sum(per_span),
+            "blocks": b * k * chunks * split.splits,
+            "max_rows": max(per_span)}
+    c = counted[0]
+    check(len(counted) == 1 and {x: c[x] for x in want} == want,
+          f"decode {name}: rows loaded {counted}, want {want}")
+
+    def call_():
+        if with_lse:
+            return ops.flash_attention_fwd(q, kc, vc, **kw)
+        return ops.flash_attention(q, kc, vc, **kw)
+    ms = _time_ms(torch, call_)
+    device_ms = _graph_ms(torch, call_)
+    host_us = _host_us(torch, call_)
+    work = torch.empty(b * h * split.splits * (hd + 2), dtype=torch.float32,
+                       device=q.device)
+    scratch = torch.empty_like(q)
+    entry_host_us = _host_us(torch, lambda: _decode_entry(
+        torch, lib, q, kc, vc, scratch, work, kw, rows, split))
+    plain_ms = _time_ms(torch, lambda: ref.flash_decode_ref(q, kc, vc, **kw),
+                        reps=5, warmup=1)
+    # the prefill body on the same call, checked and timed
+    old = torch.empty_like(q)
+    old_lse = torch.empty_like(lse) if with_lse else None
+    _prefill_body(torch, lib, q, kc, vc, old, old_lse, kw, rows, kv_len)
+    torch.cuda.synchronize()
+    _, rel_old = _rel(old, plain)
+    check(rel_old < LM_KERNEL_TOL, f"decode {name}: the prefill body's rel "
+          f"{rel_old}")
+    prefill_ms = _time_ms(torch, lambda: _prefill_body(
+        torch, lib, q, kc, vc, old, old_lse, kw, rows, kv_len))
+    prefill_device_ms = _graph_ms(torch, lambda: _prefill_body(
+        torch, lib, q, kc, vc, old, old_lse, kw, rows, kv_len))
+    prefill_entry_host_us = _host_us(torch, lambda: _prefill_body(
+        torch, lib, q, kc, vc, old, old_lse, kw, rows, kv_len))
+    library_ms = library_device_ms = None
+    if not (q8 or with_lse):
+        # SDPA over the visible keys copied out (one query: no mask)
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        qt = q.transpose(1, 2).contiguous()
+        kt, vt = (x[:, split.lo:split.hi + 1].transpose(1, 2).contiguous()
+                  for x in (kc, vc))
+        library_ms = _time_ms(torch, lambda: sdpa(qt, kt, vt,
+                                                  enable_gqa=True))
+        library_device_ms = _graph_ms(torch, lambda: sdpa(
+            qt, kt, vt, enable_gqa=True))
+    # Work the call needs: QK^T and PV over the visible keys; q and the
+    # visible K / V rows (and their scales) read once, the output (and
+    # lse) written once.
+    n_vis = split.hi + 1 - split.lo
+    elem = 1 if q8 else 2
+    bytes_ = (2 * 2 * q.numel() + 2 * b * n_vis * k * hd * elem
+              + (2 * 2 * b * n_vis * k if q8 else 0)
+              + (4 * b * h if with_lse else 0))
+    operations = 4 * b * h * hd * n_vis
+    ops_ms = operations / BF16_OPS_PER_S * 1e3
+    bytes_ms = bytes_ / HBM_BYTES_PER_S * 1e3
+    return {"call": name, "q": list(q.shape), "kv": [b, rows, k, hd],
+            "kv_len": kv_len, "q_offset": q_off, "window": window,
+            "causal": causal, "int8": q8, "lse": with_lse,
+            "group": h // k, "splits": split.splits,
+            "tiles_per_split": split.per_split, "visible_keys": n_vis,
+            "rows_loaded": c["rows"], "blocks": c["blocks"],
+            "max_rows_a_block": c["max_rows"],
+            "max_abs_err": abs_err, "rel_err": rel,
+            "rel_err_oracle": rel_oracle, "lse_max_abs_err": lse_err,
+            "ms": ms, "device_ms": device_ms, "host_us": host_us,
+            "entry_host_us": entry_host_us, "plain_ms": plain_ms,
+            "prefill_body_ms": prefill_ms,
+            "prefill_body_device_ms": prefill_device_ms,
+            "prefill_entry_host_us": prefill_entry_host_us,
+            "prefill_body_rel_err": rel_old,
+            "library_ms": library_ms, "library_device_ms": library_device_ms,
+            "operations": operations,
+            "bytes": bytes_, "bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
+
+
+def phase_decode(torch, rt, dev):
+    """B5's decode body at every DECODE_CALLS shape (see the docstring)."""
+    from repro_torch.kernels import build
+    lib = build.load_library()
+    gen = torch.Generator(device=dev).manual_seed(11)
+    rows = [_decode_row(torch, rt, lib, gen, call) for call in DECODE_CALLS]
+    return {"tolerance_rel": LM_KERNEL_TOL, "lse_tolerance_abs": 1e-3,
+            "calls": rows,
+            "main": next(r for r in rows if r["call"] == DECODE_MAIN)}
+
+
 # -------------------------------------------------------------------- lm
 
 def _lm_rel(want, got, vocab) -> float:
@@ -3145,6 +3409,7 @@ def phase_lm(torch, rt, dev):
                 prompt_len=sv["prompt_len"], max_new=sv["max_new"],
                 s_max=sv["s_max"], seed=LM_SEED, params=params, device=dev)
     launches = ops.LAUNCHES["flash_attention"]
+    decode_launches = ops.LAUNCHES["flash_decode"]
     peak = torch.cuda.max_memory_allocated()
     gen = res["generated"]
     check(gen.shape == (sv["batch"], sv["max_new"])
@@ -3154,6 +3419,10 @@ def phase_lm(torch, rt, dev):
           f"lm serve made {launches} B5 launches, want "
           f"{cfg.n_layers * sv['max_new']}")
     steps = sv["max_new"] - 1
+    # every decode step's calls run the decode body, the prefill's not
+    check(decode_launches == cfg.n_layers * steps,
+          f"lm serve ran the decode body {decode_launches} times, want "
+          f"{cfg.n_layers * steps}")
     out["serve"] = {
         **sv, "prefill_s": res["prefill_s"], "decode_s": res["decode_s"],
         "decode_steps": steps, "decode_step_ms": res["decode_s"] / steps * 1e3,
@@ -3161,7 +3430,8 @@ def phase_lm(torch, rt, dev):
         "prefill_tok_per_s": sv["batch"] * sv["prompt_len"]
         / res["prefill_s"],
         "weight_read_bound_step_ms": 2 * n_params / HBM_BYTES_PER_S * 1e3,
-        "peak_device_bytes": peak, "launches": launches}
+        "peak_device_bytes": peak, "launches": launches,
+        "decode_launches": decode_launches}
     prompts = np.random.default_rng(LM_SEED).integers(
         0, cfg.vocab, size=(sv["batch"], sv["prompt_len"])).astype(np.int32)
     out["traced_decode"] = _lm_traced_steps(torch, T, cfg, params, prompts,
@@ -3549,6 +3819,7 @@ def _one_family(torch, rt, T, arch, layers, dev):
                 s_max=s_max, seed=LM_SEED, params=params, device=dev,
                 layers=layers)
     launches = ops.LAUNCHES["flash_attention"]
+    decode_launches = ops.LAUNCHES["flash_decode"]
     peak = torch.cuda.max_memory_allocated()
     gen = res["generated"]
     check(gen.shape == (sv["batch"], sv["max_new"])
@@ -3568,7 +3839,7 @@ def _one_family(torch, rt, T, arch, layers, dev):
         / res["prefill_s"],
         "weight_read_bound_step_ms": 2 * n_params / HBM_BYTES_PER_S * 1e3,
         "peak_device_bytes": peak, "launches": launches,
-        "launches_want": want}
+        "launches_want": want, "decode_launches": decode_launches}
     prompts, extras = _family_inputs(torch, cfg, sv["batch"], dev)
     out["breakdown"] = _family_breakdown(torch, T, cfg, params, prompts,
                                          extras, dev)
@@ -4627,9 +4898,9 @@ def phase_train_sharded(torch, rt, dev):
 # ---------------------------------------------------------- serve_sharded
 
 # Three mesh cases, each held to a one-device run of the port in this
-# process: (a) qwen1.5-32b (int8 cache) at full width and 4 of 64
-# layers (16 until the dry run and the window trainer joined the script:
-# its ranks' init in turn took ~140 s of the 1,200 s limit), layout (a)
+# process: (a) qwen1.5-32b (int8 cache) at full width and 2 of 64
+# layers (16 until the dry run and the window trainer joined the script,
+# 4 until the decode phase did: the script's 1,200 s limit), layout (a)
 # under decode_32k's rules; (c) jamba-v0.1-52b at 8 of 32 layers (as in
 # lm_families), layout (c) under long_500k's: the prompt ends 16 rows before
 # the data ranks' boundary, so the decode
@@ -4643,7 +4914,7 @@ def phase_train_sharded(torch, rt, dev):
 # The ranks make their shards in turn where `init_in_turns` (the whole
 # leaves' float32 draws of four ranks at once outgrew the card at
 # qwen1.5-32b's 16 layers: 8.4 GB for its largest), else all at once.
-SS_A = {"arch": "qwen1.5-32b", "layers": 4, "mesh": (2, 2), "batch": 4,
+SS_A = {"arch": "qwen1.5-32b", "layers": 2, "mesh": (2, 2), "batch": 4,
         "prompt": 2048, "s_max": 4096, "steps": 32, "bf16_steps": 8,
         "shape": "decode_32k", "init_in_turns": False}
 SS_C = {"arch": "jamba-v0.1-52b", "layers": 8, "mesh": (2, 2), "batch": 1,
@@ -4668,7 +4939,6 @@ SS_B = {"arch": "starcoder2-15b", "layers": 10, "batch": 2, "prompt": 6144,
 SS_B_SMALL = {"window": 64, "batch": 2, "prompt": 96, "s_max": 128,
               "steps": 8}
 SS_TIMEOUT_S = 600
-SS_BK = 128        # keys per KV tile of B5's bf16 body (kBK)
 
 
 def _ss_cfg(spec):
@@ -4915,12 +5185,19 @@ def _ss_rank(rank, world, tmp, tags):
             for tag in tags}
 
 
-def _ss_tile_rows(kv_len, window, bk=SS_BK) -> int:
-    """Key rows a decode block of B5 loads with its query at kv_len - 1:
-    whole KV tiles from the one that holds its oldest visible key, up to
-    kv_len (the kernel's first_tile / end_tile)."""
-    first = 0 if window is None else max(0, kv_len - window) // bk * bk
-    return kv_len - first
+def _ss_decode_rows(ref, c, window) -> dict:
+    """What a bf16 decode launch of B5 (the decode body) loads with its
+    query at kv_len - 1: each (batch, KV head, span of
+    ``ref.decode_split``) block the span's whole 64-key tiles below
+    kv_len, so each visible tile once per (batch, KV head)."""
+    kv_len = c["kv_len"]
+    split = ref.decode_split(c["B"], c["H"], c["K"], kv_len, False, window,
+                             kv_len - 1)
+    chunks = -(-(c["H"] // c["K"]) // ref.DECODE_ROWS)
+    spans = [min(e, kv_len) - a for a, e in split.spans()]
+    return {"rows": c["B"] * c["K"] * chunks * sum(spans),
+            "blocks": c["B"] * c["K"] * chunks * split.splits,
+            "max_rows": max(spans)}
 
 
 def _ss_starcoder(torch, T, dev):
@@ -4931,6 +5208,7 @@ def _ss_starcoder(torch, T, dev):
     import gc
 
     from repro_torch.kernels import ops
+    from repro_torch.kernels import ref as ops_ref
     from repro_torch.train import steps as S
     cfg = _ss_cfg(SS_B)
     params, init_s = _lm_model(torch, T, cfg, LM_SEED, dev)
@@ -4968,10 +5246,10 @@ def _ss_starcoder(torch, T, dev):
           f"serve_sharded (b): {len(counted)} launches counted their rows")
     prefill_c, decode_c = counted[:cfg.n_layers], counted[cfg.n_layers:]
     for c in decode_c:
-        want = _ss_tile_rows(c["kv_len"], cfg.window)
-        check(c["max_rows"] == want and c["rows"] == want * c["blocks"],
+        want = _ss_decode_rows(ops_ref, c, cfg.window)
+        check({x: c[x] for x in want} == want,
               f"serve_sharded (b): a decode launch at kv_len {c['kv_len']} "
-              f"loaded {c}, want {want} rows a block")
+              f"loaded {c}, want {want}")
     first, last = decode_c[0], decode_c[-1]
     out = {"layers": cfg.n_layers, "window": cfg.window,
            "batch": SS_B["batch"], "prompt": SS_B["prompt"],
@@ -4980,11 +5258,11 @@ def _ss_starcoder(torch, T, dev):
            "median_step_s": float(np.median(step_s[1:])),
            "launches_prefill": prefill_launches,
            "launches_per_step": per_step,
-           "rows_loaded_per_decode_block": {
-               "first_step": {"kv_len": first["kv_len"],
-                              "rows": first["max_rows"]},
-               "last_step": {"kv_len": last["kv_len"],
-                             "rows": last["max_rows"]}},
+           "rows_loaded_per_decode_launch": {
+               "first_step": {x: first[x] for x in ("kv_len", "rows",
+                                                    "blocks", "max_rows")},
+               "last_step": {x: last[x] for x in ("kv_len", "rows",
+                                                  "blocks", "max_rows")}},
            "rows_loaded_per_prefill_launch": {
                "rows": prefill_c[0]["rows"],
                "blocks": prefill_c[0]["blocks"],
@@ -5203,7 +5481,8 @@ def _ss_kernel_fields(res) -> dict:
                if run in res[tag]["ranks"][0]},
             "b": res["b"]["launches_prefill"]
             + sum(res["b"]["launches_per_step"])},
-        "serve_sharded_rows_loaded": res["b"]["rows_loaded_per_decode_block"],
+        "serve_sharded_rows_loaded": res["b"][
+            "rows_loaded_per_decode_launch"],
         "serve_sharded_exchange": {
             "bytes_per_rank_step": hd["exchanged_bytes_per_step"],
             "layers": res["hd"]["layers"], "kv_dtype": hd["kv_dtype"]},
@@ -5627,9 +5906,10 @@ def main(argv=None) -> int:
     resources = build.BUILD_INFO["resources"]
     # every instance of the split kernels (min_label_narrow<4>, ...)
     no_spill = [n for n in resources
-                if n in FLASH_KERNELS + BWD_KERNELS
+                if n in FLASH_KERNELS + BWD_KERNELS + DECODE_KERNELS
                 or n.startswith(SPLIT_KERNELS)]
-    for prefix in (*FLASH_KERNELS, *BWD_KERNELS, *SPLIT_KERNELS):
+    for prefix in (*FLASH_KERNELS, *BWD_KERNELS, *DECODE_KERNELS,
+                   *SPLIT_KERNELS):
         check(any(n.startswith(prefix) for n in no_spill),
               f"ptxas reports no entry for {prefix}")
     for name in no_spill:
@@ -5726,6 +6006,9 @@ def main(argv=None) -> int:
     if "flash" in run:
         flash = phase_flash(torch, rt, dev)
         emit({"phase": "flash", **flash})
+    if "decode" in run:
+        decode = phase_decode(torch, rt, dev)
+        emit({"phase": "decode", "nvidia_smi": smi, **decode})
     if "lm" in run:
         lm = phase_lm(torch, rt, dev)
         emit({"phase": "lm", "nvidia_smi": smi, **lm})
@@ -5812,17 +6095,19 @@ def main(argv=None) -> int:
                        "B5 with lse at (b)'s local shapes (q (2, 4096, 16, "
                        "128), k/v (2, 4096, 2, 128), causal); "
                        "serve_sharded_launches: the serve_sharded phase's "
-                       "mesh runs per rank, bf16 (flash_wgmma) and "
-                       "float32 (flash_fma): (a) qwen1.5-32b on (2, 2), "
-                       "4 layers, int8 cache, a prefill and 8 / 32 "
+                       "mesh runs per rank, bf16 (flash_wgmma; its "
+                       "decode steps flash_decode) and float32 "
+                       "(flash_fma): (a) qwen1.5-32b on (2, 2), "
+                       "2 layers, int8 cache, a prefill and 8 / 32 "
                        "steps; (c) jamba on (2, 2), sequence-parallel, "
                        "data rank 1 from its first row, float32; (hd) "
                        "yi-9b on (1, 8), 2 layers, head_dim split, a "
                        "prefill and 8 steps each; and (b) starcoder2-15b "
                        "on one device (10 layers, window 4096, a prefill "
                        "and 32 steps); serve_sharded_rows_loaded: the key "
-                       "rows each of (b)'s decode blocks loaded, counted "
-                       "by the kernel (ops.count_kv_rows); "
+                       "rows (b)'s first and last decode launches loaded "
+                       "(summed, blocks, the most one block loads), "
+                       "counted by the kernel (ops.count_kv_rows); "
                        "serve_sharded_exchange: the bytes each (hd) rank "
                        "received a decode step through the head_dim "
                        "all-to-all (parallel.compat.EXCHANGED), bf16; "
@@ -5834,6 +6119,27 @@ def main(argv=None) -> int:
         **_sharded_kernel_fields(sharded_train, "fwd", "flash_attention"),
         **_ss_kernel_fields(serve_sharded),
         "max_abs_err": fm["max_abs_err"], **{k: fm[k] for k in keys}})
+    dm = decode["main"]
+    rows.append({
+        "name": "flash_decode", "route": "cuda",
+        "source": KERNELS["flash_decode"][0],
+        "replaces": KERNELS["flash_decode"][1],
+        "launches": lm["serve"]["decode_launches"],
+        "launched_by": "launches: the lm phase's serve() of Yi-9B, 48 "
+                       "layers, 31 decode steps, one call per layer and "
+                       "step (each also one flash_attention launch; the "
+                       "body is two kernels, the split pass and the "
+                       "combine); checked and timed at Yi-9B's decode call "
+                       "(q (4, 1, 32, 128) over a (4, 1024, 4, 128) cache, "
+                       "kv_len 513) and at every other decode call of the "
+                       "decode phase; library_ms: SDPA over the visible "
+                       "keys copied out; *device_ms: a call's time "
+                       "replayed from a CUDA graph (no host in the way)",
+        "device_ms": dm["device_ms"],
+        "library_device_ms": dm["library_device_ms"],
+        "prefill_body_ms": dm["prefill_body_ms"],
+        "prefill_body_device_ms": dm["prefill_body_device_ms"],
+        "max_abs_err": dm["max_abs_err"], **{k: dm[k] for k in keys}})
     tk = train["kernels"]["main"]["bwd"]  # the trainer's call, bf16
     rows.append({
         "name": "flash_attention_bwd", "route": "cuda",

@@ -24,7 +24,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("label_argmax.cu", "min_label.cu", "fused_move.cu",
-           "fused_split.cu", "flash_attention.cu", "flash_attention_bwd.cu")
+           "fused_split.cu", "flash_attention.cu", "flash_attention_decode.cu",
+           "flash_attention_bwd.cu")
 HEADERS = ("lpa_common.cuh", "hopper_common.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -45,6 +46,12 @@ SIGNATURES = {
     # dtype code; stream
     "attn_flash_attention": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                              _I, _I, _I, _I, _I, _I, _I, _P),
+    # q, k, v, out, lse (or null), k / v scales (or null), the rows-read
+    # count (or null), the workspace; B, H, K, Skv (visible keys), KV rows,
+    # hd, causal, window (0: none), the query's key position, splits,
+    # tiles per split; stream
+    "attn_flash_decode": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                          _I, _I, _I, _I, _I, _I, _I, _I, _P),
     # q, k, v, out, dout, lse, stats, dq workspace, tickets (scratch), dq,
     # dk, dv; B, H, K, Sq, Skv, hd, causal, window (0: none), dtype code;
     # stream
@@ -97,7 +104,8 @@ _SERIALIZED = re.compile(r"wgmma\.mma_async instructions are serialized "
 _KERNELS = ("label_argmax_narrow", "label_argmax_wide", "label_argmax",
             "min_label_narrow", "min_label_wide", "fused_move_narrow",
             "fused_move_wide", "fused_move", "fused_split_narrow",
-            "fused_split_wide", "flash_wgmma", "flash_fma", "bwd_wgmma",
+            "fused_split_wide", "flash_wgmma", "flash_fma", "flash_decode",
+            "decode_combine", "bwd_wgmma",
             "dq_cast", "dkdv_fma", "dq_fma", "delta")
 
 

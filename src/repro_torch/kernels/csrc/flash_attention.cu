@@ -10,10 +10,10 @@
 // (H=32, K=4, hd=128) and S=4096 that is 1.37e11 operations against 75.5 MB,
 // 0.139 ms at 989 TFLOP/s against 0.023 ms at 3.35 TB/s.
 //
-// Decode (one query over a cache) is bound by bytes: B * Skv * K * hd * 2 * 2
-// of K and V, ~4.4 MB at B=4, Skv=540, K=4, hd=128, 1.3 us at 3.35 TB/s; the
-// 128-row query tile holds one real row, so the call is bound by its launch
-// and its serial KV loop, not by the bound.
+// A bf16 call with one query row (a decode step's) does not come here:
+// its 128-row query tile would hold one real row, so ops.py sends it to
+// the decode body (flash_attention_decode.cu: a KV head's query heads in
+// one tile, the cache split over blocks).  A float32 one still does.
 //
 // Semantics: one block per (query tile, head, batch); a loop over KV tiles
 // takes the place of the TPU's sequential grid dimension.  Query row i
@@ -647,25 +647,6 @@ cudaError_t launch_fma(const void* q, const void* k, const void* v, void* o,
       static_cast<const float*>(q), static_cast<const KV*>(k),
       static_cast<const KV*>(v), static_cast<float*>(o), lse, s);
   return cudaGetLastError();
-}
-
-// An int8 (B, rows, heads, hd) tensor as a 4-D map (hd, heads, S, B) whose
-// box is one head's hd bytes x `box_rows` positions, unswizzled (the
-// consumers widen it); rows past S read as zeros and are never loaded.
-CUresult encode_map8(EncodeTiled encode, CUtensorMap* map, const void* ptr,
-                     int B, int S, int rows, int heads, int hd,
-                     int box_rows) {
-  const cuuint64_t dim[4] = {(cuuint64_t)hd, (cuuint64_t)heads,
-                             (cuuint64_t)S, (cuuint64_t)B};
-  const cuuint64_t stride[3] = {(cuuint64_t)hd, (cuuint64_t)heads * hd,
-                                (cuuint64_t)rows * heads * hd};
-  const cuuint32_t box[4] = {(cuuint32_t)hd, 1, (cuuint32_t)box_rows, 1};
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 4,
-                const_cast<void*>(ptr), dim, stride, box, elem,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
 }
 
 // Returns a cudaError_t, or minus the CUresult of a failed tensor-map

@@ -1,7 +1,8 @@
-// Hopper (sm_90a) helpers shared by flash_attention.cu (B5) and
-// flash_attention_bwd.cu (B5-bwd): mbarriers, TMA and bulk copies, the
-// wgmma shared-memory descriptor and the wgmma instructions the two use,
-// and the tensor maps of the models' (B, S, heads, hd) bf16 layout.
+// Hopper (sm_90a) helpers shared by flash_attention.cu (B5),
+// flash_attention_decode.cu (B5's decode body) and flash_attention_bwd.cu
+// (B5-bwd): mbarriers, TMA and bulk copies, the wgmma shared-memory
+// descriptor and the wgmma instructions, and the tensor maps of the
+// models' (B, S, heads, hd) layout in bf16 and int8.
 //
 // Swizzled tiles: TMA's 128-byte swizzle stores 16-byte chunk c of row r
 // (a row is 128 bytes: 64 bf16) at chunk c ^ (r % 8), in atoms of 8 rows
@@ -263,6 +264,25 @@ inline CUresult encode_map(EncodeTiled encode, CUtensorMap* map,
   return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
                 const_cast<void*>(ptr), dim, stride, box, elem,
                 CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+}
+
+// An int8 (B, rows, heads, hd) tensor as a 4-D map (hd, heads, S, B) whose
+// box is one head's hd bytes x `box_rows` positions, unswizzled (the
+// consumers widen it); rows past S read as zeros and are never loaded.
+inline CUresult encode_map8(EncodeTiled encode, CUtensorMap* map,
+                            const void* ptr, int B, int S, int rows,
+                            int heads, int hd, int box_rows) {
+  const cuuint64_t dim[4] = {(cuuint64_t)hd, (cuuint64_t)heads,
+                             (cuuint64_t)S, (cuuint64_t)B};
+  const cuuint64_t stride[3] = {(cuuint64_t)hd, (cuuint64_t)heads * hd,
+                                (cuuint64_t)rows * heads * hd};
+  const cuuint32_t box[4] = {(cuuint32_t)hd, 1, (cuuint32_t)box_rows, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 4,
+                const_cast<void*>(ptr), dim, stride, box, elem,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
 }

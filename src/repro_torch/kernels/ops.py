@@ -22,7 +22,14 @@ grad the launch is the serving one, which writes no ``lse``.  B5 and
 B5-bwd take a sliding window; B5 also takes an int8 K / V cache with its
 per-(row, KV head) scales (serving only: B5-bwd has none), and
 ``flash_attention_fwd`` returns ``lse`` beside the output for any of
-them (a sequence-parallel decode combines its ranks by it).
+them (a sequence-parallel decode combines its ranks by it).  A bf16 B5
+call with one query row (a decode step's) runs the decode body
+(``csrc/flash_attention_decode.cu``): blocks per (batch, KV head, span
+of the visible keys), the spans cut by ``ref.decode_split`` and
+combined in a fixed order through a float32 workspace allocated per
+call; ``LAUNCHES["flash_decode"]`` counts those calls, each also one
+``LAUNCHES["flash_attention"]``.  Every other call runs
+``csrc/flash_attention.cu``.
 
 ``count_kv_rows()`` makes the B5 launches inside it also count the key
 rows their blocks load (what a window or ``kv_len`` leaves out of the
@@ -59,7 +66,8 @@ __all__ = ["LAUNCHES", "MAX_DEGREE", "count_kv_rows", "flash_attention",
 # Kernel launches per op since the last reset (CUDA path only).
 LAUNCHES: dict[str, int] = {"label_argmax": 0, "min_label": 0,
                             "fused_move": 0, "fused_split": 0,
-                            "flash_attention": 0, "flash_attention_bwd": 0}
+                            "flash_attention": 0, "flash_decode": 0,
+                            "flash_attention_bwd": 0}
 MAX_DEGREE = 1024  # widest tile row the kernels take (shared-memory rows)
 # What the flash-attention kernel takes: element type -> its dtype code.
 _ATTN_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -93,12 +101,13 @@ def count_kv_rows():
 
     Yields a list that gets one dict per launch on leaving the block:
     ``rows`` (summed over the launch's blocks, one per batch, query head
-    and query tile), ``blocks`` and ``max_rows`` (the most one block
-    loads), as the kernel counted them; its shape and masks beside
+    and query tile; in the decode body one per batch, KV head and span of
+    ``ref.decode_split``), ``blocks`` and ``max_rows`` (the most one
+    block loads), as the kernel counted them; its shape and masks beside
     (``B``, ``H``, ``K``, ``Sq``, ``kv_len``, ``window``, ``q_offset``).
     A block loads whole KV tiles from the one that holds its oldest
-    visible key, and nothing at or past ``kv_len``.  CPU calls add
-    nothing."""
+    visible key (in the decode body, its span's tiles), and nothing at or
+    past ``kv_len``.  CPU calls add nothing."""
     global _KV_ROWS
     outer, _KV_ROWS = _KV_ROWS, []
     got = []
@@ -390,14 +399,28 @@ def _meta_attention(name: str, per_pair: int, q, kv, mask: dict, tensors,
                     moved + b * rows * kv_row)
 
 
+def _decode_work(q, split) -> torch.Tensor:
+    """The decode body's float32 workspace: each span's (acc[hd], m, l)
+    per batch and query head, sized from host ints."""
+    b, _sq, h, hd = q.shape
+    return torch.empty(b * h * split.splits * (hd + 2), dtype=torch.float32,
+                       device=q.device)
+
+
 def _flash_launch(q, k, v, causal: bool, kv_len: int, lse=None,
                   window=None, q_offset: int = 0, k_scale=None,
                   v_scale=None):
     """One B5 launch into a new output; ``lse`` (B, H, Sq) float32, if
-    given, takes each query row's log-sum-exp."""
+    given, takes each query row's log-sum-exp.  A bf16 call with one
+    query row runs the decode body."""
     b, sq, h, hd = q.shape
     skv, kk = k.shape[1], k.shape[2]
+    split = None
+    if sq == 1 and b and q.dtype == torch.bfloat16:
+        split = ref.decode_split(b, h, kk, kv_len, causal, window, q_offset)
     if q.device.type == "meta":
+        if split is not None:
+            _decode_work(q, split)
         out = torch.empty_like(q)
         kv = [t for t in (k, v, k_scale, v_scale) if t is not None]
         _meta_attention("flash_attention", 4, q, kv,
@@ -416,12 +439,22 @@ def _flash_launch(q, k, v, causal: bool, kv_len: int, lse=None,
         _KV_ROWS.append((counts, {"B": b, "H": h, "K": kk, "Sq": sq,
                                   "kv_len": kv_len, "window": window,
                                   "q_offset": q_offset}))
-    if sq and b:
+    scales = [None if t is None else t.data_ptr()
+              for t in (k_scale, v_scale)]
+    if split is not None:
+        work = _decode_work(q, split)
         _launch("flash_attention", q.device, q.data_ptr(), k.data_ptr(),
                 v.data_ptr(), out.data_ptr(),
-                None if lse is None else lse.data_ptr(),
-                None if k_scale is None else k_scale.data_ptr(),
-                None if v_scale is None else v_scale.data_ptr(),
+                None if lse is None else lse.data_ptr(), *scales,
+                None if counts is None else counts.data_ptr(),
+                work.data_ptr(), b, h, kk, kv_len, skv, hd,
+                int(bool(causal)), window or 0, q_offset, split.splits,
+                split.per_split, symbol="attn_flash_decode")
+        LAUNCHES["flash_decode"] += 1
+    elif sq and b:
+        _launch("flash_attention", q.device, q.data_ptr(), k.data_ptr(),
+                v.data_ptr(), out.data_ptr(),
+                None if lse is None else lse.data_ptr(), *scales,
                 None if counts is None else counts.data_ptr(), b, h, kk,
                 sq, kv_len, skv, hd, int(bool(causal)), window or 0,
                 q_offset, _ATTN_DTYPE_CODE[q.dtype],

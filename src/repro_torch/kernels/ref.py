@@ -10,11 +10,17 @@ them on the card.  ``labels[:rows]`` is each row's own label.
 ``models/attention.py`` at positions ``arange``;
 ``attention_lse_ref`` its per-row log-sum-exp and
 ``flash_attention_bwd_ref`` its gradient through autograd, in float32.
+``flash_decode_ref`` is B5's decode body (one query row a head) in
+float32: the visible keys cut by ``decode_split`` as the kernel cuts
+them, each span's partial softmax, the spans combined in order.
 
 The CPU path of every op runs these; ``chip_smoke.py`` holds each CUDA
 kernel against them on the card.
 """
 from __future__ import annotations
+
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -193,3 +199,105 @@ def flash_attention_bwd_ref(q, k, v, do, causal: bool,
         out = flash_attention_ref(q32, k32, v32, causal, window=window)
         dq, dk, dv = torch.autograd.grad(out, (q32, k32, v32), do.float())
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+# B5's decode body (csrc/flash_attention_decode.cu): keys per tile (kBK),
+# query rows per block (kRows; a CPU test holds both to the source), and
+# the blocks a call aims for, two per SM of a 132-SM H100: a constant, so
+# the split, and the bits, never depend on the device.
+DECODE_TILE = 64
+DECODE_ROWS = 16
+DECODE_BLOCKS = 264
+
+
+class DecodeSplit(NamedTuple):
+    """The visible keys [lo, hi] of a decode call, their tiles [tile0,
+    tile0 + n_tiles) of ``DECODE_TILE`` keys, and the spans: ``splits``
+    runs of ``per_split`` tiles from tile0, the last cut at the end."""
+    lo: int
+    hi: int
+    tile0: int
+    n_tiles: int
+    splits: int
+    per_split: int
+
+    def spans(self) -> list[tuple[int, int]]:
+        """Each span's keys [start, end): whole tiles."""
+        t = DECODE_TILE
+        end = (self.tile0 + self.n_tiles) * t
+        return [((self.tile0 + i * self.per_split) * t,
+                 min((self.tile0 + (i + 1) * self.per_split) * t, end))
+                for i in range(self.splits)]
+
+
+@functools.lru_cache(maxsize=256)
+def decode_split(b: int, h: int, kk: int, kv_len: int, causal: bool,
+                 window: int | None, q_offset: int) -> DecodeSplit:
+    """How B5's decode body cuts the visible keys of one query row at key
+    position ``q_offset`` (keys at or past ``kv_len`` masked, after
+    ``q_offset`` under ``causal``, ``window`` or more before it under a
+    window): into spans of whole tiles, one block each per (batch, KV
+    head, row chunk of ``DECODE_ROWS`` query heads), as many as make
+    about ``DECODE_BLOCKS`` blocks, no span empty.  From the shape alone:
+    ``ops`` launches with it and ``flash_decode_ref`` combines by it.
+    Cached: a decode step makes the same call once a layer."""
+    hi = min(q_offset, kv_len - 1) if causal else kv_len - 1
+    lo = max(q_offset - window + 1, 0) if window else 0
+    if lo > hi:
+        raise ValueError(f"the query at {q_offset} sees no key under "
+                         f"kv_len {kv_len} and window {window}")
+    tile0 = lo // DECODE_TILE
+    n = hi // DECODE_TILE + 1 - tile0
+    chunks = -(-(h // kk) // DECODE_ROWS)
+    per = -(-n // min(n, -(-DECODE_BLOCKS // (b * kk * chunks))))
+    return DecodeSplit(lo, hi, tile0, n, -(-n // per), per)
+
+
+def flash_decode_ref(q, k, v, causal: bool, kv_len: int | None = None,
+                     window: int | None = None, q_offset: int = 0,
+                     k_scale=None, v_scale=None):
+    """B5's decode body for q (B, 1, H, hd) over k / v (B, Skv, K, hd) (int8
+    with ``k_scale`` / ``v_scale`` (B, Skv, K, 1)), the masks of
+    ``flash_attention_ref``: (out in q's dtype, lse (B, H, 1) float32).
+
+    In float32: the visible keys cut by ``decode_split``; per span and
+    query head the raw maximum m, l = sum exp(scale (s - m)) and acc =
+    sum exp(scale (s - m)) v; the spans combined in order 0 .. S - 1 by
+    their weights exp(scale (m - M)) (a span that sees no key weighs 0,
+    as in ``parallel.compat.lse_merge``); out = acc / max(l, 1e-30) and
+    lse = M scale + log(max(l, 1e-30))."""
+    b, sq, h, hd = q.shape
+    kk = k.shape[2]
+    if sq != 1:
+        raise ValueError(f"the decode body takes one query row, got {sq}")
+    kv_len = k.shape[1] if kv_len is None else kv_len
+    split = decode_split(b, h, kk, kv_len, causal, window, q_offset)
+    kf = k.float() if k_scale is None else k.float() * k_scale.float()
+    vf = v.float() if v_scale is None else v.float() * v_scale.float()
+    qg = q.float().reshape(b, kk, h // kk, hd)
+    scale = 1.0 / (hd ** 0.5)
+    none = torch.full((b, kk, h // kk), float("-inf"), device=q.device)
+    m_all = none
+    parts = []
+    for start, end in split.spans():
+        a, e = max(start, split.lo), min(end, split.hi + 1)
+        if e <= a:      # a span that sees no key
+            parts.append((none, torch.zeros_like(none),
+                          torch.zeros_like(qg)))
+            continue
+        s = torch.einsum("bkgd,bckd->bkgc", qg, kf[:, a:e])
+        m = s.amax(-1)
+        p = torch.exp(scale * (s - m[..., None]))
+        parts.append((m, p.sum(-1), torch.einsum("bkgc,bckd->bkgd", p,
+                                                 vf[:, a:e])))
+        m_all = torch.maximum(m_all, m)
+    l_all = torch.zeros_like(none)
+    acc = torch.zeros_like(qg)
+    for m, l, part in parts:
+        w = torch.where(m == float("-inf"), 0.0,
+                        torch.exp(scale * (m - m_all)))
+        l_all = l_all + l * w
+        acc = acc + part * w[..., None]
+    den = l_all.clamp_min(1e-30)
+    out = (acc / den[..., None]).reshape(b, 1, h, hd).to(q.dtype)
+    return out, (m_all * scale + torch.log(den)).reshape(b, h, 1)

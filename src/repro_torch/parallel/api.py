@@ -26,7 +26,7 @@ import contextlib
 import contextvars
 import dataclasses
 
-from repro_torch.parallel.compat import axis_names
+from repro_torch.parallel.compat import axis_names, axis_sizes
 
 __all__ = ["MeshRules", "Sharding", "active_rules", "gather_tree",
            "normalize_spec", "placements", "shard_hint", "shard_tree",
@@ -38,8 +38,16 @@ _ACTIVE: contextvars.ContextVar = contextvars.ContextVar("mesh_rules",
 
 def placements(mesh, spec: tuple) -> list:
     """``torch.distributed.tensor`` placements of physical ``spec`` on
-    ``mesh``, one per mesh dimension."""
+    ``mesh``, one per mesh dimension.
+
+    On a mesh of one rank every placement is ``Replicate()``: a shard
+    over it holds the whole tensor, and DTensor refuses views that merge
+    or drop a dimension it shards, even one of size 1 (a global batch of
+    one)."""
     from torch.distributed.tensor import Replicate, Shard
+    sizes = axis_sizes(mesh).values()
+    if all(n == 1 for n in sizes):
+        return [Replicate()] * len(sizes)
     out = []
     for name in axis_names(mesh):
         dim = next((i for i, s in enumerate(spec)

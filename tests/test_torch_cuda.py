@@ -1186,12 +1186,14 @@ def test_cuda_flash_attention_window_and_int8_match_plain(case, dtype):
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("q8", [False, True])
 def test_cuda_flash_attention_counts_rows_loaded(dtype, q8):
-    """``ops.count_kv_rows``: each block of a window decode loads the
-    whole KV tiles from the one that holds its oldest visible key up to
-    kv_len, each block of a causal prefill the tiles up to its last
-    row's diagonal (tiles of 128 keys in the bf16 body, 64 in float32's,
-    as tall as its query tiles); the output bit-equal to a launch that
-    counts nothing."""
+    """``ops.count_kv_rows``: a bf16 window decode (the decode body) loads
+    each visible 64-key tile, from the one that holds the oldest visible
+    key up to kv_len, once per (batch, KV head), its blocks the spans of
+    ``ref.decode_split``; in float32 each block (one per query head)
+    loads those tiles of 64 keys whole; each block of a causal prefill
+    the tiles up to its last row's diagonal (tiles of 128 keys in the
+    bf16 body, 64 in float32's, as tall as its query tiles); the output
+    bit-equal to a launch that counts nothing."""
     need_card()
     from repro_torch.models.attention import quantize_kv
     bk = 128 if dtype == torch.bfloat16 else 64
@@ -1209,10 +1211,17 @@ def test_cuda_flash_attention_counts_rows_loaded(dtype, q8):
     with ops.count_kv_rows() as got:
         out = ops.flash_attention(q, kc, vc, **kw)
     assert torch.equal(out, plain)
-    per_block = kv_len - (kv_len - window) // bk * bk
     assert len(got) == 1
-    assert (got[0]["blocks"], got[0]["max_rows"], got[0]["rows"]) == (
-        b * h, per_block, b * h * per_block)
+    if dtype == torch.bfloat16:
+        split = ref.decode_split(b, h, k, kv_len, True, window, kv_len - 1)
+        spans = [min(e, kv_len) - a for a, e in split.spans()]
+        assert sum(spans) == kv_len - (kv_len - window) // 64 * 64
+        assert (got[0]["blocks"], got[0]["max_rows"], got[0]["rows"]) == (
+            b * k * split.splits, max(spans), b * k * sum(spans))
+    else:
+        per_block = kv_len - (kv_len - window) // bk * bk
+        assert (got[0]["blocks"], got[0]["max_rows"], got[0]["rows"]) == (
+            b * h, per_block, b * h * per_block)
     # a causal prefill of sq rows over its own keys
     sq = 300
     q = torch.randn(b, sq, h, hd, device="cuda", generator=gen).to(dtype)
@@ -1225,6 +1234,61 @@ def test_cuda_flash_attention_counts_rows_loaded(dtype, q8):
     want = [min((t + 1) * bk, sq) for t in range(tiles)]
     assert (got[0]["blocks"], got[0]["max_rows"], got[0]["rows"]) == (
         b * h * tiles, sq, b * h * sum(want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [
+    # (b, h, k, hd, rows, kv_len, q_offset, window, causal, int8)
+    (4, 32, 4, 128, 1024, 513, 512, None, False, False),   # Yi-9B's step
+    (2, 48, 4, 128, 8192, 6176, 6175, 4096, False, False), # starcoder2-15b
+    (4, 48, 8, 128, 2048, 1537, 1536, None, False, False), # G = 6
+    (4, 16, 16, 64, 1024, 513, 512, None, False, False),   # hd 64, G = 1
+    (4, 16, 16, 64, 32, 32, 0, None, False, False),        # cross decode
+    (2, 24, 24, 128, 4096, 2080, 2079, None, True, True),  # int8 cache
+    (2, 16, 2, 64, 700, 399, 398, 129, True, True),        # int8 + window
+    (1, 16, 4, 128, 256, 256, 300, 100, True, False),      # an SP rank
+    (1, 20, 1, 64, 300, 290, 289, None, False, False),     # 2 row chunks
+    (3, 8, 2, 128, 64, 1, 0, None, True, False),           # one key
+])
+def test_cuda_decode_body_matches_plain(case):
+    """B5's decode body (every bf16 call with one query row) against its
+    plain version ``ref.flash_decode_ref`` (the same split, float32) and
+    the chunked oracle, 8e-3 relative; lse within 1e-3; two launches
+    bit-equal, each counted once under flash_attention and flash_decode;
+    the key rows its blocks load those of the visible tiles, once per
+    (batch, KV head, row chunk)."""
+    need_card()
+    from repro_torch.models.attention import quantize_kv
+    b, h, k, hd, rows, kv_len, q_off, window, causal, q8 = case
+    gen = torch.Generator(device="cuda").manual_seed(sum(case[:7]))
+    q = torch.randn(b, 1, h, hd, device="cuda", generator=gen).bfloat16()
+    kc, vc = (torch.randn(b, rows, k, hd, device="cuda", generator=gen)
+              .bfloat16() for _ in range(2))
+    kc[:, kv_len:] = 1e4
+    ks = vs = None
+    if q8:
+        (kc, ks), (vc, vs) = quantize_kv(kc), quantize_kv(vc)
+    kw = dict(causal=causal, kv_len=kv_len, window=window, q_offset=q_off,
+              k_scale=ks, v_scale=vs)
+    before = dict(ops.LAUNCHES)
+    out, lse = ops.flash_attention_fwd(q, kc, vc, **kw)
+    again = ops.flash_attention(q, kc, vc, **kw)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["flash_decode"] == before["flash_decode"] + 2
+    assert ops.LAUNCHES["flash_attention"] == before["flash_attention"] + 2
+    assert torch.equal(out, again)
+    want, want_lse = ref.flash_decode_ref(q, kc, vc, **kw)
+    assert rel_err(out, want) < 8e-3
+    assert rel_err(out, ref.flash_attention_ref(q, kc, vc, **kw)) < 8e-3
+    assert float((lse - want_lse).abs().max()) < 1e-3
+    with ops.count_kv_rows() as got:
+        assert torch.equal(ops.flash_attention(q, kc, vc, **kw), out)
+    split = ref.decode_split(b, h, k, kv_len, causal, window, q_off)
+    chunks = -(-(h // k) // ref.DECODE_ROWS)
+    spans = [min(e, kv_len) - a for a, e in split.spans()]
+    n = b * k * chunks
+    assert (got[0]["blocks"], got[0]["max_rows"], got[0]["rows"]) == (
+        n * split.splits, max(spans), n * sum(spans))
 
 
 SERVE_MESH_SCRIPT = """
